@@ -1,0 +1,66 @@
+"""Multitask Gaussian likelihood (port of
+``projected_lmc_tpu/likelihoods.MultitaskGaussianLikelihood``).
+
+Σt = F Fᵀ (rank > 0) or diag(task_noises) (rank 0), plus σ²_global I, as
+gpytorch's MultitaskGaussianLikelihood(num_tasks, rank)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import constraints
+from .module import Module
+from .utils.device import resolve_device
+
+
+class MultitaskGaussianLikelihood(Module):
+    def __init__(self, num_tasks: int, rank: int = 0,
+                 has_global_noise: bool = True, has_task_noise: bool = True,
+                 noise_constraint=None, seed: int = 0, dtype=torch.float32,
+                 device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.num_tasks = int(num_tasks)
+        self.rank = int(rank)
+        self.has_global_noise = bool(has_global_noise)
+        self.has_task_noise = bool(has_task_noise)
+        self.constraint = noise_constraint or constraints.GreaterThan(1e-4)
+        rng = np.random.default_rng(seed)
+        if self.has_global_noise:
+            self.register_raw("raw_noise", torch.zeros((1,)), dtype, dev)
+        if self.has_task_noise:
+            if self.rank > 0:
+                self.register_raw(
+                    "task_noise_covar_factor",
+                    rng.standard_normal((self.num_tasks, self.rank)), dtype, dev)
+            else:
+                self.register_raw("raw_task_noises",
+                                  torch.zeros((self.num_tasks,)), dtype, dev)
+
+    @property
+    def noise(self):
+        return self.constraint.forward(self.raw_noise)
+
+    @property
+    def task_noises(self):
+        if not (self.has_task_noise and self.rank == 0):
+            raise AttributeError("task_noises only defined for rank=0 "
+                                 "likelihoods")
+        return self.constraint.forward(self.raw_task_noises)
+
+    def task_covariance(self):
+        """Dense (T, T) noise covariance Σt."""
+        p = self.num_tasks
+        ref = next(self.parameters())
+        sigma = torch.zeros((p, p), dtype=ref.dtype, device=ref.device)
+        if self.has_task_noise:
+            if self.rank > 0:
+                F = self.task_noise_covar_factor
+                sigma = sigma + F @ F.T
+            else:
+                sigma = sigma + torch.diag(self.task_noises)
+        if self.has_global_noise:
+            sigma = sigma + self.noise[0] * torch.eye(p, dtype=ref.dtype,
+                                                      device=ref.device)
+        return sigma

@@ -1,0 +1,211 @@
+"""Exact multitask GP, LMC coregionalization, on the fused iterative MLL
+(port of the main-path subset of ``projected_lmc_tpu/models/multitask.py``).
+
+Σ = Σ_b K_b ⊗ h_b h_bᵀ + I ⊗ Σt with one stationary kernel per latent and
+rank-1 task factors h_b (``covar_factor``, SVD-initialized from the labels).
+The marginal likelihood is the fused op of ``ops/fused_mll.py``: stack build
+(kernel K1), Nyström-preconditioned CG with Lanczos quadrature, and a
+backward through kernel K2; the preconditioner's landmark blocks are
+kernel K3.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..constraints import softplus
+from ..kernels import KERNEL_REGISTRY, ScaleKernel, handle_covar
+from ..likelihoods import MultitaskGaussianLikelihood
+from ..means import MEAN_REGISTRY
+from ..module import Module
+from ..ops import fused_mll
+from ..ops import iterative as it_ops
+from ..ops.init_ops import init_lmc_coefficients
+from ..utils.device import resolve_device
+
+
+def _resolve(registry, spec, default, what):
+    spec = default if spec is None else spec
+    if not isinstance(spec, str):
+        return spec
+    if spec not in registry:
+        raise NotImplementedError(f"{what} {spec!r} is ported in a later slice")
+    return registry[spec]
+
+
+def _canon_targets(y, n_tasks):
+    """(n,), (n, T) or (T, n) targets as (T, n); a square input is (n, T)."""
+    if y.dim() == 1:
+        if n_tasks != 1:
+            raise ValueError("1-d targets require n_tasks == 1")
+        return y[None, :]
+    if y.shape[0] == n_tasks and y.shape[1] != n_tasks:
+        return y
+    return y.T
+
+
+def _fused_stationary_spec(cov, dim):
+    """(kind, lengthscale (q, 1, d), outputscale (q,)) when ``cov`` is a bare
+    or Scale-wrapped stationary kernel over all ``dim`` features — what the
+    fused MLL builds internally; None otherwise."""
+    base, os_ = cov, None
+    if isinstance(cov, ScaleKernel):
+        base, os_ = cov.base_kernel, cov.outputscale
+    kind = getattr(base, "_kind", None)
+    full_slice = (base.active_dims is None
+                  or tuple(base.active_dims) == tuple(range(int(dim))))
+    if kind is None or not full_slice:
+        return None
+    if os_ is None:
+        os_ = torch.ones((base.batch,), dtype=base.lengthscale.dtype,
+                         device=base.device)
+    return kind, base.lengthscale, os_
+
+
+class MultitaskGPModel(Module):
+    """Exact LMC multitask GP (projected_lmc.py:438-656), fused iterative MLL.
+
+    ``device`` defaults to ``"cuda"``; pass ``device="cpu"`` for the plain
+    PyTorch versions of the kernels. Parameters keep the JAX package's raw
+    leaves and names, so ``utils.checkpoint.load_jax_state`` carries a JAX
+    model's state over."""
+
+    DENSE_QN_MAX = 4096
+
+    def __init__(self, train_x, train_y, likelihood=None, n_tasks=None,
+                 n_latents: int = 1, model_type: str = "ICM",
+                 init_lmc_coeffs: bool = True, fix_diagonal: bool = False,
+                 mean_type="constant", kernel_type="rbf", decomp=None,
+                 prior_scales=None, prior_width=None, ker_kwargs=None,
+                 n_inducing_points=None, seed: int = 0, device="cuda",
+                 **kwargs):
+        super().__init__()
+        if model_type not in ("ICM", "LMC"):
+            raise ValueError("Wrong specified model type, should be ICM or LMC")
+        if model_type == "ICM" or n_inducing_points is not None:
+            raise NotImplementedError("the ICM and SGPR models are ported in "
+                                      "later slices")
+        dev = resolve_device(device)
+        x_host = np.asarray(train_x)
+        y_host = np.asarray(train_y, x_host.dtype)
+        x = torch.as_tensor(x_host, device=dev)
+        if x.dim() == 1:
+            x = x[:, None]
+        dtype = x.dtype
+        y = torch.as_tensor(y_host, dtype=dtype, device=dev)
+        if n_tasks is None:
+            n_tasks = y.shape[-1]
+        self.register_buffer("train_x", x)
+        self.register_buffer("train_y", _canon_targets(y, n_tasks).contiguous())
+        if likelihood is None:
+            likelihood = MultitaskGaussianLikelihood(
+                num_tasks=n_tasks, rank=0, seed=seed, dtype=dtype, device=dev)
+        self.likelihood = likelihood
+        self.n_tasks, self.n_latents = int(n_tasks), int(n_latents)
+        self.model_type = model_type
+        self.dim = int(x.shape[1])
+
+        mean_cls = _resolve(MEAN_REGISTRY, mean_type, "constant", "mean")
+        self.mean_module = mean_cls(input_size=self.dim, batch_shape=n_tasks,
+                                    dtype=dtype, device=dev)
+        self.covar_module = handle_covar(
+            _resolve(KERNEL_REGISTRY, kernel_type, "rbf", "kernel"),
+            dim=self.dim, decomp=decomp, prior_scales=prior_scales,
+            prior_width=prior_width, outputscales=False, n_funcs=n_latents,
+            ker_kwargs=ker_kwargs, dtype=dtype, device=dev)
+
+        rng = np.random.default_rng(seed)
+        if init_lmc_coeffs:
+            yh = y_host
+            if yh.ndim == 1:
+                yh = yh[:, None]
+            elif yh.shape[0] == n_tasks and yh.shape[1] != n_tasks:
+                yh = yh.T                                       # (n, T)
+            factor = np.asarray(init_lmc_coefficients(yh, n_latents)).T
+        else:
+            factor = rng.standard_normal((n_tasks, n_latents))
+        # q rank-1 coregionalizations, each with its own kernel copy
+        self.register_raw("covar_factor", factor.T[..., None], dtype, dev)
+        # diagonal of the task covariances; fix_diagonal freezes it at −10
+        shape = (n_latents, n_tasks)
+        if fix_diagonal:
+            self._frozen_params_ = ("raw_var",)
+            self.register_raw("raw_var", np.full(shape, -10.0), dtype, dev)
+        else:
+            self.register_raw("raw_var", rng.standard_normal(shape), dtype, dev)
+
+    @property
+    def device(self):
+        return self.train_x.device
+
+    def task_covar_matrix(self):
+        """Per-latent rank-1 B_b = h_b h_bᵀ + diag(softplus(raw_var_b)),
+        (q, T, T)."""
+        F = self.covar_factor
+        return F @ F.transpose(-1, -2) + torch.diag_embed(
+            softplus(self.raw_var))
+
+    def _lmc_extra_diag(self):
+        """Σ_b diag(softplus(raw_var_b)): the per-task variance capacity,
+        carried as a white task-covariance term (see the JAX model)."""
+        return softplus(self.raw_var).sum(0)
+
+    def _precond_roots(self, x, rank: int, jitter: float = 1e-4):
+        """Nyström roots of the latent kernels at strided landmarks,
+        (q, n, rank) (ops.iterative.nystrom_roots_from_covar)."""
+        return it_ops.nystrom_roots_from_covar(self.covar_module, x, rank,
+                                               jitter)
+
+    def mll(self, x=None, y=None, iterative: bool = None, num_probes: int = 10,
+            max_cg_iters: int = 256, cg_tol: float = 1e-2,
+            matvec_bf16: bool = False, precond_rank: int = 0,
+            quad_method: str = "pcg", precond_roots=None,
+            matvec_int8: bool = False, eps=None, xi=None, generator=None):
+        """Exact multitask MLL / (n·T), plus hyper-prior terms, through the
+        fused PCG estimator (``iterative``, ``precond_rank > 0``,
+        ``quad_method="pcg"``).
+
+        eps (num_probes, n, T) and xi (num_probes, q, rank) are the standard
+        normals of the probes; when not given they are drawn from
+        ``generator`` (a fresh ``torch.Generator`` seeded 0 when None, as the
+        JAX model draws from ``PRNGKey(0)`` without a key).
+        ``precond_roots`` (q, n, rank): caller-supplied, possibly stale,
+        Nyström roots; the estimator is exact for any SPD preconditioner."""
+        x = self.train_x if x is None else x
+        y = self.train_y if y is None else _canon_targets(
+            torch.as_tensor(y, dtype=x.dtype, device=x.device), self.n_tasks)
+        n = x.shape[0]
+        if iterative is None:
+            iterative = self.n_latents * n > self.DENSE_QN_MAX
+        if not iterative:
+            raise NotImplementedError("the dense Woodbury LMC MLL is ported "
+                                      "in a later slice; pass iterative=True")
+        if precond_rank <= 0 or quad_method != "pcg":
+            raise NotImplementedError("only the Nyström-preconditioned "
+                                      "quad_method='pcg' route is ported")
+        spec = _fused_stationary_spec(self.covar_module, self.dim)
+        if spec is None:
+            raise NotImplementedError("the composed kernel→log-prob route is "
+                                      "ported in a later slice")
+        kind, ls, os_ = spec
+        Ydelta = y.T - self.mean_module(x).T                    # (n, T)
+        H = self.covar_factor[..., 0].T                         # (T, q)
+        St = self.likelihood.task_covariance() \
+            + torch.diag(self._lmc_extra_diag())
+        if eps is None or xi is None:
+            if generator is None:
+                generator = torch.Generator(device=x.device).manual_seed(0)
+            draw = dict(generator=generator, dtype=Ydelta.dtype,
+                        device=x.device)
+            eps = torch.randn((num_probes, n, self.n_tasks), **draw)
+            xi = torch.randn((num_probes, self.n_latents,
+                              min(precond_rank, n)), **draw)
+        if precond_roots is None:
+            with torch.no_grad():
+                precond_roots = self._precond_roots(x, precond_rank)
+        ll = fused_mll.lmc_pcg_log_prob_stationary(
+            x, ls, os_, H, St, Ydelta, eps, xi, precond_roots, kind,
+            max_cg_iters, cg_tol, matvec_bf16, precond_rank, matvec_int8,
+            device=x.device)
+        return (ll + self.covar_module.prior_log_prob()) / (n * self.n_tasks)

@@ -1,0 +1,95 @@
+"""PSD-safe Cholesky with an escalating jitter ladder and a hand-written
+backward (port of ``projected_lmc_tpu/ops/cholesky.py``).
+
+The JAX ladder is a ``lax.while_loop`` that decides on the device: a failed
+factorization there yields NaNs, which is the loop's predicate. Here
+``torch.linalg.cholesky_ex`` reports failure in ``info`` without a host
+sync; a failed factor is set to NaN, and the whole ladder (the plain factor
+and ``max_tries`` jittered ones) runs as masked selects, so the choice is
+made on the device as well. The jitter picked is the first that factors
+every batch element, as in JAX.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# gpytorch.settings.cholesky_jitter defaults: 1e-6 (float32) / 1e-8 (float64)
+_BASE_JITTER = {torch.float32: 1e-6, torch.float64: 1e-8, torch.bfloat16: 1e-3}
+MAX_TRIES = 8
+
+
+def cholesky_nan(A):
+    """Lower Cholesky factor; NaN where a batch element is not positive
+    definite (JAX's failure mode), with no host sync."""
+    L, info = torch.linalg.cholesky_ex(A)
+    bad = (info != 0)[..., None, None]
+    return torch.where(bad, torch.full_like(L, float("nan")), L)
+
+
+def _all_finite(L):
+    return torch.isfinite(L).all()
+
+
+def _jittered_cholesky(A, max_tries: int):
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    L = cholesky_nan(A)
+    ok = _all_finite(L)
+    jitter = _BASE_JITTER.get(A.dtype, 1e-6)
+    for _ in range(max_tries):
+        Lj = cholesky_nan(A + jitter * eye)
+        L = torch.where(ok, L, Lj)
+        ok = ok | _all_finite(Lj)
+        jitter *= 10.0
+    return L
+
+
+def _phi(X):
+    """tril with halved diagonal — the Cholesky pullback projector."""
+    return torch.tril(X) - 0.5 * torch.diag_embed(
+        torch.diagonal(X, dim1=-2, dim2=-1))
+
+
+class _SafeCholesky(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, A, max_tries):
+        L = _jittered_cholesky(A, max_tries)
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    def backward(ctx, L_bar):
+        (L,) = ctx.saved_tensors
+        # A_bar = L^{-T} Φ(Lᵀ L̄) L^{-1}, symmetrized (callers build A
+        # symmetrically)
+        Lt = L.transpose(-1, -2)
+        P = _phi(Lt @ L_bar)
+        X = torch.linalg.solve_triangular(Lt, P, upper=True)
+        A_bar = torch.linalg.solve_triangular(
+            Lt, X.transpose(-1, -2), upper=True).transpose(-1, -2)
+        return 0.5 * (A_bar + A_bar.transpose(-1, -2)), None
+
+
+def safe_cholesky(A, max_tries: int = MAX_TRIES):
+    """Lower Cholesky factor of ``A`` (+ escalating jitter on failure),
+    batched over leading dimensions."""
+    return _SafeCholesky.apply(A, max_tries)
+
+
+def solve_triangular(L, B, *, lower=True, trans=False):
+    """Batched triangular solve op(L) X = B."""
+    if trans:
+        return torch.linalg.solve_triangular(L.transpose(-1, -2), B,
+                                             upper=lower)
+    return torch.linalg.solve_triangular(L, B, upper=not lower)
+
+
+def cho_solve(L, B):
+    """Solve (L Lᵀ) X = B given the lower factor L; batched."""
+    return torch.cholesky_solve(B, L, upper=False)
+
+
+def logdet_from_chol(L):
+    """log det(L Lᵀ) = 2 Σ log diag(L); batched."""
+    return 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)

@@ -1,0 +1,259 @@
+"""The main path's hand-written CUDA kernels and their plain PyTorch versions.
+
+Port of ``projected_lmc_tpu/ops/pallas_kernels.py``, the three TPU kernels
+that the exact-LMC training step reaches. The CUDA sources are in
+``csrc/stationary.cu`` (built by ``ops/_build.py`` on first use).
+
+Each wrapper takes a ``device`` argument (default ``"cuda"``) and requires its
+tensors to lie there. A CUDA tensor goes to the kernel, or the wrapper raises
+(wrong dtype, shape or layout, or a refused launch). A CPU tensor, with
+``device="cpu"``, goes to the plain version: the JAX package's dense XLA
+formula, with d² summed from direct differences as in the kernels; the CPU
+tests hold it against JAX. Each wrapper
+counts its launches in ``<wrapper>.launches``, incremented only where the
+kernel is launched.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..utils.device import check_device
+from . import _build
+
+KINDS = {"rbf": 0, "matern05": 1, "matern15": 2, "matern25": 3}
+MAX_FEATURES = 8          # DMAX in csrc/stationary.cu
+
+
+def profile(kind: str, d2):
+    """Stationary profile g(d²) (pallas_kernels._profile, libm-grade exp)."""
+    if kind == "rbf":
+        return torch.exp(-0.5 * d2)
+    r = torch.sqrt(torch.clamp(d2, min=1e-30))
+    if kind == "matern05":
+        return torch.exp(-r)
+    if kind == "matern15":
+        c = math.sqrt(3.0) * r
+        return (1.0 + c) * torch.exp(-c)
+    if kind == "matern25":
+        c = math.sqrt(5.0) * r
+        return (1.0 + c + (5.0 / 3.0) * d2) * torch.exp(-c)
+    raise ValueError(f"unknown kernel kind {kind!r}")
+
+
+def dprofile(kind: str, d2):
+    """dg/d(d²) in closed form (pallas_kernels._dprofile)."""
+    if kind == "rbf":
+        return -0.5 * torch.exp(-0.5 * d2)
+    r = torch.sqrt(torch.clamp(d2, min=1e-30))
+    if kind == "matern05":
+        # non-differentiable at r = 0: the symmetric subgradient 0
+        return torch.where(d2 <= 1e-12, torch.zeros_like(d2),
+                           -torch.exp(-r) / (2.0 * r))
+    if kind == "matern15":
+        return -1.5 * torch.exp(-math.sqrt(3.0) * r)
+    if kind == "matern25":
+        return (-5.0 / 6.0) * (1.0 + math.sqrt(5.0) * r) \
+            * torch.exp(-math.sqrt(5.0) * r)
+    raise ValueError(f"unknown kernel kind {kind!r}")
+
+
+def _sqdist_scaled(x1, x2, lengthscale):
+    """(B, n, m) squared distances of x1/l_b and x2/l_b, summed from direct
+    differences as the CUDA kernels do. (The JAX package's XLA path expands
+    |a|² + |b|² − 2⟨a, b⟩, whose fp32 cancellation leaves d² ~ 1e-8 instead
+    of 0 for coincident points — which the Matérn-½ profile, non-smooth at 0,
+    turns into errors of 1e-4 in g and 1e3 in g′.)"""
+    a = x1[None] / lengthscale
+    b = x2[None] / lengthscale
+    return ((a[..., :, None, :] - b[..., None, :, :]) ** 2).sum(-1)
+
+
+# -- launch plumbing ----------------------------------------------------------
+
+def _kind_id(kind: str) -> int:
+    if kind not in KINDS:
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    return KINDS[kind]
+
+
+def _require(name: str, t, shape):
+    """A CUDA kernel takes contiguous fp32 tensors of the given shape."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: the CUDA kernel takes a contiguous tensor")
+
+
+def _features(x):
+    d = x.shape[-1]
+    if not 1 <= d <= MAX_FEATURES:
+        raise NotImplementedError(
+            f"the CUDA kernels take 1..{MAX_FEATURES} input features, got {d}")
+    return d
+
+
+def _lengthscale_2d(lengthscale, q, d):
+    """(q, 1, d) or (q, 1, 1) lengthscales as a contiguous (q, d) array."""
+    if lengthscale.dtype != torch.float32:
+        raise TypeError(f"lengthscale: the CUDA kernel takes float32, got "
+                        f"{lengthscale.dtype}")
+    if lengthscale.shape[0] != q or lengthscale.shape[-1] not in (1, d):
+        raise ValueError(f"lengthscale of shape {tuple(lengthscale.shape)} does "
+                         f"not fit {q} latents and {d} features")
+    return lengthscale.reshape(q, -1).expand(q, d).contiguous()
+
+
+def _launch(fn_name: str, *args):
+    err = getattr(_build.library(), fn_name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {err}")
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# -- K1: symmetric scaled kernel stack ----------------------------------------
+
+def scaled_kernel_stack_sym_plain(x, lengthscale, outputscale, kind: str,
+                                  out_dtype=None):
+    """os_b · g(|x_i/l_b − x_j/l_b|²), (q, n, n): the dense formula of
+    ``fused_mll._scaled_stack``'s XLA branch."""
+    K = kernel_matrix_plain(x, x, lengthscale, kind) \
+        * outputscale[:, None, None]
+    return K if out_dtype is None else K.to(out_dtype)
+
+
+def scaled_kernel_stack_sym(x, lengthscale, outputscale, kind: str,
+                            out_dtype=None, device="cuda"):
+    """K1. os_b · K_b(x, x) for the symmetric training stack, (q, n, n),
+    fp32 or bf16 (``out_dtype``).
+
+    Replaces ``scaled_kernel_stack_sym`` (projected_lmc_tpu/ops/
+    pallas_kernels.py:278; body ``_scaled_tile_kernel_tri`` :225) and its
+    aliased mirror pass ``_symmetrize_lower`` (:247, body ``_mirror_tile``).
+    Bound on the card: the write of the stack, q·n²·2 bytes in bf16 (800 MB
+    at n = 10⁴, q = 4). Design: each block evaluates one lower tile once
+    (sqrt and exp for half the pairs) and stores it and its transpose, both
+    along rows, through shared memory; it writes exactly (q, n, n) with the
+    ragged edge masked, so no padded stack and no second pass over memory.
+    A bf16 result uses the card's exp2 (rel. err ~1e-6 ≪ bf16's 2⁻⁸); fp32
+    uses libm expf."""
+    dev = check_device(device, x, lengthscale, outputscale)
+    if dev.type == "cpu":
+        return scaled_kernel_stack_sym_plain(x, lengthscale, outputscale, kind,
+                                             out_dtype)
+    n = x.shape[0]
+    d = _features(x)
+    q = lengthscale.shape[0]
+    if out_dtype not in (None, torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    _require("x", x, (n, d))
+    _require("outputscale", outputscale, (q,))
+    ls = _lengthscale_2d(lengthscale, q, d)
+    out = torch.empty((q, n, n), dtype=out_dtype or torch.float32,
+                      device=x.device)
+    _launch("plmc_scaled_stack_sym", x.data_ptr(), ls.data_ptr(),
+            outputscale.data_ptr(), out.data_ptr(), q, n, d, _kind_id(kind),
+            int(out_dtype == torch.bfloat16), _stream(x))
+    scaled_kernel_stack_sym.launches += 1
+    return out
+
+
+scaled_kernel_stack_sym.launches = 0
+
+
+# -- K2: symmetric low-rank cotangent reduction -------------------------------
+
+def lowrank_stationary_reduce_sym_plain(x, lengthscale, A, Bf, kind: str):
+    """(rows, wx) with W_b = (A_b Bf_bᵀ) ⊙ g′(d²_b): rows[b,i] = Σ_j W_bij,
+    wx[b,i,:] = Σ_j W_bij x_j — ``fused_mll._lowrank_reduce``'s dense branch."""
+    d2 = _sqdist_scaled(x, x, lengthscale)
+    W = torch.matmul(A, Bf.transpose(-1, -2)) * dprofile(kind, d2)
+    return W.sum(-1), torch.matmul(W, x)
+
+
+def lowrank_stationary_reduce_sym(x, lengthscale, A, Bf, kind: str,
+                                  device="cuda"):
+    """K2. rows (q, n) and wx (q, n, d) of the SYMMETRIC low-rank kernel
+    cotangent W_b = (A_b Bf_bᵀ) ⊙ g′(d²_b) (A Bfᵀ = Bf Aᵀ, as the fused
+    MLL's factor construction guarantees), without forming dK or W.
+
+    Replaces ``lowrank_stationary_reduce_sym`` (projected_lmc_tpu/ops/
+    pallas_kernels.py:470; body ``_lowrank_vjp_tile_sym`` :406). Bound on
+    the card: arithmetic — per unordered pair a rank-r dot product
+    (r = 1 + 2·probes = 17), d², a sqrt and an exp, 2(1+d) accumulations;
+    the factors are only ~11 MB at n = 10⁴. Design: a lower-triangle grid
+    (each g′ once per pair), the rank-r product register-blocked 4×4 per
+    thread, the card's exp2. Every block writes its row partials, and for
+    I ≠ J its mirrored column partials, into its own slot of a
+    (q, nt, nt, 64, 1+d) buffer; a second kernel sums each row block's slots
+    in index order. No float atomics, so the result is bitwise the same on
+    every run. (The TPU kernel's resident full-height accumulator works
+    around a Mosaic race that Hopper does not have, and is not carried.)"""
+    dev = check_device(device, x, lengthscale, A, Bf)
+    if dev.type == "cpu":
+        return lowrank_stationary_reduce_sym_plain(x, lengthscale, A, Bf, kind)
+    n = x.shape[0]
+    d = _features(x)
+    q, _, r = A.shape
+    _require("x", x, (n, d))
+    _require("A", A, (q, n, r))
+    _require("Bf", Bf, (q, n, r))
+    ls = _lengthscale_2d(lengthscale, q, d)
+    tile = _build.library().plmc_tile_size()
+    nt = -(-n // tile)
+    slots = torch.empty((q, nt, nt, tile, 1 + d), dtype=torch.float32,
+                        device=x.device)
+    rows = torch.empty((q, n), dtype=torch.float32, device=x.device)
+    wx = torch.empty((q, n, d), dtype=torch.float32, device=x.device)
+    _launch("plmc_lowrank_reduce_sym", x.data_ptr(), ls.data_ptr(),
+            A.data_ptr(), Bf.data_ptr(), slots.data_ptr(), rows.data_ptr(),
+            wx.data_ptr(), q, n, r, d, _kind_id(kind), _stream(x))
+    lowrank_stationary_reduce_sym.launches += 1
+    return rows, wx
+
+
+lowrank_stationary_reduce_sym.launches = 0
+
+
+# -- K3: general cross kernel matrix ------------------------------------------
+
+def kernel_matrix_plain(x1, x2, lengthscale, kind: str):
+    """g(|x1_i/l_b − x2_j/l_b|²), (B, n, m) (pallas_kernels.xla_kernel_matrix
+    with direct-difference d²)."""
+    return profile(kind, _sqdist_scaled(x1, x2, lengthscale))
+
+
+def kernel_matrix(x1, x2, lengthscale, kind: str, device="cuda"):
+    """K3. The general cross-kernel forward g(d²), (q, n, m), fp32.
+
+    Replaces ``_pallas_forward`` of ``fused_kernel_matrix`` (projected_lmc_tpu/
+    ops/pallas_kernels.py:912 and :881; body ``_tile_kernel`` :76). Bound on
+    the card: the (q, n, m) fp32 write (41 MB for the Nyström cross block at
+    n = 10⁴, m = 256). Design: K1's tile code without the outputscale and
+    the symmetry, libm exp. Its gradient is the plain-torch backward of
+    ``kernels.stationary_kernel_matrix``, as the TPU kernel's VJP is XLA."""
+    dev = check_device(device, x1, x2, lengthscale)
+    if dev.type == "cpu":
+        return kernel_matrix_plain(x1, x2, lengthscale, kind)
+    n, m = x1.shape[0], x2.shape[0]
+    d = _features(x1)
+    q = lengthscale.shape[0]
+    _require("x1", x1, (n, d))
+    _require("x2", x2, (m, d))
+    ls = _lengthscale_2d(lengthscale, q, d)
+    out = torch.empty((q, n, m), dtype=torch.float32, device=x1.device)
+    _launch("plmc_kernel_matrix", x1.data_ptr(), x2.data_ptr(), ls.data_ptr(),
+            out.data_ptr(), q, n, m, d, _kind_id(kind), _stream(x1))
+    kernel_matrix.launches += 1
+    return out
+
+
+kernel_matrix.launches = 0

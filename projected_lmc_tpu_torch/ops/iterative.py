@@ -1,0 +1,236 @@
+"""Matrix-free exact-LMC pieces of the fused MLL: the stack product, the
+Nyström preconditioner, PCG with its Lanczos tridiagonals and the
+tridiagonal log-quadrature (port of the main-path subset of
+``projected_lmc_tpu/ops/iterative.py``).
+
+Σ = Σ_b K_b ⊗ h_b h_bᵀ + I_n ⊗ Σt is applied through the materialized
+(q, n, n) stack; every contraction here is a plain product that the JAX
+package left to XLA, so it goes to torch/cuBLAS (fp32 without TF32 on the
+card, see ``utils.device``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .cholesky import cholesky_nan, safe_cholesky
+
+# aten::bmm.dtype: a bf16 x bf16 batched product with an fp32 result (CUDA)
+_BMM_OUT_DTYPE = hasattr(torch.ops.aten.bmm, "dtype")
+
+
+def _bf16_stack_bmm(Ks, Wq):
+    """Ks (q, n, n) bf16 @ Wq (q, n, r) → fp32, the products of bf16 values
+    accumulated in fp32 (JAX's ``preferred_element_type=float32``); the
+    result is never rounded to bf16. Without ``aten::bmm.dtype`` the card
+    up-casts one latent's stack at a time (n² fp32 scratch, 400 MB at
+    n = 10⁴)."""
+    Wb = Wq.to(torch.bfloat16)
+    if Ks.is_cuda:
+        if _BMM_OUT_DTYPE:
+            return torch.bmm(Ks, Wb, out_dtype=torch.float32)
+        return torch.stack([Ks[b].float() @ Wb[b].float()
+                            for b in range(Ks.shape[0])])
+    return torch.bmm(Ks.float(), Wb.float())
+
+
+def _stack_matmul(Ks, W):
+    """K_b @ W[..., b] for every latent, in the stack's native layout:
+    W (..., n, q) → (..., n, q), fp32-accumulated for a bf16 stack."""
+    single = W.dim() == 2
+    Wt = W[None] if single else W                       # (r, n, q)
+    Wq = Wt.permute(2, 1, 0)                            # (q, n, r)
+    if Ks.dtype == torch.bfloat16:
+        Z = _bf16_stack_bmm(Ks, Wq)
+    else:
+        Z = torch.bmm(Ks, Wq)
+    out = Z.permute(2, 1, 0)                            # (r, n, q)
+    return out[0] if single else out
+
+
+def lmc_matvec(Ks, H, St, V):
+    """Σ · vec(V) in matrix form: Σ_b K_b (V h_b) h_bᵀ + V Σt.
+    V (..., n, T); Ks (q, n, n); H (T, q); St (T, T)."""
+    Z = _stack_matmul(Ks, V @ H)
+    return Z.to(V.dtype) @ H.T + V @ St
+
+
+def _landmarks(n: int, rank: int):
+    """Strided landmark indices, as ``jnp.linspace(0, n-1, m).astype(int32)``."""
+    m = min(int(rank), n)
+    return np.linspace(0, n - 1, m).astype(np.int32)
+
+
+def _roots_from_blocks(Kzz, Kxz, jitter):
+    m = Kzz.shape[-1]
+    eye = torch.eye(m, dtype=Kzz.dtype, device=Kzz.device)
+    Lzz = safe_cholesky(Kzz + jitter * eye)
+    Linv = torch.linalg.solve_triangular(Lzz, eye.expand_as(Lzz), upper=False)
+    return torch.einsum("bnk,bmk->bnm", Kxz, Linv)
+
+
+def nystrom_roots_from_kernels(Ks, rank: int = 256, jitter: float = 1e-4):
+    """Strided-landmark Nyström roots R_b with R_b R_bᵀ ≈ K_b, (q, n, rank),
+    sliced from a materialized stack (bf16 stacks up-cast to fp32)."""
+    idx = torch.as_tensor(_landmarks(Ks.shape[-1], rank), device=Ks.device,
+                          dtype=torch.long)
+    dt = torch.float32 if Ks.dtype == torch.bfloat16 else Ks.dtype
+    Knm = Ks[:, :, idx].to(dt)
+    return _roots_from_blocks(Knm[:, idx, :], Knm, jitter)
+
+
+def nystrom_roots_from_covar(covar, x, rank: int, jitter: float = 1e-4):
+    """Strided-landmark Nyström roots evaluated directly from a batched
+    kernel callable's (b, m, m) and (b, n, m) blocks, (b, n, rank)."""
+    idx = torch.as_tensor(_landmarks(x.shape[0], rank), device=x.device,
+                          dtype=torch.long)
+    z = x[idx]
+    return _roots_from_blocks(covar(z), covar(x, z), jitter)
+
+
+def _nystrom_precond_parts(Ks, H, St, rank: int, jitter: float = 1e-4,
+                           roots=None):
+    """Pieces of the Nyström preconditioner M = Σ_b Q_b ⊗ h_b h_bᵀ + I ⊗ Σt:
+    roots R (q, n, m), Lt = chol(Σt), the apply M⁻¹ and logdet M (exact, by
+    the determinant lemma through the capacitance Cholesky)."""
+    q, n, _ = Ks.shape
+    R = nystrom_roots_from_kernels(Ks, rank, jitter) if roots is None else roots
+    # roots of a bf16 stack are fp32; the solver works in Σt's dtype (JAX
+    # promotes the same way)
+    R = R.to(St.dtype)
+    m = R.shape[-1]
+    t = St.shape[0]
+    Lt = cholesky_nan(St)
+    St_inv = torch.cholesky_solve(
+        torch.eye(t, dtype=St.dtype, device=St.device), Lt)
+    SinvH = St_inv @ H                                      # (T, q)
+    C = H.T @ SinvH                                         # (q, q)
+    Rtall = R.permute(1, 0, 2).reshape(n, q * m)
+    P = (Rtall.T @ Rtall).reshape(q, m, q, m)
+    eye_qm = torch.eye(q * m, dtype=R.dtype, device=R.device)
+    cap = (C[:, None, :, None] * P).reshape(q * m, q * m) + eye_qm
+    L_cap = cholesky_nan(cap)
+    logdet_M = (2.0 * n * torch.log(torch.diagonal(Lt)).sum()
+                + 2.0 * torch.log(torch.diagonal(L_cap)).sum())
+    # cap⁻¹ once, so every apply inside the CG loop is a product
+    cap_inv = torch.cholesky_solve(eye_qm, L_cap)
+
+    def minv(V):                                            # V: (r, n, T)
+        W = V @ St_inv
+        u = torch.einsum("bnk,rnb->rbk", R, W @ H)
+        r_ = u.shape[0]
+        z = (u.reshape(r_, q * m) @ cap_inv).reshape(r_, q, m)
+        t2 = torch.einsum("bnk,rbk->rnb", R, z)
+        return W - t2 @ SinvH.T
+
+    return R, Lt, minv, logdet_M
+
+
+def pcg_with_tridiag(matvec, B, minv, max_iters: int, tol: float):
+    """Batched PCG that also records the Lanczos tridiagonal coefficients of
+    the preconditioned operator (t_jj = 1/α_j + β_{j-1}/α_{j-1},
+    t_{j,j+1} = √β_j/α_j; Saad §6.7, gpytorch's inv_quad_logdet trick).
+
+    Returns (X, alphas (K, r), betas (K, r), active (K, r), rz0 (r,)).
+
+    The JAX loop exits on the device once every right-hand side converged.
+    Here exactly ``max_iters`` masked iterations run with no host sync: a
+    converged or broken-down RHS is frozen by ``skip`` and its later steps
+    are recorded inactive, which ``_tridiag_logquad`` masks out, so the
+    leftover iterations leave every output as the early exit would."""
+    K = max_iters
+
+    def dot(a, b):
+        return (a * b).sum(dim=(-2, -1))                    # (r,)
+
+    r = B.shape[0]
+    bnorm = torch.sqrt(torch.clamp(dot(B, B), min=1e-30))
+    X = torch.zeros_like(B)
+    Rr = B
+    Z = minv(Rr)
+    P = Z
+    rz = dot(Rr, Z)
+    rz0 = rz
+    alphas = torch.zeros((K, r), dtype=B.dtype, device=B.device)
+    betas = torch.zeros((K, r), dtype=B.dtype, device=B.device)
+    active = torch.zeros((K, r), dtype=torch.bool, device=B.device)
+    done = torch.zeros((r,), dtype=torch.bool, device=B.device)
+    for it in range(K):
+        Ap = matvec(P)
+        pAp = dot(P, Ap)
+        # breakdown guard: low-precision operator noise can push pAp ≤ 0;
+        # such RHS restart from steepest descent (P ← Z)
+        brk = (pAp <= 0.0) & ~done
+        skip = done | brk
+        alpha = torch.where(skip, torch.ones_like(rz),
+                            rz / torch.clamp(pAp, min=1e-30))
+        upd = (~skip)[:, None, None]
+        X = torch.where(upd, X + alpha[:, None, None] * P, X)
+        Rn = torch.where(upd, Rr - alpha[:, None, None] * Ap, Rr)
+        Zn = minv(Rn)
+        rzn = dot(Rn, Zn)
+        beta = torch.where(skip, torch.zeros_like(rz),
+                           rzn / torch.clamp(rz, min=1e-30))
+        P = torch.where(upd, Zn + beta[:, None, None] * P,
+                        torch.where(brk[:, None, None], Zn, P))
+        alphas[it] = alpha
+        betas[it] = beta
+        active[it] = ~skip
+        rel = torch.sqrt(torch.clamp(dot(Rn, Rn), min=0.0)) / bnorm
+        done = done | (rel < tol)
+        # converged RHS keep their rz; restarted ones re-seed from rzn
+        rz = torch.where(done, rz, rzn)
+        Rr = Rn
+    return X, alphas, betas, active, rz0
+
+
+def _tridiag_logquad(alphas, betas, active):
+    """e₁ᵀ log(T_K) e₁ per RHS from the CG coefficients, (r,). Inactive steps
+    pad T with an identity block, which adds exactly nothing."""
+    K, r = alphas.shape
+    one = torch.ones((1, r), dtype=alphas.dtype, device=alphas.device)
+    a_prev = torch.cat([one, alphas[:-1]])
+    b_prev = torch.cat([torch.zeros_like(one), betas[:-1]])
+    diag = torch.where(active, 1.0 / torch.clamp(alphas, min=1e-30)
+                       + b_prev / torch.clamp(a_prev, min=1e-30),
+                       torch.ones_like(alphas))
+    act_next = torch.cat([active[1:], torch.zeros_like(active[:1])])
+    off = torch.where(act_next & active,
+                      torch.sqrt(torch.clamp(betas, min=0.0))
+                      / torch.clamp(alphas, min=1e-30),
+                      torch.zeros_like(alphas))
+    T = (torch.diag_embed(diag.T) + torch.diag_embed(off[:-1].T, 1)
+         + torch.diag_embed(off[:-1].T, -1))
+    evals, evecs = torch.linalg.eigh(T)
+    floor = 1e-10 * evals.abs().amax(-1, keepdim=True)
+    evals = torch.maximum(evals, floor)
+    tau2 = evecs[:, 0, :] ** 2
+    return (tau2 * torch.log(evals)).sum(-1)                # (r,)
+
+
+def _pcg_fwd_impl(Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
+                  matvec_bf16, precond_rank):
+    """log N(vec(Y); 0, Σ) from one batched PCG pass (the forward of
+    ``iterative.lmc_pcg_log_prob``): probes z = eps·chol(Σt)ᵀ + Σ_b (R_b ξ_b)
+    h_bᵀ ~ N(0, M), logdet Σ = logdet M + Lanczos quadrature of the
+    preconditioned operator. Returns (ll, (alpha, W, Ztilde))."""
+    n, t = Ydelta.shape
+    R, Lt, minv, logdet_M = _nystrom_precond_parts(
+        Ks, H, St, precond_rank,
+        roots=roots.detach() if roots is not None else None)
+    z1 = torch.einsum("snt,ut->snu", eps, Lt)
+    t2 = torch.einsum("bnk,sbk->snb", R, xi)
+    z = z1 + t2 @ H.T
+    Kmv = Ks.to(torch.bfloat16) if matvec_bf16 else Ks
+    B = torch.cat([Ydelta[None], z], 0)                     # (1+s, n, T)
+    X, alphas, betas, active, rz0 = pcg_with_tridiag(
+        lambda V: lmc_matvec(Kmv, H, St, V), B, minv, max_cg_iters, cg_tol)
+    alpha, W = X[0], X[1:]
+    quad = (Ydelta * alpha).sum()
+    logquad = _tridiag_logquad(alphas[:, 1:], betas[:, 1:], active[:, 1:])
+    logdet = logdet_M + (rz0[1:] * logquad).mean()
+    ll = -0.5 * (quad + logdet + n * t * math.log(2 * math.pi))
+    return ll, (alpha, W, minv(z))

@@ -1,0 +1,133 @@
+"""Training loop with plateau early stopping (port of ``training.fit`` from
+``projected_lmc_tpu/training.py``).
+
+The reference's loop (experiments.py:256-284): AdamW, LambdaLR linear decay
+lr_max → lr_min over 10k iterations, and plateau stopping — |1 − loss /
+last_loss| < thresh for ``patience`` consecutive iterations ('max') or on a
+rolling mean ('mean'). PyTorch runs eagerly, so one step is a forward, a
+backward and an AdamW update; the plateau test reads each loss on the host.
+"""
+
+from __future__ import annotations
+
+import inspect
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .module import trainable_parameters
+from .utils.device import check_device
+
+
+def _loss_fn_takes_generator(loss_fn) -> bool:
+    """True if ``loss_fn``'s second positional argument is named
+    ``generator`` or ``rng``."""
+    try:
+        params = list(inspect.signature(loss_fn).parameters.values())
+    except (TypeError, ValueError):
+        return False
+    positional = [p for p in params if p.kind in
+                  (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+    return len(positional) >= 2 and positional[1].name in ("generator", "rng")
+
+
+def lambda_lr_schedule(lr_max: float = 1e-2, lr_min: float = 1e-3,
+                       last_epoch: int = 10000):
+    """LambdaLR of experiments.py:84: the learning rate at step i, decaying
+    linearly lr_max → lr_min over ``last_epoch`` steps, then flat (evaluated
+    in float32, as the JAX schedule is)."""
+    def schedule(i):
+        i = np.float32(i)
+        frac = i / np.float32(last_epoch) * np.float32(lr_min / lr_max) \
+            + (np.float32(last_epoch) - i) / np.float32(last_epoch)
+        scale = frac if i <= last_epoch else np.float32(lr_min / lr_max)
+        return float(np.float32(lr_max) * np.float32(scale))
+    return schedule
+
+
+def fit(model, loss_fn: Callable = None, n_iter: int = 10000, lr: float = 1e-2,
+        schedule=None, loss_thresh: float = 2.5e-6, patience: int = 500,
+        criterion: str = "max", weight_decay: float = 1e-2,
+        print_loss: bool = False, freq_print: int = 1000,
+        block_every: int = 1, seed: int = 0, device="cuda"):
+    """Train ``model`` in place by maximizing ``loss_fn(model)`` (an MLL; the
+    loop minimizes −MLL like the reference). Returns (model, info) with
+    info = dict(n_iter, train_time, losses, loss).
+
+    AdamW with ``weight_decay`` (1e-2, torch.optim.AdamW's default as in the
+    reference), masked off spectral-mixture ``raw_mixture*`` parameters as in
+    the JAX loop; ``schedule(i)`` gives the learning rate of step i (default
+    :func:`lambda_lr_schedule` from ``lr`` to ``lr/10``). ``loss_fn`` takes
+    ``(model)`` or ``(model, generator)``; the second form receives one
+    ``torch.Generator`` on ``device``, seeded with ``seed``, whose state
+    advances from step to step (fresh probes each step). The model's
+    parameters must lie on ``device``. ``block_every``: the loss is read on
+    the host (a sync) every that many steps.
+    """
+    params = trainable_parameters(model)
+    dev = check_device(device, *[p for _, p in params])
+    if loss_fn is None:
+        loss_fn = lambda m: m.mll()                         # noqa: E731
+    if schedule is None:
+        schedule = lambda_lr_schedule(lr_max=lr, lr_min=lr / 10.0)
+    takes_gen = _loss_fn_takes_generator(loss_fn)
+    generator = torch.Generator(device=dev).manual_seed(seed) \
+        if takes_gen else None
+
+    decay = [p for n, p in params
+             if not n.split(".")[-1].startswith("raw_mixture")]
+    no_decay = [p for n, p in params
+                if n.split(".")[-1].startswith("raw_mixture")]
+    groups = [{"params": decay, "weight_decay": weight_decay}]
+    if no_decay:
+        groups.append({"params": no_decay, "weight_decay": 0.0})
+    # base lr 1: the LambdaLR factor IS the scheduled learning rate
+    opt = torch.optim.AdamW(groups, lr=1.0)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lr_lambda=schedule)
+
+    losses = []
+    plateau_id = 0
+    last_loss = 1e-9
+    deltas = np.zeros(patience)
+    effective_n_iter = n_iter
+
+    def check_plateau(i, new_loss):
+        nonlocal plateau_id, last_loss
+        if criterion == "max":
+            if i > 0 and abs(1 - new_loss / last_loss) < loss_thresh:
+                plateau_id += 1
+                if plateau_id > patience:
+                    return True
+            else:
+                plateau_id = 0
+        elif criterion == "mean":
+            deltas[1:] = deltas[:-1]
+            deltas[0] = abs(1 - new_loss / last_loss)
+            if i >= patience and deltas.mean() < loss_thresh:
+                return True
+        else:
+            raise ValueError("Criterion not recognized")
+        last_loss = new_loss
+        return False
+
+    start = time.time()
+    for i in range(n_iter):
+        opt.zero_grad(set_to_none=True)
+        loss = -(loss_fn(model, generator) if takes_gen else loss_fn(model))
+        loss.backward()
+        opt.step()
+        sched.step()
+        if i % block_every == 0 or i == n_iter - 1:
+            new_loss = float(loss.detach())
+            losses.append(new_loss)
+            if print_loss and i % freq_print == 0:
+                print(f"iter {i}: loss {new_loss:.6f}")
+            if check_plateau(i, new_loss):
+                effective_n_iter = i
+                break
+    train_time = time.time() - start
+    info = dict(n_iter=effective_n_iter, train_time=train_time,
+                losses=np.asarray(losses), loss=last_loss)
+    return model, info
