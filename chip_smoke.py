@@ -15,32 +15,48 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
      bound (the least time the card could take for the same work);
   3. the fused MLL op, value and gradients, on the card with the kernels
      against the CPU with the plain versions (same eps, xi and roots, fp32
-     stack, tight CG), n = 2048;
+     stack, tight CG), n = 2048, on the default backward route and forced
+     onto K4 (``PLMC_KR_FUSED=1``) and K5 (``PLMC_KR_STREAM=1``);
   4. the exact-LMC training step at full width — n = 10,000, T = 7, q = 4,
      d = 4, Matérn-2.5, mll(max_cg_iters=16, cg_tol=2e-2, matvec_bf16=True,
      precond_rank=256, num_probes=8) + AdamW(1e-2, weight decay 1e-4), Nyström
-     roots rebuilt once per 16-step chunk, 2 chunks — with every kernel's
-     launch count read from this run alone;
-  5. a few iterations of ``training.fit`` at n = 2000.
+     roots rebuilt once per 16-step chunk, 2 chunks, on the default backward
+     route — with every kernel's launch count read from this run alone;
+  5. a few iterations of ``training.fit`` at n = 2000;
+  A. path A: that step at n = 20,000, and at 5,000 and 10,000 for the
+     routing rule, one 16-step chunk on each backward route (K2 + stack
+     product, K4, K5): step times, peak memory, launch counts, each route's
+     kernel times, and the route the port takes by default;
+  B. path B: ``ExactGPModel`` (T = 7, Matérn-2.5, outputscales) at
+     n = 16,384, whose MLL auto-routes to the fused iterative op, 8 AdamW
+     steps; and its value and gradients on the card against the CPU at
+     n = 2048 through K4.
 
-The last lines are one JSON object with every kernel's numbers, the
-nvidia-smi line, and ``{"ok": true, "device": {...}}``. Needs no network and
-imports nothing of JAX.
+Every training run sets the launch counts to 0 just before it and reads
+them just after. The last lines are one JSON object with every kernel's
+numbers (launches summed over those runs), the nvidia-smi line, and
+``{"ok": true, "device": {...}}``. Needs no network and imports nothing of
+JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
 N, T, Q, D = 10_000, 7, 4, 4             # the main path's widths
 STEPS_PER_CHUNK, CHUNKS = 16, 2
+N_A = 20_000                             # path A: the large-n exact-LMC step
+ROUTING_N = (5_000, N, N_A)              # path A's sizes, for the routing rule
+N_B, STEPS_B = 16_384, 8                 # path B: ExactGPModel, T = 7
 PEAK_BYTES_PER_S = 3.35e12               # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12                  # H100 SXM fp32, non-tensor-core
 MLL_KW = dict(iterative=True, max_cg_iters=16, cg_tol=2e-2, matvec_bf16=True,
@@ -93,8 +109,9 @@ def kernel_phase(torch, ck, dev):
     os_ = t(rng.uniform(0.5, 2.0, (Q,)))
     rows = {}
 
-    # K1: fp32 tolerance covers the plain version's |a|²+|b|²−2⟨a,b⟩
-    # cancellation (~1e-5 at |x/l|² ~ 50); bf16 one rounding of either side
+    # K1: the fp32 tolerance covers two exp implementations (the kernel's,
+    # torch's) and d² summed with and without FMAs, each ~1e-7 relative;
+    # bf16: one rounding of either side
     for n in (N, 1237):
         x = t(rng.standard_normal((n, D)))
         x = x - x.mean(0)
@@ -176,6 +193,9 @@ def kernel_phase(torch, ck, dev):
     small = cuda_ms(
         lambda: ck.kernel_matrix(z, z, ls, "matern25", device=dev), reps=50)
     print(f"  K3 at ({Q},256,256): {small:.4f} ms")
+    del A, Bf
+    torch.cuda.empty_cache()
+    rows.update(kr_phase(torch, ck, dev, rng, t, ls, os_))
     # every profile and several feature counts (kernel templates), small n
     for kind in ck.KINDS:
         for d in (1, 3, 8):
@@ -198,10 +218,87 @@ def kernel_phase(torch, ck, dev):
             scale = max(float(w.abs().max()) for w in want)
             check(f"K1+K3 {kind} d={d} n={n}", max(e1, e3), 1e-4)
             check(f"K2 {kind} d={d} n={n}", e2, 1e-4 * scale)
+            Ks = ck.scaled_kernel_stack_sym(xs, lss, os_, kind, device=dev)
+            check_kr(f"K4 {kind} d={d} n={n}",
+                     ck.lowrank_stationary_reduce_sym_kr(
+                         xs, lss, os_, As, Bs, kind, device=dev),
+                     ck.lowrank_stationary_reduce_sym_kr_plain(
+                         xs, lss, os_, As, Bs, kind))
+            check_kr(f"K5 {kind} d={d} n={n} float32 stack",
+                     ck.lowrank_stationary_reduce_sym_krs(
+                         xs, lss, os_, As, Bs, Ks, kind, device=dev),
+                     ck.lowrank_stationary_reduce_sym_krs_plain(
+                         xs, lss, os_, As, Bs, Ks, kind))
     for k, row in rows.items():
         b, by = row["bound"]
         print(f"  {k}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
               f"bound {b:.4f} ms by {by})")
+    return rows
+
+
+def check_kr(name: str, got, want) -> float:
+    """K4/K5 against the plain version: rows and wx within 1e-4 of their
+    largest magnitude (sums over n terms in another order, fast exp), KA
+    within 2⁻⁷ of max|KA| (room for a bf16-rate product; this one is fp32).
+    Returns the largest absolute error."""
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    scale = max(float(w.abs().max()) for w in want[:2])
+    check(f"{name} rows, wx", max(errs[:2]), 1e-4 * scale)
+    check(f"{name} KA", errs[2], 2.0 ** -7 * float(want[2].abs().max()))
+    return max(errs)
+
+
+def kr_phase(torch, ck, dev, rng, t, ls, os_):
+    """K4 and K5 at the main path's widths (q=4, d=4, r=17, os ≠ 1), at
+    n = N and a ragged n; K5 on fp32 and bf16 stacks built by K1 and held
+    against its plain version on the same stack. Bitwise repeats, times."""
+    r, kind = 17, "matern25"
+    rows = {}
+    for n in (N, 1237):
+        x = t(rng.standard_normal((n, D)))
+        x = x - x.mean(0)
+        u0 = rng.standard_normal((Q, n, 1))
+        U, V = rng.standard_normal((2, Q, n, 8))
+        A = t(np.concatenate([u0, U, V], -1))
+        Bf = t(np.concatenate([0.5 * u0, V, U], -1))
+        runs = [("K4", "kr", None)] + [
+            ("K5", f"krs {str(dt)[6:]} stack",
+             ck.scaled_kernel_stack_sym(x, ls, os_, kind, dt, device=dev))
+            for dt in (torch.bfloat16, torch.float32)]
+        for key, label, Ks in runs:
+            if Ks is None:
+                run = lambda: ck.lowrank_stationary_reduce_sym_kr(  # noqa
+                    x, ls, os_, A, Bf, kind, device=dev)
+                plain = lambda: ck.lowrank_stationary_reduce_sym_kr_plain(  # noqa
+                    x, ls, os_, A, Bf, kind)
+            else:
+                run = lambda: ck.lowrank_stationary_reduce_sym_krs(  # noqa
+                    x, ls, os_, A, Bf, Ks, kind, device=dev)
+                plain = lambda: ck.lowrank_stationary_reduce_sym_krs_plain(  # noqa
+                    x, ls, os_, A, Bf, Ks, kind)
+            got, rep = run(), run()
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, rep))
+            print(f"  {key} {label} n={n} repeat bitwise equal: {bitwise}")
+            if not bitwise:
+                raise SystemExit(f"chip_smoke: {key} is not deterministic")
+            del rep
+            err = check_kr(f"{key} {label} n={n} r={r}", got, plain())
+            torch.cuda.empty_cache()
+            # the main path's stack is bf16: K5's row is timed on it
+            if n == N and label in ("kr", "krs bfloat16 stack"):
+                rows[key] = dict(
+                    max_abs_err=err, ms=cuda_ms(run, reps=10),
+                    plain_ms=cuda_ms(plain, reps=2, warmup=1))
+                torch.cuda.empty_cache()
+        del runs, Ks
+    pairs = Q * N * (N + 1) / 2
+    io = 2 * Q * N * r * 4 + N * D * 4 + Q * (D + 1) * 4 \
+        + Q * N * (1 + D + r) * 4        # A, Bf, x, l, os in; rows, wx, KA out
+    k2_ops = 2 * r + 3 * D + 7 + 2 * (1 + 2 * D)   # K2's count, as above
+    # + 4r: K_ij A_j into row i and K_ij A_i into row j, a multiply-add each
+    rows["K4"]["bound"] = bound_ms(io, pairs * (k2_ops + 4 * r))
+    # K5: no exp (one operation fewer), and the lower half of the bf16 stack
+    rows["K5"]["bound"] = bound_ms(io + pairs * 2, pairs * (k2_ops - 1 + 4 * r))
     return rows
 
 
@@ -220,8 +317,68 @@ def make_model(pl, X, Y, device):
                                device=device)
 
 
-def fused_phase(torch, pl, fm, dev):
-    """Phase 3: the fused op on the card (kernels) vs the CPU (plain)."""
+ROUTE_ENV = {"default": {}, "stack": {"PLMC_KR_FUSED": "0"},
+             "kr": {"PLMC_KR_FUSED": "1"}, "krs": {"PLMC_KR_STREAM": "1"}}
+ROUTE_KERNEL = {"stack": "K2", "kr": "K4", "krs": "K5"}
+
+
+@contextlib.contextmanager
+def routed(route):
+    """The fused MLL's backward route for the block: "default" (the port's
+    measured rule), or "stack", "kr", "krs" forced by its environment
+    variables, which are read at each call."""
+    names = ("PLMC_KR_FUSED", "PLMC_KR_STREAM")
+    old = {k: os.environ.pop(k, None) for k in names}
+    os.environ.update(ROUTE_ENV[route])
+    try:
+        yield
+    finally:
+        for k in names:
+            os.environ.pop(k, None)
+            if old[k] is not None:
+                os.environ[k] = old[k]
+
+
+def wrappers(ck):
+    return {"K1": ck.scaled_kernel_stack_sym,
+            "K2": ck.lowrank_stationary_reduce_sym,
+            "K3": ck.kernel_matrix,
+            "K4": ck.lowrank_stationary_reduce_sym_kr,
+            "K5": ck.lowrank_stationary_reduce_sym_krs}
+
+
+def zero_counts(ck):
+    for w in wrappers(ck).values():
+        w.launches = 0
+
+
+def read_counts(ck):
+    return {k: w.launches for k, w in wrappers(ck).items()}
+
+
+def default_route(fm, n):
+    with routed("default"):
+        return "kr" if fm._use_kr_fused(n) else "stack"
+
+
+def compare_grads(out, names):
+    """Card against CPU: value rel. ≤ 1e-4, each gradient ≤ 2e-3 of its
+    largest entry."""
+    (vg, gg), (vc, gc) = out["cuda"], out["cpu"]
+    rel = abs(vg - vc) / abs(vc)
+    print(f"  value cuda {vg:.6f} cpu {vc:.6f} rel {rel:.2e} (tolerance 1e-4)")
+    if not (math.isfinite(vg) and rel <= 1e-4):
+        raise SystemExit("chip_smoke: MLL value disagrees")
+    for name, a, b in zip(names, gg, gc):
+        e = float((a - b).abs().max() / b.abs().max())
+        print(f"  grad {name}: max|Δ|/max|cpu| {e:.2e} (tolerance 2e-3)")
+        if not (math.isfinite(e) and e <= 2e-3):
+            raise SystemExit(f"chip_smoke: MLL gradient {name} disagrees")
+
+
+def fused_phase(torch, pl, ck, fm, dev):
+    """Phase 3: the fused op on the card (kernels) vs the CPU (plain), on
+    the default backward route, then forced onto K4 and onto K5."""
     n = 2048
     X, Y = bench_data(n, seed=2)
     model = make_model(pl, X, Y, dev)
@@ -241,77 +398,230 @@ def fused_phase(torch, pl, fm, dev):
     ls = model.covar_module.lengthscale.detach()
     os_ = torch.ones(Q, dtype=torch.float32, device=dev)
     Yd = model.train_y.T.contiguous()
-    out = {}
-    for where in (dev, torch.device("cpu")):
-        leaves = [a.to(where).clone().requires_grad_(True)
-                  for a in (ls, os_, H, St, Yd)]
-        ll = fm.lmc_pcg_log_prob_stationary(
-            model.train_x.to(where), *leaves, eps.to(where), xi.to(where),
-            roots.to(where), "matern25", max_cg_iters=100, cg_tol=1e-5,
-            matvec_bf16=False, precond_rank=256, device=where)
-        ll.backward()
-        out[where.type] = (float(ll.detach()), [a.grad.cpu() for a in leaves])
-    (vg, gg), (vc, gc) = out["cuda"], out["cpu"]
-    rel = abs(vg - vc) / abs(vc)
-    print(f"  value cuda {vg:.6f} cpu {vc:.6f} rel {rel:.2e} (tolerance 1e-4)")
-    if not (math.isfinite(vg) and rel <= 1e-4):
-        raise SystemExit("chip_smoke: fused MLL value disagrees")
-    for name, a, b in zip(("ls", "os", "H", "St", "Y"), gg, gc):
-        e = float((a - b).abs().max() / b.abs().max())
-        print(f"  grad {name}: max|Δ|/max|cpu| {e:.2e} (tolerance 2e-3)")
-        if not (math.isfinite(e) and e <= 2e-3):
-            raise SystemExit(f"chip_smoke: fused MLL gradient {name} disagrees")
+    for route in ("default", "kr", "krs"):
+        out = {}
+        with routed(route):
+            want = ROUTE_KERNEL[route if route != "default"
+                                else default_route(fm, n)]
+            for where in (dev, torch.device("cpu")):
+                leaves = [a.to(where).clone().requires_grad_(True)
+                          for a in (ls, os_, H, St, Yd)]
+                zero_counts(ck)
+                ll = fm.lmc_pcg_log_prob_stationary(
+                    model.train_x.to(where), *leaves, eps.to(where),
+                    xi.to(where), roots.to(where), "matern25",
+                    max_cg_iters=100, cg_tol=1e-5, matvec_bf16=False,
+                    precond_rank=256, device=where)
+                ll.backward()
+                if where.type == "cuda" and read_counts(ck)[want] != 1:
+                    raise SystemExit(f"chip_smoke: the {route} route did not "
+                                     f"launch {want}")
+                out[where.type] = (float(ll.detach()),
+                                   [a.grad.cpu() for a in leaves])
+        print(f"  route {route} (backward through {want}):")
+        compare_grads(out, ("ls", "os", "H", "St", "Y"))
 
 
-def train_phase(torch, pl, ck, dev):
-    """Phase 4: the full-width training loop; kernel counts of this run."""
-    X, Y = bench_data(N, seed=0)
-    model = make_model(pl, X, Y, dev)
+def train_run(torch, ck, model, mll, chunks, steps, chunk_roots=True):
+    """``chunks`` × ``steps`` AdamW(1e-2, wd 1e-4) steps on −mll(model,
+    roots, generator), the roots rebuilt at each chunk's start when
+    ``chunk_roots``; the kernel counts of this run alone."""
     opt = torch.optim.AdamW([p for p in model.parameters() if p.requires_grad],
                             lr=1e-2, weight_decay=1e-4)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    wrappers = (ck.scaled_kernel_stack_sym, ck.lowrank_stationary_reduce_sym,
-                ck.kernel_matrix)
+    gen = torch.Generator(device=model.device).manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for w in wrappers:
-        w.launches = 0
+    zero_counts(ck)
     losses, step_ms, chunk_ms = [], [], []
-    for _ in range(CHUNKS):
+    for _ in range(chunks):
         torch.cuda.synchronize()
         c0 = time.perf_counter()
-        with torch.no_grad():
-            roots = model._precond_roots(model.train_x, MLL_KW["precond_rank"])
-        for _ in range(STEPS_PER_CHUNK):
+        roots = None
+        if chunk_roots:
+            with torch.no_grad():
+                roots = model._precond_roots(model.train_x,
+                                             MLL_KW["precond_rank"])
+        for _ in range(steps):
             torch.cuda.synchronize()
             s0 = time.perf_counter()
             opt.zero_grad(set_to_none=True)
-            loss = -model.mll(precond_roots=roots, generator=gen, **MLL_KW)
+            loss = -mll(model, roots, gen)
             loss.backward()
             opt.step()
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - s0) * 1e3)
             losses.append(loss.detach())
         chunk_ms.append((time.perf_counter() - c0) * 1e3)
-    counts = [w.launches for w in wrappers]
+    counts = read_counts(ck)
     losses = torch.stack(losses).cpu().numpy()
-    print(f"  losses: first {losses[0]:.6f} last {losses[-1]:.6f} "
-          f"all finite {bool(np.all(np.isfinite(losses)))}")
-    print(f"  median step {float(np.median(step_ms)):.3f} ms (min "
-          f"{min(step_ms):.3f}, max {max(step_ms):.3f}); chunk of "
-          f"{STEPS_PER_CHUNK} incl. roots {chunk_ms}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"  launches K1 {counts[0]} K2 {counts[1]} K3 {counts[2]} "
-          f"(expected {CHUNKS * STEPS_PER_CHUNK}, "
-          f"{CHUNKS * STEPS_PER_CHUNK}, {2 * CHUNKS})")
-    if not np.all(np.isfinite(losses)):
-        raise SystemExit("chip_smoke: non-finite training loss")
-    if counts != [CHUNKS * STEPS_PER_CHUNK] * 2 + [2 * CHUNKS]:
-        raise SystemExit("chip_smoke: the main path missed a kernel")
     params = torch.cat([p.detach().flatten() for p in model.parameters()])
-    if not bool(torch.isfinite(params).all()):
-        raise SystemExit("chip_smoke: non-finite parameters after training")
-    return counts
+    return dict(losses=losses, step_ms=step_ms, chunk_ms=chunk_ms,
+                median_ms=float(np.median(step_ms)), counts=counts,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                finite=bool(np.all(np.isfinite(losses))
+                            and torch.isfinite(params).all()))
+
+
+def report(res, expected, totals):
+    """Print a run, check its finiteness and launch counts, add the counts
+    to ``totals``."""
+    losses, step_ms = res["losses"], res["step_ms"]
+    print(f"  losses: first {losses[0]:.6f} last {losses[-1]:.6f} "
+          f"all finite {res['finite']}")
+    print(f"  median step {res['median_ms']:.3f} ms (min {min(step_ms):.3f}, "
+          f"max {max(step_ms):.3f}); chunks incl. roots "
+          f"{[round(c, 1) for c in res['chunk_ms']]} ms; peak memory "
+          f"{res['peak_gib']:.2f} GiB")
+    print(f"  launches {res['counts']} (expected {expected})")
+    if not res["finite"]:
+        raise SystemExit("chip_smoke: non-finite loss or parameters")
+    if res["counts"] != expected:
+        raise SystemExit("chip_smoke: a path missed a kernel or took another "
+                         "route")
+    for k, v in res["counts"].items():
+        totals[k] += v
+
+
+def lmc_counts(route, chunks, steps):
+    k = {key: 0 for key in ("K1", "K2", "K3", "K4", "K5")}
+    k["K1"] = k[ROUTE_KERNEL[route]] = chunks * steps
+    k["K3"] = 2 * chunks
+    return k
+
+
+def lmc_mll(model, roots, gen):
+    return model.mll(precond_roots=roots, generator=gen, **MLL_KW)
+
+
+def train_phase(torch, pl, ck, fm, dev, totals):
+    """Phase 4: the full-width training loop on the default route."""
+    route = default_route(fm, N)
+    X, Y = bench_data(N, seed=0)
+    with routed("default"):
+        res = train_run(torch, ck, make_model(pl, X, Y, dev), lmc_mll,
+                        CHUNKS, STEPS_PER_CHUNK)
+    print(f"  default backward route at n={N}: {route}")
+    report(res, lmc_counts(route, CHUNKS, STEPS_PER_CHUNK), totals)
+
+
+def route_kernels_ms(torch, ck, it, dev, n):
+    """Device times of each backward route's kernels at n (q=4, d=4,
+    r=17, bf16 stack): K2 and the product of the stack with the 17
+    right-hand sides, laid out as the backward lays them out; K4; K5."""
+    rng = np.random.default_rng(8)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa
+    x = t(rng.standard_normal((n, D)))
+    ls, os_ = t(rng.uniform(0.5, 1.5, (Q, 1, D))), t(np.ones(Q))
+    u0 = rng.standard_normal((Q, n, 1))
+    U, V = rng.standard_normal((2, Q, n, 8))
+    A = t(np.concatenate([u0, U, V], -1))
+    Bf = t(np.concatenate([0.5 * u0, V, U], -1))
+    Ks = ck.scaled_kernel_stack_sym(x, ls, os_, "matern25", torch.bfloat16,
+                                    device=dev)
+    R3 = A.permute(2, 1, 0).contiguous()            # (r, n, q)
+    ms = {"K2": cuda_ms(lambda: ck.lowrank_stationary_reduce_sym(
+              x, ls, A, Bf, "matern25", device=dev), reps=10),
+          "product": cuda_ms(lambda: it._stack_matmul(Ks, R3), reps=10),
+          "K4": cuda_ms(lambda: ck.lowrank_stationary_reduce_sym_kr(
+              x, ls, os_, A, Bf, "matern25", device=dev), reps=10),
+          "K5": cuda_ms(lambda: ck.lowrank_stationary_reduce_sym_krs(
+              x, ls, os_, A, Bf, Ks, "matern25", device=dev), reps=10)}
+    del Ks
+    torch.cuda.empty_cache()
+    return ms
+
+
+def path_a_phase(torch, pl, ck, fm, it, dev, totals):
+    """Path A: one 16-step chunk of the exact-LMC step on each backward
+    route at n = N_A, and at smaller n for the routing rule; each route's
+    kernel times beside it."""
+    times = {}
+    for n in ROUTING_N:
+        X, Y = bench_data(n, seed=0)
+        for route in ("stack", "kr", "krs"):
+            print(f"  n={n} route {route}:")
+            with routed(route):
+                res = train_run(torch, ck, make_model(pl, X, Y, dev),
+                                lmc_mll, 1, STEPS_PER_CHUNK)
+            report(res, lmc_counts(route, 1, STEPS_PER_CHUNK), totals)
+            times[(n, route)] = res["median_ms"]
+            torch.cuda.empty_cache()
+        ms = route_kernels_ms(torch, ck, it, dev, n)
+        print(f"  n={n} kernels: K2 {ms['K2']:.4f} + stack product "
+              f"{ms['product']:.4f} = {ms['K2'] + ms['product']:.4f} ms; "
+              f"K4 {ms['K4']:.4f} ms; K5 (bf16 stack) {ms['K5']:.4f} ms")
+    for n in ROUTING_N:
+        print(f"  n={n}: median step stack {times[(n, 'stack')]:.3f} ms, kr "
+              f"{times[(n, 'kr')]:.3f} ms, krs {times[(n, 'krs')]:.3f} ms; "
+              f"default route {default_route(fm, n)} "
+              f"(KR_MIN_N = {fm.KR_MIN_N})")
+
+
+def path_b_phase(torch, pl, ck, fm, dev, totals):
+    """Path B: ExactGPModel's auto-routed iterative MLL at n = N_B, T = 7,
+    outputscales; then its value and gradients on the card against the CPU
+    at n = 2048 through K4."""
+    X, Y = bench_data(N_B, seed=5)
+    # the measured default, unless that is the stack route: this path is
+    # there to drive K4 at full width, so it is then forced onto K4
+    route = default_route(fm, N_B)
+    route = "kr" if route == "stack" else route
+    model = pl.ExactGPModel(X, Y, pl.GaussianLikelihood(batch_shape=T,
+                                                        device=dev),
+                            n_tasks=T, kernel_type="matern",
+                            outputscales=True, device=dev)
+    kw = {k: v for k, v in MLL_KW.items() if k != "iterative"}
+    with routed(route), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = train_run(torch, ck, model,
+                        lambda m, _, g: m.mll(generator=g, **kw),
+                        1, STEPS_B, chunk_roots=False)
+    if not any("auto-routing" in str(w.message) for w in caught):
+        raise SystemExit("chip_smoke: ExactGPModel did not auto-route")
+    print(f"  auto-routed to the iterative MLL; backward route {route} "
+          f"(default at n={N_B}: {default_route(fm, N_B)})")
+    expected = {key: 0 for key in ("K1", "K2", "K3", "K4", "K5")}
+    expected["K1"] = expected[ROUTE_KERNEL[route]] = STEPS_B
+    expected["K3"] = 2 * STEPS_B             # the roots, rebuilt every call
+    report(res, expected, totals)
+    del model
+    torch.cuda.empty_cache()
+
+    n = 2048
+    X, Y = bench_data(n, seed=6)
+    rng = np.random.default_rng(7)
+    out, state = {}, None
+    with routed("kr"):
+        for where in (dev, torch.device("cpu")):
+            m = pl.ExactGPModel(X, Y, pl.GaussianLikelihood(batch_shape=T,
+                                                            device=where),
+                                n_tasks=T, kernel_type="matern",
+                                outputscales=True, device=where)
+            if state is None:
+                with torch.no_grad():
+                    for p in m.parameters():
+                        p.add_(torch.as_tensor(
+                            rng.uniform(-0.3, 0.3, tuple(p.shape)),
+                            dtype=p.dtype, device=where))
+                state = {k: v.cpu() for k, v in m.state_dict().items()}
+                gen = torch.Generator(device=dev).manual_seed(1)
+                eps = torch.randn((8, n, T), generator=gen, device=dev)
+                xi = torch.randn((8, T, 256), generator=gen, device=dev)
+            else:
+                m.load_state_dict(state)
+            zero_counts(ck)
+            ll = m.mll(iterative=True, max_cg_iters=100, cg_tol=1e-5,
+                       precond_rank=256, num_probes=8, eps=eps.to(where),
+                       xi=xi.to(where))
+            ll.backward()
+            if where.type == "cuda" and read_counts(ck)["K4"] != 1:
+                raise SystemExit("chip_smoke: ExactGPModel missed K4")
+            names = [k for k, p in m.named_parameters() if p.requires_grad]
+            out[where.type] = (float(ll.detach()),
+                               [p.grad.cpu() for p in m.parameters()
+                                if p.requires_grad])
+    print(f"  ExactGPModel n={n}, card (K1, K3, K4) vs CPU:")
+    compare_grads(out, names)
 
 
 def fit_phase(torch, pl, dev):
@@ -365,27 +675,38 @@ def main() -> int:
     rows = kernel_phase(torch, ck, dev)
     print("phase 3: fused MLL, card with kernels vs CPU with plain versions, "
           "n=2048")
-    fused_phase(torch, pl, fm, dev)
+    fused_phase(torch, pl, ck, fm, dev)
+    totals = {k: 0 for k in wrappers(ck)}
     print(f"phase 4: training loop n={N} T={T} q={Q} d={D}, "
           f"{CHUNKS}x{STEPS_PER_CHUNK} steps")
-    counts = train_phase(torch, pl, ck, dev)
+    train_phase(torch, pl, ck, fm, dev, totals)
     print("phase 5: training.fit, n=2000, 4 iterations")
     fit_phase(torch, pl, dev)
+    print(f"path A: the exact-LMC step at n={ROUTING_N}, "
+          f"{STEPS_PER_CHUNK} steps on each backward route")
+    path_a_phase(torch, pl, ck, fm, it, dev, totals)
+    print(f"path B: ExactGPModel n={N_B} T={T}, auto-routed iterative MLL, "
+          f"{STEPS_B} steps")
+    path_b_phase(torch, pl, ck, fm, dev, totals)
 
     meta = [("K1", "scaled_kernel_stack_sym",
              "projected_lmc_tpu/ops/pallas_kernels.py:278"),
             ("K2", "lowrank_stationary_reduce_sym",
              "projected_lmc_tpu/ops/pallas_kernels.py:470"),
             ("K3", "kernel_matrix",
-             "projected_lmc_tpu/ops/pallas_kernels.py:912")]
+             "projected_lmc_tpu/ops/pallas_kernels.py:912"),
+            ("K4", "lowrank_stationary_reduce_sym_kr",
+             "projected_lmc_tpu/ops/pallas_kernels.py:630"),
+            ("K5", "lowrank_stationary_reduce_sym_krs",
+             "projected_lmc_tpu/ops/pallas_kernels.py:798")]
     kernels = []
-    for (key, name, replaces), launches in zip(meta, counts):
+    for key, name, replaces in meta:
         row = rows[key]
         b, by = row["bound"]
         kernels.append(dict(
             name=name, route="cuda",
             source="projected_lmc_tpu_torch/csrc/stationary.cu",
-            replaces=replaces, launches=launches,
+            replaces=replaces, launches=totals[key],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=b, bound_by=by,
             library_ms=None))

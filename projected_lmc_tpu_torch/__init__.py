@@ -3,15 +3,20 @@
 The JAX package beside it is the reference; this package imports neither
 JAX nor ``projected_lmc_tpu``. It ports the exact-LMC training step
 (``models.multitask.MultitaskGPModel`` with the fused iterative MLL, and
-``training.fit``) with hand-written CUDA kernels for the TPU kernels on that
-path (``ops/cuda_kernels.py``, sources in ``csrc/``). Entry points default to
+``training.fit``), the batched exact GP (``models.exact.ExactGPModel``,
+dense or fused iterative MLL, ``mlls.exact_mll``) with hand-written CUDA
+kernels for the TPU kernels on those paths (``ops/cuda_kernels.py``,
+sources in ``csrc/``). Entry points default to
 ``device="cuda"``; ``device="cpu"`` runs the kernels' plain PyTorch versions.
 """
 
-from .likelihoods import MultitaskGaussianLikelihood
+from .likelihoods import GaussianLikelihood, MultitaskGaussianLikelihood
+from .mlls import exact_mll
+from .models.exact import ExactGPModel
 from .models.multitask import MultitaskGPModel
 from .training import fit, lambda_lr_schedule
 from .utils.checkpoint import load_jax_state
 
-__all__ = ["MultitaskGaussianLikelihood", "MultitaskGPModel", "fit",
-           "lambda_lr_schedule", "load_jax_state"]
+__all__ = ["ExactGPModel", "GaussianLikelihood", "MultitaskGaussianLikelihood",
+           "MultitaskGPModel", "exact_mll", "fit", "lambda_lr_schedule",
+           "load_jax_state"]

@@ -1,8 +1,7 @@
-"""Multitask Gaussian likelihood (port of
-``projected_lmc_tpu/likelihoods.MultitaskGaussianLikelihood``).
-
-Σt = F Fᵀ (rank > 0) or diag(task_noises) (rank 0), plus σ²_global I, as
-gpytorch's MultitaskGaussianLikelihood(num_tasks, rank)."""
+"""Gaussian likelihoods (port of ``projected_lmc_tpu/likelihoods.py``):
+the batched ``GaussianLikelihood`` and the ``MultitaskGaussianLikelihood``
+whose Σt = F Fᵀ (rank > 0) or diag(task_noises) (rank 0), plus σ²_global I,
+as gpytorch's MultitaskGaussianLikelihood(num_tasks, rank)."""
 
 from __future__ import annotations
 
@@ -12,6 +11,30 @@ import torch
 from . import constraints
 from .module import Module
 from .utils.device import resolve_device
+
+
+class GaussianLikelihood(Module):
+    """Batched homoskedastic Gaussian likelihood: ``noise`` has shape
+    (batch, 1), gpytorch's convention, through GreaterThan(1e-4)."""
+
+    def __init__(self, batch_shape=1, noise_constraint=None,
+                 dtype=torch.float32, device="cuda"):
+        super().__init__()
+        self.batch = int(batch_shape)
+        self.constraint = noise_constraint or constraints.GreaterThan(1e-4)
+        # gpytorch's default raw_noise = 0
+        self.register_raw("raw_noise", torch.zeros((self.batch, 1)), dtype,
+                          resolve_device(device))
+
+    @property
+    def noise(self):
+        return self.constraint.forward(self.raw_noise)
+
+    def add_to_covar(self, K):
+        """K (batch, n, n) → K + noise_b · I for each batch element."""
+        n = K.shape[-1]
+        return K + self.noise[..., None] * torch.eye(n, dtype=K.dtype,
+                                                     device=K.device)
 
 
 class MultitaskGaussianLikelihood(Module):

@@ -1,0 +1,182 @@
+"""Exact GP regression, batched over independent tasks (port of the
+marginal-likelihood part of ``projected_lmc_tpu/models/exact.py``).
+
+``n_tasks`` independent single-output GPs, evaluated as one batched
+Cholesky, or, above the dense ceiling (T·n² > ``ITER_TN2_MAX``), through
+the fused iterative MLL of ``ops/fused_mll.py``: the batch IS the LMC
+Σ_b K_b ⊗ e_b e_bᵀ + I ⊗ diag(σ²) with identity mixing. The posterior,
+LOO and the SGPR path (``n_inducing_points``) are later slices.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+
+import numpy as np
+import torch
+
+from ..kernels import KERNEL_REGISTRY, handle_covar
+from ..means import MEAN_REGISTRY
+from ..module import Module
+from ..ops import fused_mll
+from ..ops import iterative as it_ops
+from ..ops.cholesky import logdet_from_chol, safe_cholesky, solve_triangular
+from ..utils.device import resolve_device
+
+
+def _canon_targets(y, n_tasks, orientation: str = "auto"):
+    """(n,), (n, T) or (T, n) targets as (T, n).
+
+    ``orientation`` resolves the square case (n == n_tasks): "tn" asserts
+    (T, n), "nt" asserts (n, T), and "auto" infers by shape and takes a
+    square input as (n, T), the user-facing convention."""
+    if y.dim() == 1:
+        if n_tasks != 1:
+            raise ValueError("1-d targets require n_tasks == 1")
+        return y[None, :]
+    if orientation == "tn":
+        if y.shape[0] != n_tasks:
+            raise ValueError(f"expected (T={n_tasks}, n) targets, got "
+                             f"{tuple(y.shape)}")
+        return y
+    if orientation == "nt":
+        if y.shape[1] != n_tasks:
+            raise ValueError(f"expected (n, T={n_tasks}) targets, got "
+                             f"{tuple(y.shape)}")
+        return y.T
+    if y.shape[0] == n_tasks and y.shape[1] != n_tasks:
+        return y
+    return y.T
+
+
+def _resolve(registry, spec, default, what):
+    spec = default if spec is None else spec
+    if not isinstance(spec, str):
+        return spec
+    if spec not in registry:
+        raise NotImplementedError(f"{what} {spec!r} is ported in a later slice")
+    return registry[spec]
+
+
+class ExactGPModel(Module):
+    """Exact GP (projected_lmc.py:264-436); batch dimension = independent
+    tasks. ``device`` defaults to ``"cuda"``; ``device="cpu"`` runs the
+    kernels' plain versions. Parameters keep the JAX package's raw leaves
+    and names (``utils.checkpoint.load_jax_state``)."""
+
+    # dense batched-Cholesky ceiling of the auto-routing: T·n² elements
+    ITER_TN2_MAX = 2 ** 30
+
+    def __init__(self, train_x, train_y, likelihood, n_tasks: int = 1,
+                 prior_scales=None, prior_width=None, mean_type="constant",
+                 decomp=None, outputscales: bool = False, kernel_type="rbf",
+                 ker_kwargs=None, n_inducing_points=None, seed: int = 0,
+                 device="cuda", **kwargs):
+        super().__init__()
+        if n_inducing_points is not None:
+            raise NotImplementedError("the SGPR path (n_inducing_points) is "
+                                      "ported in a later slice")
+        dev = resolve_device(device)
+        x = torch.as_tensor(np.asarray(train_x), device=dev)
+        if x.dim() == 1:
+            x = x[:, None]
+        dtype = x.dtype
+        y = torch.as_tensor(np.asarray(train_y), dtype=dtype, device=dev)
+        self.register_buffer("train_x", x)
+        self.register_buffer("train_y", _canon_targets(y, n_tasks).contiguous())
+        self.likelihood = likelihood
+        self.n_tasks = int(n_tasks)
+        self.n_funcs = int(n_tasks)
+        self.dim = int(x.shape[1])
+        mean_cls = _resolve(MEAN_REGISTRY, mean_type, "constant", "mean")
+        self.mean_module = mean_cls(input_size=self.dim, batch_shape=n_tasks,
+                                    dtype=dtype, seed=seed, device=dev)
+        self.covar_module = handle_covar(
+            _resolve(KERNEL_REGISTRY, kernel_type, "rbf", "kernel"),
+            dim=self.dim, decomp=decomp, prior_scales=prior_scales,
+            prior_width=prior_width, outputscales=outputscales,
+            n_funcs=n_tasks, ker_kwargs=ker_kwargs, dtype=dtype, device=dev)
+
+    @property
+    def device(self):
+        return self.train_x.device
+
+    def log_marginal(self, y=None, x=None, orientation: str = "auto"):
+        """Per-task log N(y_t; m_t, K_t + σ_t² I), shape (T,), by a batched
+        Cholesky."""
+        x = self.train_x if x is None else x
+        y = self.train_y if y is None else _canon_targets(
+            torch.as_tensor(y, dtype=x.dtype, device=x.device), self.n_funcs,
+            orientation)
+        n = x.shape[0]
+        delta = y - self.mean_module(x)
+        L = safe_cholesky(self.likelihood.add_to_covar(self.covar_module(x)))
+        z = solve_triangular(L, delta[..., None], lower=True)[..., 0]
+        return -0.5 * ((z * z).sum(-1) + logdet_from_chol(L)
+                       + n * math.log(2 * math.pi))
+
+    def mll(self, x=None, y=None, iterative: bool = None,
+            num_probes: int = 10, max_cg_iters: int = 256,
+            cg_tol: float = 1e-2, matvec_bf16: bool = False,
+            precond_rank: int = 256, eps=None, xi=None, generator=None):
+        """Exact MLL summed over the task batch, plus hyper-prior terms, over
+        n (gpytorch ExactMarginalLogLikelihood).
+
+        Above the dense ceiling (T·n² > ``ITER_TN2_MAX``, with a warning) or
+        with ``iterative=True`` it is the fused Nyström-preconditioned PCG
+        estimator with identity mixing. eps (num_probes, n, T) and xi
+        (num_probes, T, rank) are its standard normals; when not given they
+        are drawn from ``generator`` (a fresh one seeded 0 when None, as the
+        JAX model draws from ``PRNGKey(0)`` without a key). The roots are
+        rebuilt at every call. ``precond_rank <= 0`` means min(256, n)."""
+        x_ = self.train_x if x is None else x
+        n = x_.shape[0]
+        if iterative is None:
+            iterative = self.n_funcs * n * n > self.ITER_TN2_MAX
+            if iterative:
+                warnings.warn(
+                    "ExactGPModel.mll: T·n² exceeds the dense-Cholesky "
+                    "ceiling — auto-routing to the matrix-free PCG/SLQ "
+                    "estimator. The MLL becomes stochastic: pass a "
+                    "`generator` whose state advances from step to step "
+                    "(without one the probes are drawn from a generator "
+                    "seeded 0, a fixed-realization objective); pass "
+                    "iterative=False to force the dense path.", stacklevel=2)
+        if not iterative:
+            ll = self.log_marginal(y=y, x=x)
+            return (ll.sum() + self.covar_module.prior_log_prob()) / n
+        from .multitask import _fused_stationary_spec
+        spec = _fused_stationary_spec(self.covar_module, self.dim)
+        if spec is None:
+            raise NotImplementedError("the composed kernel→log-prob route is "
+                                      "ported in a later slice")
+        kind, ls, os_ = spec
+        y_ = self.train_y if y is None else _canon_targets(
+            torch.as_tensor(y, dtype=x_.dtype, device=x_.device), self.n_funcs)
+        Ydelta = (y_ - self.mean_module(x_)).T                  # (n, T)
+        T = self.n_funcs
+        H = torch.eye(T, dtype=x_.dtype, device=x_.device)
+        St = torch.diag(self.likelihood.noise[..., 0])
+        if precond_rank <= 0:
+            precond_rank = min(256, n)
+        with torch.no_grad():
+            roots = self._precond_roots(x_, precond_rank)       # (T, n, m)
+        m_rank = int(roots.shape[-1])
+        if eps is None or xi is None:
+            if generator is None:
+                generator = torch.Generator(device=x_.device).manual_seed(0)
+            draw = dict(generator=generator, dtype=Ydelta.dtype,
+                        device=x_.device)
+            eps = torch.randn((num_probes, n, T), **draw)
+            xi = torch.randn((num_probes, T, m_rank), **draw)
+        ll = fused_mll.lmc_pcg_log_prob_stationary(
+            x_, ls, os_, H, St, Ydelta, eps, xi, roots, kind, max_cg_iters,
+            cg_tol, matvec_bf16, m_rank, device=x_.device)
+        return (ll + self.covar_module.prior_log_prob()) / n
+
+    def _precond_roots(self, x, rank: int, jitter: float = 1e-4):
+        """Nyström roots of the batched task kernels at strided landmarks
+        (ops.iterative.nystrom_roots_from_covar), (T, n, rank)."""
+        return it_ops.nystrom_roots_from_covar(self.covar_module, x, rank,
+                                               jitter)

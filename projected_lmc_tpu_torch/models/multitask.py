@@ -5,8 +5,8 @@
 rank-1 task factors h_b (``covar_factor``, SVD-initialized from the labels).
 The marginal likelihood is the fused op of ``ops/fused_mll.py``: stack build
 (kernel K1), Nyström-preconditioned CG with Lanczos quadrature, and a
-backward through kernel K2; the preconditioner's landmark blocks are
-kernel K3.
+backward through kernel K2 (or K4/K5, the routes of ``ops/fused_mll``);
+the preconditioner's landmark blocks are kernel K3.
 """
 
 from __future__ import annotations
@@ -23,26 +23,7 @@ from ..ops import fused_mll
 from ..ops import iterative as it_ops
 from ..ops.init_ops import init_lmc_coefficients
 from ..utils.device import resolve_device
-
-
-def _resolve(registry, spec, default, what):
-    spec = default if spec is None else spec
-    if not isinstance(spec, str):
-        return spec
-    if spec not in registry:
-        raise NotImplementedError(f"{what} {spec!r} is ported in a later slice")
-    return registry[spec]
-
-
-def _canon_targets(y, n_tasks):
-    """(n,), (n, T) or (T, n) targets as (T, n); a square input is (n, T)."""
-    if y.dim() == 1:
-        if n_tasks != 1:
-            raise ValueError("1-d targets require n_tasks == 1")
-        return y[None, :]
-    if y.shape[0] == n_tasks and y.shape[1] != n_tasks:
-        return y
-    return y.T
+from .exact import _canon_targets, _resolve
 
 
 def _fused_stationary_spec(cov, dim):

@@ -67,6 +67,8 @@ def library() -> ctypes.CDLL:
         "plmc_scaled_stack_sym": [P, P, P, P, I, I, I, I, I, P],
         "plmc_kernel_matrix": [P, P, P, P, I, I, I, I, I, P],
         "plmc_lowrank_reduce_sym": [P, P, P, P, P, P, P, I, I, I, I, I, P],
+        "plmc_lowrank_reduce_sym_kr": [P] * 9 + [I] * 5 + [P],
+        "plmc_lowrank_reduce_sym_krs": [P] * 10 + [I] * 6 + [P],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -1,6 +1,6 @@
 """The main path's hand-written CUDA kernels and their plain PyTorch versions.
 
-Port of ``projected_lmc_tpu/ops/pallas_kernels.py``, the three TPU kernels
+Port of ``projected_lmc_tpu/ops/pallas_kernels.py``, the five TPU kernels
 that the exact-LMC training step reaches. The CUDA sources are in
 ``csrc/stationary.cu`` (built by ``ops/_build.py`` on first use).
 
@@ -221,6 +221,139 @@ def lowrank_stationary_reduce_sym(x, lengthscale, A, Bf, kind: str,
 
 
 lowrank_stationary_reduce_sym.launches = 0
+
+
+# -- K4, K5: the one-pass backward (reductions plus KA) -----------------------
+
+def lowrank_stationary_reduce_sym_kr_plain(x, lengthscale, outputscale, A, Bf,
+                                           kind: str):
+    """(rows, wx, KA): K2's reductions and KA_b = (os_b · K_b) A_b —
+    ``fused_mll._lowrank_reduce_kr``'s dense branch."""
+    d2 = _sqdist_scaled(x, x, lengthscale)
+    W = torch.matmul(A, Bf.transpose(-1, -2)) * dprofile(kind, d2)
+    K = profile(kind, d2) * outputscale[:, None, None]
+    return W.sum(-1), torch.matmul(W, x), torch.matmul(K, A)
+
+
+def _dprofile_from_stack(kind: str, x, lengthscale, outputscale, Kf):
+    """g′(d²) recovered from the os-scaled stack values Kf = os_b·g by the
+    rational identity of ``pallas_kernels._lowrank_vjp_tile_sym_krs``, no
+    exp: it carries the stack's own rounding."""
+    inv_os = (1.0 / outputscale)[:, None, None]
+    if kind == "rbf":
+        return -0.5 * inv_os * Kf
+    d2 = _sqdist_scaled(x, x, lengthscale)
+    r = torch.sqrt(torch.clamp(d2, min=1e-30))
+    if kind == "matern05":
+        return torch.where(d2 <= 1e-12, torch.zeros_like(d2),
+                           -0.5 * inv_os * Kf / r)
+    if kind == "matern15":
+        return -1.5 * inv_os * Kf / (1.0 + math.sqrt(3.0) * r)
+    if kind == "matern25":
+        c = math.sqrt(5.0) * r
+        return (-5.0 / 6.0) * inv_os * Kf * (1.0 + c) \
+            / (1.0 + c + (5.0 / 3.0) * d2)
+    raise ValueError(f"unknown kernel kind {kind!r}")
+
+
+def lowrank_stationary_reduce_sym_krs_plain(x, lengthscale, outputscale, A, Bf,
+                                            Ks, kind: str):
+    """K4's (rows, wx, KA) from the stored symmetric stack ``Ks``
+    (q, n, n), os-scaled: g′ by the rational identity, KA = Ks·A."""
+    Kf = Ks.to(A.dtype)
+    gp = _dprofile_from_stack(kind, x, lengthscale, outputscale, Kf)
+    W = torch.matmul(A, Bf.transpose(-1, -2)) * gp
+    return W.sum(-1), torch.matmul(W, x), torch.matmul(Kf, A)
+
+
+def _kr_launch(fn_name, x, lengthscale, outputscale, A, Bf, Ks, kind):
+    """Checks, scratch and outputs shared by K4 and K5 (``Ks`` None for K4)."""
+    n = x.shape[0]
+    d = _features(x)
+    q, _, r = A.shape
+    _require("x", x, (n, d))
+    _require("outputscale", outputscale, (q,))
+    _require("A", A, (q, n, r))
+    _require("Bf", Bf, (q, n, r))
+    ls = _lengthscale_2d(lengthscale, q, d)
+    tile = _build.library().plmc_tile_size()
+    nt = -(-n // tile)
+    slots = torch.empty((q, nt, nt, tile, 1 + d + r), dtype=torch.float32,
+                        device=x.device)
+    rows = torch.empty((q, n), dtype=torch.float32, device=x.device)
+    wx = torch.empty((q, n, d), dtype=torch.float32, device=x.device)
+    ka = torch.empty((q, n, r), dtype=torch.float32, device=x.device)
+    head = (x.data_ptr(), ls.data_ptr(), outputscale.data_ptr(), A.data_ptr(),
+            Bf.data_ptr())
+    tail = (slots.data_ptr(), rows.data_ptr(), wx.data_ptr(), ka.data_ptr(),
+            q, n, r, d, _kind_id(kind))
+    if Ks is None:
+        _launch(fn_name, *head, *tail, _stream(x))
+    else:
+        _launch(fn_name, *head, Ks.data_ptr(), *tail,
+                int(Ks.dtype == torch.bfloat16), _stream(x))
+    return rows, wx, ka
+
+
+def lowrank_stationary_reduce_sym_kr(x, lengthscale, outputscale, A, Bf,
+                                     kind: str, device="cuda"):
+    """K4. (rows (q, n), wx (q, n, d), KA (q, n, r)) in one pass: K2's
+    reductions of the symmetric W_b = (A_b Bf_bᵀ) ⊙ g′(d²_b) and
+    KA_b = (os_b · K_b) A_b, which replaces the backward's stack product.
+
+    Replaces ``lowrank_stationary_reduce_sym_kr`` (projected_lmc_tpu/ops/
+    pallas_kernels.py:630; body ``_lowrank_vjp_tile_sym_kr`` :524). Bound
+    on the card: arithmetic — K2's per-pair work (rank-r product, d², one
+    exp for g and g′, the W sums) plus 4r for the two KA products of each
+    unordered pair. Design: K2's — one block per lower tile, whose sums for
+    its row block and mirrored sums for its column block go to their own
+    slots of a (q, nt, nt, 64, 1+d+r) fp32 buffer (2.2 GB at n = 2·10⁴,
+    q = 4, d = 4, r = 17; 2.6 GB at n = 16,384, q = 7), which a second
+    kernel sums in index order: no float atomics, the same bits on every
+    run. KA is an fp32 product (the TPU kernel's is a bf16 pass)."""
+    dev = check_device(device, x, lengthscale, outputscale, A, Bf)
+    if dev.type == "cpu":
+        return lowrank_stationary_reduce_sym_kr_plain(x, lengthscale,
+                                                      outputscale, A, Bf, kind)
+    out = _kr_launch("plmc_lowrank_reduce_sym_kr", x, lengthscale,
+                     outputscale, A, Bf, None, kind)
+    lowrank_stationary_reduce_sym_kr.launches += 1
+    return out
+
+
+lowrank_stationary_reduce_sym_kr.launches = 0
+
+
+def lowrank_stationary_reduce_sym_krs(x, lengthscale, outputscale, A, Bf, Ks,
+                                      kind: str, device="cuda"):
+    """K5. K4's (rows, wx, KA), reading the stored os-scaled symmetric stack
+    ``Ks`` (q, n, n), fp32 or bf16, instead of recomputing it: g′ comes from
+    the stack value by a rational identity (no exp), so the results carry
+    the stack's rounding.
+
+    Replaces ``lowrank_stationary_reduce_sym_krs`` (projected_lmc_tpu/ops/
+    pallas_kernels.py:798; body ``_lowrank_vjp_tile_sym_krs`` :703). Bound:
+    K4's arithmetic less the exp, plus the read of the stack's lower half.
+    Design: K4's, with each lower tile read from the stack (bounds-checked
+    at the ragged edge) in place of its evaluation."""
+    dev = check_device(device, x, lengthscale, outputscale, A, Bf, Ks)
+    if dev.type == "cpu":
+        return lowrank_stationary_reduce_sym_krs_plain(
+            x, lengthscale, outputscale, A, Bf, Ks, kind)
+    n = x.shape[0]
+    if Ks.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"Ks: the CUDA kernel takes float32 or bfloat16, got "
+                        f"{Ks.dtype}")
+    if tuple(Ks.shape) != (A.shape[0], n, n) or not Ks.is_contiguous():
+        raise ValueError(f"Ks: expected a contiguous ({A.shape[0]}, {n}, {n}) "
+                         f"stack, got {tuple(Ks.shape)}")
+    out = _kr_launch("plmc_lowrank_reduce_sym_krs", x, lengthscale,
+                     outputscale, A, Bf, Ks, kind)
+    lowrank_stationary_reduce_sym_krs.launches += 1
+    return out
+
+
+lowrank_stationary_reduce_sym_krs.launches = 0
 
 
 # -- K3: general cross kernel matrix ------------------------------------------

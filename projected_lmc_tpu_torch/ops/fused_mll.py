@@ -9,24 +9,77 @@ The backward uses that the kernel cotangent is low-rank by construction,
          = A_b Bf_bᵀ,     rank 1 + 2s (s probes; 17 on the main path),
 
 so the lengthscale gradient reduces through one pass over the pair grid
-(kernel K2, ``cuda_kernels.lowrank_stationary_reduce_sym``) that reads only
-the factors, and dH, dΣt and the outputscale gradient share one batched
-product with the stack. The forward builds the os-scaled stack with kernel
-K1 (``cuda_kernels.scaled_kernel_stack_sym``).
+that reads only the factors. The backward takes one of three routes
+(``_backward_route``):
+
+  * "stack": kernel K2 (``cuda_kernels.lowrank_stationary_reduce_sym``)
+    for the reductions, and one batched product with the stack for dH, dΣt
+    and the outputscale gradient;
+  * "kr": kernel K4 (``lowrank_stationary_reduce_sym_kr``) gives the
+    reductions AND KA = (os·K)·A in one pass, so the backward never reads
+    the stack and the forward does not keep it; "krs" is K5, the same pass
+    reading the stored stack instead of recomputing it (opt-in).
+
+The forward builds the os-scaled stack with kernel K1
+(``cuda_kernels.scaled_kernel_stack_sym``).
 
 Scope: symmetric training evaluations of a bare or Scale-wrapped stationary
 kernel (RBF / Matérn) over all input features. The input locations get no
-gradient (training data is constant); ``matvec_int8`` and the TPU's
-fully-fused ``kr``/``krs`` backward passes are later slices.
+gradient (training data is constant); ``matvec_int8`` is a later slice.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from ..utils.device import check_device
 from . import cuda_kernels as ck
 from . import iterative as it
+
+# The n from which the "kr" backward (K4) is the default, None for no n: the
+# smallest n at which K4 beat K2 plus the stack product in the exact-LMC
+# training step (T=7, q=4, d=4, r=17, bf16 stack). On an H100 80GB HBM3 at
+# 700 W (chip_smoke.py path A, median of 16 steps) it did at none:
+#   n =  5,000: stack 17.899 ms, kr 22.252 ms (kernels 0.537 vs 0.582 ms)
+#   n = 10,000: stack 33.369 ms, kr 33.377 ms (kernels 2.070 vs 2.128 ms)
+#   n = 20,000: stack 78.198 ms, kr 79.180 ms (kernels 7.221 vs 8.351 ms)
+# The kr route keeps ~0.4 GB less at n=20k; it is taken by PLMC_KR_FUSED=1.
+KR_MIN_N = None
+
+
+def _use_kr_fused(n: int) -> bool:
+    """K4 for the backward: PLMC_KR_FUSED=1/0 if set (read at each call),
+    else from ``KR_MIN_N`` points on."""
+    env = os.environ.get("PLMC_KR_FUSED")
+    if env is not None:
+        return env == "1"
+    return KR_MIN_N is not None and n >= KR_MIN_N
+
+
+def _use_kr_stream(Ks) -> bool:
+    """K5 (the stack read back in place of its recomputation): only with
+    PLMC_KR_STREAM=1, read at each call, and never for an int8 stack."""
+    return os.environ.get("PLMC_KR_STREAM") == "1" and Ks.dtype != torch.int8
+
+
+def _backward_route(Ks) -> str:
+    """"krs", "kr" or "stack" for a (q, n, n) stack, as the JAX package's
+    ``_fused_bwd`` picks: streaming wins over the n rule."""
+    if _use_kr_stream(Ks):
+        return "krs"
+    return "kr" if _use_kr_fused(Ks.shape[-1]) else "stack"
+
+
+def _lowrank_reduce_kr(xc, ls, os_, A, Bf, kind, Ks=None, device="cuda"):
+    """(rows, wx, KA) in one pass: K5 reading ``Ks`` when it is given, K4
+    recomputing the stack otherwise."""
+    if Ks is not None:
+        return ck.lowrank_stationary_reduce_sym_krs(xc, ls, os_, A, Bf, Ks,
+                                                    kind, device=device)
+    return ck.lowrank_stationary_reduce_sym_kr(xc, ls, os_, A, Bf, kind,
+                                               device=device)
 
 
 class _FusedStationaryLogProb(torch.autograd.Function):
@@ -41,7 +94,10 @@ class _FusedStationaryLogProb(torch.autograd.Function):
         ll, (alpha, W, Ztilde) = it._pcg_fwd_impl(
             Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
             matvec_bf16, precond_rank)
-        ctx.save_for_backward(xc, ls, os_, Ks, H, alpha, W, Ztilde)
+        ctx.route = _backward_route(Ks)
+        # the kr backward recomputes the stack, so it is not kept for it
+        ctx.save_for_backward(xc, ls, os_, None if ctx.route == "kr" else Ks,
+                              H, alpha, W, Ztilde)
         ctx.kind, ctx.device = kind, device
         return ll
 
@@ -60,9 +116,19 @@ class _FusedStationaryLogProb(torch.autograd.Function):
                           (-g / (4 * s)) * ZHq,
                           (-g / (4 * s)) * WHq], -1) * os_[:, None, None]
 
-        # ONE batched stack product serves dH and the outputscale gradient
-        KR = it._stack_matmul(Ks, torch.cat([Ah[None], WH, ZH], 0)) \
-            .to(alpha.dtype)
+        Afac, Bfac = Afac.contiguous(), Bfac.contiguous()
+        if ctx.route == "stack":
+            # ONE batched stack product serves dH and the outputscale gradient
+            KR = it._stack_matmul(Ks, torch.cat([Ah[None], WH, ZH], 0))
+            rows, wx = ck.lowrank_stationary_reduce_sym(
+                xc, ls, Afac, Bfac, ctx.kind, device=ctx.device)
+        else:
+            # Afac's columns are those of [Ah, WH, ZH]: KA (q, n, r) is the
+            # stack product, transposed
+            rows, wx, KA = _lowrank_reduce_kr(
+                xc, ls, os_, Afac, Bfac, ctx.kind, Ks=Ks, device=ctx.device)
+            KR = KA.permute(2, 1, 0)
+        KR = KR.to(alpha.dtype)
         KAh, KWH, KZH = KR[0], KR[1:1 + s], KR[1 + s:]
         dH_a = alpha.T @ KAh
         dH_s = 0.5 * (torch.einsum("snt,snb->tb", Zt, KWH)
@@ -78,9 +144,6 @@ class _FusedStationaryLogProb(torch.autograd.Function):
         dos_tr = (ZH * KWH).sum((0, 1)) + (WH * KZH).sum((0, 1))
         dos = (g * (0.5 * dos_quad - dos_tr / (4 * s)) / os_).to(os_.dtype)
 
-        rows, wx = ck.lowrank_stationary_reduce_sym(
-            xc, ls, Afac.contiguous(), Bfac.contiguous(), ctx.kind,
-            device=ctx.device)
         lsq = ls[:, 0, :]                                   # (q, d)
         sq = rows @ (xc * xc)
         crossd = torch.einsum("bid,id->bd", wx, xc)
