@@ -4,8 +4,9 @@ The JAX package beside it is the reference; this package imports neither
 JAX nor ``projected_lmc_tpu``. It ports the exact-LMC training step
 (``models.multitask.MultitaskGPModel`` with the fused iterative MLL, and
 ``training.fit``), the batched exact GP (``models.exact.ExactGPModel``,
-dense or fused iterative MLL, ``mlls.exact_mll``) with hand-written CUDA
-kernels for the TPU kernels on those paths (``ops/cuda_kernels.py``,
+dense or fused iterative MLL, ``mlls.exact_mll``), the int8 stack
+(``matvec_int8``) and ``training.fit_two_phase``, with a hand-written CUDA
+kernel for each TPU kernel of the JAX package (``ops/cuda_kernels.py``,
 sources in ``csrc/``). Entry points default to
 ``device="cuda"``; ``device="cpu"`` runs the kernels' plain PyTorch versions.
 """
@@ -14,9 +15,9 @@ from .likelihoods import GaussianLikelihood, MultitaskGaussianLikelihood
 from .mlls import exact_mll
 from .models.exact import ExactGPModel
 from .models.multitask import MultitaskGPModel
-from .training import fit, lambda_lr_schedule
+from .training import fit, fit_two_phase, lambda_lr_schedule
 from .utils.checkpoint import load_jax_state
 
 __all__ = ["ExactGPModel", "GaussianLikelihood", "MultitaskGaussianLikelihood",
-           "MultitaskGPModel", "exact_mll", "fit", "lambda_lr_schedule",
-           "load_jax_state"]
+           "MultitaskGPModel", "exact_mll", "fit", "fit_two_phase",
+           "lambda_lr_schedule", "load_jax_state"]

@@ -4,9 +4,10 @@
 Σ = Σ_b K_b ⊗ h_b h_bᵀ + I ⊗ Σt with one stationary kernel per latent and
 rank-1 task factors h_b (``covar_factor``, SVD-initialized from the labels).
 The marginal likelihood is the fused op of ``ops/fused_mll.py``: stack build
-(kernel K1), Nyström-preconditioned CG with Lanczos quadrature, and a
-backward through kernel K2 (or K4/K5, the routes of ``ops/fused_mll``);
-the preconditioner's landmark blocks are kernel K3.
+(kernel K1; K8 for an int8 stack, K6 under ``PLMC_SYM_BUILD=0``),
+Nyström-preconditioned CG with Lanczos quadrature, and a backward through
+kernel K2 (or K4/K5/K7, the routes of ``ops/fused_mll``); the
+preconditioner's landmark blocks are kernel K3.
 """
 
 from __future__ import annotations
@@ -152,7 +153,9 @@ class MultitaskGPModel(Module):
         ``generator`` (a fresh ``torch.Generator`` seeded 0 when None, as the
         JAX model draws from ``PRNGKey(0)`` without a key).
         ``precond_roots`` (q, n, rank): caller-supplied, possibly stale,
-        Nyström roots; the estimator is exact for any SPD preconditioner."""
+        Nyström roots; the estimator is exact for any SPD preconditioner.
+        ``matvec_int8`` (over ``matvec_bf16``): the int8 stack (kernel K8)
+        and int8 × int8 → int32 stack products (``ops/fused_mll``)."""
         x = self.train_x if x is None else x
         y = self.train_y if y is None else _canon_targets(
             torch.as_tensor(y, dtype=x.dtype, device=x.device), self.n_tasks)

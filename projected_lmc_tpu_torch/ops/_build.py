@@ -69,6 +69,9 @@ def library() -> ctypes.CDLL:
         "plmc_lowrank_reduce_sym": [P, P, P, P, P, P, P, I, I, I, I, I, P],
         "plmc_lowrank_reduce_sym_kr": [P] * 9 + [I] * 5 + [P],
         "plmc_lowrank_reduce_sym_krs": [P] * 10 + [I] * 6 + [P],
+        "plmc_scaled_stack": [P] * 5 + [I] * 6 + [P],
+        "plmc_quantized_stack": [P] * 4 + [I] * 7 + [P],
+        "plmc_lowrank_reduce": [P] * 6 + [I] * 5 + [P],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

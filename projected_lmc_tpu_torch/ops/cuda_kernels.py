@@ -1,7 +1,7 @@
-"""The main path's hand-written CUDA kernels and their plain PyTorch versions.
+"""The fused MLL's hand-written CUDA kernels and their plain PyTorch versions.
 
-Port of ``projected_lmc_tpu/ops/pallas_kernels.py``, the five TPU kernels
-that the exact-LMC training step reaches. The CUDA sources are in
+Port of ``projected_lmc_tpu/ops/pallas_kernels.py``: one kernel for each of
+its eight TPU kernels (K1–K8). The CUDA sources are in
 ``csrc/stationary.cu`` (built by ``ops/_build.py`` on first use).
 
 Each wrapper takes a ``device`` argument (default ``"cuda"``) and requires its
@@ -119,15 +119,20 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _out_dtype(out_dtype):
+    if out_dtype not in (None, torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    return out_dtype or torch.float32
+
+
 # -- K1: symmetric scaled kernel stack ----------------------------------------
 
 def scaled_kernel_stack_sym_plain(x, lengthscale, outputscale, kind: str,
                                   out_dtype=None):
     """os_b · g(|x_i/l_b − x_j/l_b|²), (q, n, n): the dense formula of
     ``fused_mll._scaled_stack``'s XLA branch."""
-    K = kernel_matrix_plain(x, x, lengthscale, kind) \
-        * outputscale[:, None, None]
-    return K if out_dtype is None else K.to(out_dtype)
+    return scaled_kernel_stack_plain(x, x, lengthscale, outputscale, kind,
+                                     out_dtype)
 
 
 def scaled_kernel_stack_sym(x, lengthscale, outputscale, kind: str,
@@ -152,13 +157,11 @@ def scaled_kernel_stack_sym(x, lengthscale, outputscale, kind: str,
     n = x.shape[0]
     d = _features(x)
     q = lengthscale.shape[0]
-    if out_dtype not in (None, torch.float32, torch.bfloat16):
-        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    dtype = _out_dtype(out_dtype)
     _require("x", x, (n, d))
     _require("outputscale", outputscale, (q,))
     ls = _lengthscale_2d(lengthscale, q, d)
-    out = torch.empty((q, n, n), dtype=out_dtype or torch.float32,
-                      device=x.device)
+    out = torch.empty((q, n, n), dtype=dtype, device=x.device)
     _launch("plmc_scaled_stack_sym", x.data_ptr(), ls.data_ptr(),
             outputscale.data_ptr(), out.data_ptr(), q, n, d, _kind_id(kind),
             int(out_dtype == torch.bfloat16), _stream(x))
@@ -390,3 +393,151 @@ def kernel_matrix(x1, x2, lengthscale, kind: str, device="cuda"):
 
 
 kernel_matrix.launches = 0
+
+
+# -- K6: full-grid scaled kernel stack -----------------------------------------
+
+def scaled_kernel_stack_plain(x1, x2, lengthscale, outputscale, kind: str,
+                              out_dtype=None):
+    """os_b · g(|x1_i/l_b − x2_j/l_b|²), (q, n, m), in ``out_dtype``."""
+    K = kernel_matrix_plain(x1, x2, lengthscale, kind) \
+        * outputscale[:, None, None]
+    return K if out_dtype is None else K.to(out_dtype)
+
+
+def scaled_kernel_stack(x1, x2, lengthscale, outputscale, kind: str,
+                        out_dtype=None, device="cuda"):
+    """K6. os_b · K_b(x1, x2) over the full (q, n, m) grid, fp32 or bf16
+    (``out_dtype``); x1 and x2 may differ. Not differentiable: the fused
+    MLL owns the gradient.
+
+    Replaces ``scaled_kernel_stack`` (projected_lmc_tpu/ops/
+    pallas_kernels.py:130; body ``_scaled_tile_kernel`` :110), the
+    forward of the fused MLL under ``PLMC_SYM_BUILD=0``. Bound on the card:
+    the write, q·n·m·2 bytes in bf16 (800 MB at n = m = 10⁴, q = 4), just
+    above the arithmetic of the n·m pairs. Design: K3's tile kernel (one
+    block per 64 × 64 tile, d² from direct differences) with the
+    outputscale applied in the tile; it writes exactly (q, n, m), the
+    ragged edges masked, never a padded stack. A bf16 result uses the
+    card's exp2, as K1 does; fp32 uses libm expf."""
+    dev = check_device(device, x1, x2, lengthscale, outputscale)
+    if dev.type == "cpu":
+        return scaled_kernel_stack_plain(x1, x2, lengthscale, outputscale,
+                                         kind, out_dtype)
+    n, m = x1.shape[0], x2.shape[0]
+    d = _features(x1)
+    q = lengthscale.shape[0]
+    dtype = _out_dtype(out_dtype)
+    _require("x1", x1, (n, d))
+    _require("x2", x2, (m, d))
+    _require("outputscale", outputscale, (q,))
+    ls = _lengthscale_2d(lengthscale, q, d)
+    out = torch.empty((q, n, m), dtype=dtype, device=x1.device)
+    _launch("plmc_scaled_stack", x1.data_ptr(), x2.data_ptr(), ls.data_ptr(),
+            outputscale.data_ptr(), out.data_ptr(), q, n, m, d, _kind_id(kind),
+            int(dtype == torch.bfloat16), _stream(x1))
+    scaled_kernel_stack.launches += 1
+    return out
+
+
+scaled_kernel_stack.launches = 0
+
+
+# -- K7: full-grid low-rank cotangent reduction -------------------------------
+
+# K2's plain version is already the full-grid formula: it assumes no symmetry
+lowrank_stationary_reduce_plain = lowrank_stationary_reduce_sym_plain
+
+
+def lowrank_stationary_reduce(x, lengthscale, A, Bf, kind: str, device="cuda"):
+    """K7. rows (q, n) and wx (q, n, d) of W_b = (A_b Bf_bᵀ) ⊙ g′(d²_b) over
+    the full grid, for any factors (A Bfᵀ need not be symmetric).
+
+    Replaces ``lowrank_stationary_reduce`` (projected_lmc_tpu/ops/
+    pallas_kernels.py:364; body ``_lowrank_vjp_tile`` :322), the fused
+    backward's reduction under ``PLMC_SYM_BUILD=0``. Bound on the card:
+    arithmetic — per ordered pair the rank-r product, d², a sqrt and an
+    exp, and 1+d accumulations, over n² pairs (about twice K2's). Design:
+    one block per (latent, row tile) walks every column tile in order,
+    keeping its rows' sums in registers, and writes rows and wx once: no
+    slots, no second pass, no atomics, the same bits on every run."""
+    dev = check_device(device, x, lengthscale, A, Bf)
+    if dev.type == "cpu":
+        return lowrank_stationary_reduce_plain(x, lengthscale, A, Bf, kind)
+    n = x.shape[0]
+    d = _features(x)
+    q, _, r = A.shape
+    _require("x", x, (n, d))
+    _require("A", A, (q, n, r))
+    _require("Bf", Bf, (q, n, r))
+    ls = _lengthscale_2d(lengthscale, q, d)
+    rows = torch.empty((q, n), dtype=torch.float32, device=x.device)
+    wx = torch.empty((q, n, d), dtype=torch.float32, device=x.device)
+    _launch("plmc_lowrank_reduce", x.data_ptr(), ls.data_ptr(), A.data_ptr(),
+            Bf.data_ptr(), rows.data_ptr(), wx.data_ptr(), q, n, r, d,
+            _kind_id(kind), _stream(x))
+    lowrank_stationary_reduce.launches += 1
+    return rows, wx
+
+
+lowrank_stationary_reduce.launches = 0
+
+
+# -- K8: int8 kernel stack -----------------------------------------------------
+
+def _padded_shape(n, m, padded_to):
+    rows, cols = (n, m) if padded_to is None else padded_to
+    if rows < n or cols < m:
+        raise ValueError(f"padded_to {padded_to} is smaller than ({n}, {m})")
+    return rows, cols
+
+
+def quantized_kernel_stack_plain(x1, x2, lengthscale, kind: str,
+                                 padded_to=None):
+    """round(127·g(d²)) as int8 (round half to even), (q, n, m), or zero-
+    padded to (q, *padded_to)."""
+    n, m = x1.shape[0], x2.shape[0]
+    rows, cols = _padded_shape(n, m, padded_to)
+    Q = torch.round(kernel_matrix_plain(x1, x2, lengthscale, kind) * 127.0)
+    out = torch.zeros((Q.shape[0], rows, cols), dtype=torch.int8,
+                      device=Q.device)
+    out[:, :n, :m] = Q.to(torch.int8)
+    return out
+
+
+def quantized_kernel_stack(x1, x2, lengthscale, kind: str, padded_to=None,
+                           device="cuda"):
+    """K8. The int8 stack round(127·g(d²)), (q, n, m), no outputscale: g
+    lies in [0, 1], so 1/127 is a range-exact scale and os_b/127 dequantises
+    at the consumer. ``padded_to`` (rows, cols) ≥ (n, m) writes a larger
+    stack with zeros outside (n, m), the shape the int8 tensor-core product
+    takes (``iterative.int8_width``).
+
+    Replaces ``quantized_kernel_stack`` (projected_lmc_tpu/ops/
+    pallas_kernels.py:190; body ``_quant_tile_kernel`` :169). Bound on the
+    card: the larger of the q·rows·cols-byte write (400 MB at n = 10⁴) and
+    the arithmetic of the q·n·m pairs. Design: the full grid over (x1, x2),
+    as the TPU kernel, on K3's tile kernel, rounding each value to its
+    count (``__float2int_rn``, half to even, as ``torch.round``) in the
+    tile; libm expf, so counts differ from the plain version's only where
+    127·g lies within ~1e-5 of a half."""
+    dev = check_device(device, x1, x2, lengthscale)
+    n, m = x1.shape[0], x2.shape[0]
+    rows, cols = _padded_shape(n, m, padded_to)
+    if dev.type == "cpu":
+        return quantized_kernel_stack_plain(x1, x2, lengthscale, kind,
+                                            padded_to)
+    d = _features(x1)
+    q = lengthscale.shape[0]
+    _require("x1", x1, (n, d))
+    _require("x2", x2, (m, d))
+    ls = _lengthscale_2d(lengthscale, q, d)
+    out = torch.empty((q, rows, cols), dtype=torch.int8, device=x1.device)
+    _launch("plmc_quantized_stack", x1.data_ptr(), x2.data_ptr(),
+            ls.data_ptr(), out.data_ptr(), q, n, m, rows, cols, d,
+            _kind_id(kind), _stream(x1))
+    quantized_kernel_stack.launches += 1
+    return out
+
+
+quantized_kernel_stack.launches = 0

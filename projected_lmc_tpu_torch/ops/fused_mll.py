@@ -21,11 +21,18 @@ that reads only the factors. The backward takes one of three routes
     reading the stored stack instead of recomputing it (opt-in).
 
 The forward builds the os-scaled stack with kernel K1
-(``cuda_kernels.scaled_kernel_stack_sym``).
+(``cuda_kernels.scaled_kernel_stack_sym``). ``matvec_int8`` builds an int8
+stack round(127·g) with K8 (``quantized_kernel_stack``), dequantised by
+os_b/127; the CG products and the backward's stack product then run
+int8 × int8 → int32, and the backward takes the stack route. With
+``PLMC_SYM_BUILD=0`` the full-grid kernels replace the symmetric ones: K6
+(``scaled_kernel_stack``) builds the stack and K7
+(``lowrank_stationary_reduce``) gives the reductions, always on the stack
+route.
 
 Scope: symmetric training evaluations of a bare or Scale-wrapped stationary
 kernel (RBF / Matérn) over all input features. The input locations get no
-gradient (training data is constant); ``matvec_int8`` is a later slice.
+gradient (training data is constant).
 """
 
 from __future__ import annotations
@@ -49,6 +56,13 @@ from . import iterative as it
 KR_MIN_N = None
 
 
+def _sym_build() -> bool:
+    """The symmetric kernels (K1 and K2) unless PLMC_SYM_BUILD=0, read at
+    each call (the JAX package reads it once, at import); with 0 the
+    full-grid ones (K6 and K7)."""
+    return os.environ.get("PLMC_SYM_BUILD", "1") == "1"
+
+
 def _use_kr_fused(n: int) -> bool:
     """K4 for the backward: PLMC_KR_FUSED=1/0 if set (read at each call),
     else from ``KR_MIN_N`` points on."""
@@ -66,7 +80,11 @@ def _use_kr_stream(Ks) -> bool:
 
 def _backward_route(Ks) -> str:
     """"krs", "kr" or "stack" for a (q, n, n) stack, as the JAX package's
-    ``_fused_bwd`` picks: streaming wins over the n rule."""
+    ``_fused_bwd`` picks: an int8 stack and the full grid (PLMC_SYM_BUILD=0)
+    take the stack route, whatever PLMC_KR_*; otherwise streaming wins over
+    the n rule."""
+    if Ks.dtype == torch.int8 or not _sym_build():
+        return "stack"
     if _use_kr_stream(Ks):
         return "krs"
     return "kr" if _use_kr_fused(Ks.shape[-1]) else "stack"
@@ -85,20 +103,34 @@ def _lowrank_reduce_kr(xc, ls, os_, A, Bf, kind, Ks=None, device="cuda"):
 class _FusedStationaryLogProb(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ls, os_, H, St, Ydelta, eps, xi, roots, kind,
-                max_cg_iters, cg_tol, matvec_bf16, precond_rank, device):
+                max_cg_iters, cg_tol, matvec_bf16, precond_rank, matvec_int8,
+                device):
         # translation-invariant centering (exact), as kernels._skm_fwd
         xc = x - x.mean(0)
-        Ks = ck.scaled_kernel_stack_sym(
-            xc, ls, os_, kind,
-            out_dtype=torch.bfloat16 if matvec_bf16 else None, device=device)
+        sym = _sym_build()
+        kscale = None
+        if matvec_int8:
+            # no outputscale in the tiles: it folds into the scale os_b/127
+            N = it.int8_width(xc.shape[0])
+            Ks = ck.quantized_kernel_stack(xc, xc, ls, kind, padded_to=(N, N),
+                                           device=device)
+            kscale = os_.to(torch.float32) / 127.0
+        else:
+            out_dtype = torch.bfloat16 if matvec_bf16 else None
+            if sym:
+                Ks = ck.scaled_kernel_stack_sym(xc, ls, os_, kind, out_dtype,
+                                                device=device)
+            else:
+                Ks = ck.scaled_kernel_stack(xc, xc, ls, os_, kind, out_dtype,
+                                            device=device)
         ll, (alpha, W, Ztilde) = it._pcg_fwd_impl(
             Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
-            matvec_bf16, precond_rank)
+            matvec_bf16, precond_rank, matvec_int8, kscale)
         ctx.route = _backward_route(Ks)
         # the kr backward recomputes the stack, so it is not kept for it
         ctx.save_for_backward(xc, ls, os_, None if ctx.route == "kr" else Ks,
                               H, alpha, W, Ztilde)
-        ctx.kind, ctx.device = kind, device
+        ctx.kind, ctx.device, ctx.sym = kind, device, sym
         return ll
 
     @staticmethod
@@ -119,9 +151,17 @@ class _FusedStationaryLogProb(torch.autograd.Function):
         Afac, Bfac = Afac.contiguous(), Bfac.contiguous()
         if ctx.route == "stack":
             # ONE batched stack product serves dH and the outputscale gradient
-            KR = it._stack_matmul(Ks, torch.cat([Ah[None], WH, ZH], 0))
-            rows, wx = ck.lowrank_stationary_reduce_sym(
-                xc, ls, Afac, Bfac, ctx.kind, device=ctx.device)
+            R3 = torch.cat([Ah[None], WH, ZH], 0)
+            if Ks.dtype == torch.int8:
+                # R3 quantised per (probe, latent) column, os_b/127 the
+                # stack's scale
+                KR = it._int8_stack_product(Ks, os_.to(torch.float32) / 127.0,
+                                            R3)
+            else:
+                KR = it._stack_matmul(Ks, R3)
+            reduce = ck.lowrank_stationary_reduce_sym if ctx.sym \
+                else ck.lowrank_stationary_reduce
+            rows, wx = reduce(xc, ls, Afac, Bfac, ctx.kind, device=ctx.device)
         else:
             # Afac's columns are those of [Ah, WH, ZH]: KA (q, n, r) is the
             # stack product, transposed
@@ -152,7 +192,7 @@ class _FusedStationaryLogProb(torch.autograd.Function):
             dls = dls.sum(-1, keepdim=True)
         dls = (dls / (lsq * lsq * lsq))[:, None, :].to(ls.dtype)
         return (None, dls, dos, dH, dSt, dY, None, None, None, None, None,
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def lmc_pcg_log_prob_stationary(x, ls, os_, H, St, Ydelta, eps, xi, roots,
@@ -167,13 +207,12 @@ def lmc_pcg_log_prob_stationary(x, ls, os_, H, St, Ydelta, eps, xi, roots,
     (n, T); eps (s, n, T) and xi (s, q, m) standard normals; roots (q, n, m)
     Nyström roots or None (then sliced from the stack); kind one of
     ``cuda_kernels.KINDS``. ``matvec_bf16`` builds the stack in bf16 (the CG
-    products keep fp32 results). All tensors lie on ``device``."""
-    if matvec_int8:
-        raise NotImplementedError(
-            "matvec_int8 (the int8 stack, TPU kernel quantized_kernel_stack) "
-            "is ported in a later slice")
+    products keep fp32 results). ``matvec_int8`` (over ``matvec_bf16``)
+    builds the int8 stack and runs every stack product int8 × int8 → int32
+    (operator noise ~1% relative; a training-tolerance mode). All tensors
+    lie on ``device``."""
     check_device(device, x, ls, os_, H, St, Ydelta, eps, xi, roots)
     return _FusedStationaryLogProb.apply(
         x.detach(), ls, os_, H, St, Ydelta, eps, xi, roots, kind,
         int(max_cg_iters), float(cg_tol), bool(matvec_bf16),
-        int(precond_rank), device)
+        int(precond_rank), bool(matvec_int8), device)

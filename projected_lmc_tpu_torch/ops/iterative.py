@@ -6,7 +6,8 @@ tridiagonal log-quadrature (port of the main-path subset of
 Σ = Σ_b K_b ⊗ h_b h_bᵀ + I_n ⊗ Σt is applied through the materialized
 (q, n, n) stack; every contraction here is a plain product that the JAX
 package left to XLA, so it goes to torch/cuBLAS (fp32 without TF32 on the
-card, see ``utils.device``).
+card, see ``utils.device``). The int8 stack's product, int8 × int8 → int32
+in JAX, goes to ``torch._int_mm`` on the card's int8 tensor cores.
 """
 
 from __future__ import annotations
@@ -55,6 +56,77 @@ def lmc_matvec(Ks, H, St, V):
     """Σ · vec(V) in matrix form: Σ_b K_b (V h_b) h_bᵀ + V Σt.
     V (..., n, T); Ks (q, n, n); H (T, q); St (T, T)."""
     Z = _stack_matmul(Ks, V @ H)
+    return Z.to(V.dtype) @ H.T + V @ St
+
+
+def int8_width(n: int) -> int:
+    """The stack width the card's int8 product takes for n points: n rounded
+    up to a multiple of 8, and above 16 (``torch._int_mm``'s shape rules,
+    aten/src/ATen/native/cuda/Blas.cpp). An int8 stack carries zero rows and
+    columns up to it (``cuda_kernels.quantized_kernel_stack(padded_to=)``)."""
+    return max(-(-n // 8) * 8, 24)
+
+
+def _int8_stack_matmul(Kq, Wq):
+    """Kq_b @ Wq_b for every latent, exact in int32: Kq (q, N, N) int8, an
+    int8 stack that may carry zero padding (N ≥ n); Wq (q, n, r) with
+    integer values in [−127, 127] → (q, n, r) int32.
+
+    On the card, one ``torch._int_mm`` per latent (int8 tensor cores, int32
+    accumulation), with Wq zero-padded to (N, r rounded up to 8) and laid
+    out column-major, the layout for which cuBLASLt's int8 kernels ran
+    about six times faster than for a row-major Wq on an H100 (``PERF.md``
+    §5; ``chip_smoke.py`` phase 2 times both). An N that ``int8_width`` did
+    not give raises. On the CPU, an int32 product, which is exact (an fp32
+    one is not, above 2²⁴)."""
+    q, n, r = Wq.shape
+    N = Kq.shape[-1]
+    if not Kq.is_cuda:
+        return torch.bmm(Kq[:, :n, :n].to(torch.int32), Wq.to(torch.int32))
+    if N != int8_width(N) or N < n:
+        raise ValueError(f"an int8 stack of width {N} does not fit the int8 "
+                         f"product for {n} points: build it at "
+                         f"int8_width(n) = {int8_width(n)}")
+    rp = -(-r // 8) * 8
+    Wt = torch.zeros((q, rp, N), dtype=torch.int8, device=Wq.device)
+    Wt[:, :r, :n] = Wq.transpose(1, 2)
+    out = torch.empty((q, N, rp), dtype=torch.int32, device=Wq.device)
+    for b in range(q):
+        torch._int_mm(Kq[b], Wt[b].t(), out=out[b])
+    return out[:, :n, :r]
+
+
+def quantize_stack_int8(Ks):
+    """Symmetric per-latent int8 quantisation of a kernel stack:
+    K_b ≈ scale_b · Q_b with Q_b = round(K_b/scale_b) ∈ [−127, 127].
+    Returns (Q (q, n, n) int8, scale (q,) float32)."""
+    absmax = Ks.abs().amax(dim=(-2, -1)).to(torch.float32)
+    scale = torch.clamp(absmax, min=1e-30) / 127.0
+    Q = torch.clamp(torch.round(Ks.to(torch.float32) / scale[:, None, None]),
+                    -127, 127).to(torch.int8)
+    return Q, scale
+
+
+def _int8_stack_product(Kq, kscale, W):
+    """:func:`_stack_matmul` for an int8 stack Kq (q, N, N), K_b ≈ kscale_b
+    · Kq_b (zero padding beyond n allowed): each (right-hand side, latent)
+    column of W (..., n, q) is quantised as clip(round(W/ws), ±127), ws =
+    max(|W| over n, 1e-30)/127, and the int8 × int8 → int32 product is
+    dequantised with kscale·ws. Serves the CG products and the fused
+    backward's, as in the JAX package."""
+    ws = torch.clamp(W.abs().amax(dim=-2, keepdim=True), min=1e-30) / 127.0
+    Wq = torch.clamp(torch.round(W / ws), -127, 127)
+    single = Wq.dim() == 2
+    Wt = Wq[None] if single else Wq                         # (r, n, q)
+    Zi = _int8_stack_matmul(Kq, Wt.permute(2, 1, 0))        # (q, n, r)
+    Zl = Zi.permute(2, 1, 0).to(torch.float32)              # (r, n, q)
+    return (Zl[0] if single else Zl) * (kscale[None, :] * ws)
+
+
+def lmc_matvec_int8(Kq, kscale, H, St, V):
+    """:func:`lmc_matvec` with an int8 stack (:func:`_int8_stack_product`,
+    the columns of V·H re-quantised at each call). V (n, T) or (r, n, T)."""
+    Z = _int8_stack_product(Kq, kscale, V @ H)
     return Z.to(V.dtype) @ H.T + V @ St
 
 
@@ -212,22 +284,42 @@ def _tridiag_logquad(alphas, betas, active):
 
 
 def _pcg_fwd_impl(Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
-                  matvec_bf16, precond_rank):
+                  matvec_bf16, precond_rank, matvec_int8=False, kscale=None):
     """log N(vec(Y); 0, Σ) from one batched PCG pass (the forward of
     ``iterative.lmc_pcg_log_prob``): probes z = eps·chol(Σt)ᵀ + Σ_b (R_b ξ_b)
     h_bᵀ ~ N(0, M), logdet Σ = logdet M + Lanczos quadrature of the
-    preconditioned operator. Returns (ll, (alpha, W, Ztilde))."""
+    preconditioned operator. Returns (ll, (alpha, W, Ztilde)).
+
+    ``matvec_int8`` (over ``matvec_bf16``) runs the CG products through
+    :func:`lmc_matvec_int8`: on a pre-quantised int8 stack ``Ks`` (q, N, N),
+    which may carry zero padding beyond n, with its scales ``kscale`` (q,),
+    or on ``Ks`` quantised here by :func:`quantize_stack_int8`."""
     n, t = Ydelta.shape
+    Kn = Ks[:, :n, :n]                          # an int8 stack's padding off
+    if Ks.dtype == torch.int8 and roots is None:
+        # fallback only: the roots Cholesky is fp32-sensitive
+        roots = nystrom_roots_from_kernels(
+            Kn.to(torch.float32) * kscale[:, None, None], min(precond_rank, n))
     R, Lt, minv, logdet_M = _nystrom_precond_parts(
-        Ks, H, St, precond_rank,
+        Kn, H, St, precond_rank,
         roots=roots.detach() if roots is not None else None)
     z1 = torch.einsum("snt,ut->snu", eps, Lt)
     t2 = torch.einsum("bnk,sbk->snb", R, xi)
     z = z1 + t2 @ H.T
-    Kmv = Ks.to(torch.bfloat16) if matvec_bf16 else Ks
+    if matvec_int8:
+        if Ks.dtype == torch.int8:
+            Kq, ks_ = Ks, kscale
+        else:
+            Kq, ks_ = quantize_stack_int8(Ks.detach())
+            N = int8_width(n)                   # the int8 product's shape
+            Kq = torch.nn.functional.pad(Kq, (0, N - n, 0, N - n))
+        matvec = lambda V: lmc_matvec_int8(Kq, ks_, H, St, V)  # noqa: E731
+    else:
+        Kmv = Ks.to(torch.bfloat16) if matvec_bf16 else Ks
+        matvec = lambda V: lmc_matvec(Kmv, H, St, V)        # noqa: E731
     B = torch.cat([Ydelta[None], z], 0)                     # (1+s, n, T)
     X, alphas, betas, active, rz0 = pcg_with_tridiag(
-        lambda V: lmc_matvec(Kmv, H, St, V), B, minv, max_cg_iters, cg_tol)
+        matvec, B, minv, max_cg_iters, cg_tol)
     alpha, W = X[0], X[1:]
     quad = (Ydelta * alpha).sum()
     logquad = _tridiag_logquad(alphas[:, 1:], betas[:, 1:], active[:, 1:])

@@ -1,5 +1,5 @@
-"""Training loop with plateau early stopping (port of ``training.fit`` from
-``projected_lmc_tpu/training.py``).
+"""Training loop with plateau early stopping (port of ``training.fit`` and
+``training.fit_two_phase`` from ``projected_lmc_tpu/training.py``).
 
 The reference's loop (experiments.py:256-284): AdamW, LambdaLR linear decay
 lr_max → lr_min over 10k iterations, and plateau stopping — |1 − loss /
@@ -130,4 +130,44 @@ def fit(model, loss_fn: Callable = None, n_iter: int = 10000, lr: float = 1e-2,
     train_time = time.time() - start
     info = dict(n_iter=effective_n_iter, train_time=train_time,
                 losses=np.asarray(losses), loss=last_loss)
+    return model, info
+
+
+def fit_two_phase(model, coarse_loss_fn, fine_loss_fn, n_iter: int = 10000,
+                  fine_frac: float = 0.25, lr: float = 1e-2,
+                  fine_lr: float = None, **kwargs):
+    """Precision-escalated training (port of ``training.fit_two_phase``):
+    :func:`fit` with the cheap low-precision MLL ``coarse_loss_fn`` for
+    int(n_iter·(1 − fine_frac)) steps (or until plateau), then with the
+    full-precision ``fine_loss_fn`` for the rest of the budget at
+    ``fine_lr`` (default lr/10), from the phase-1 parameters. Low-precision
+    (bf16, int8) CG products bias the MLL like an extra jitter of the
+    operator's noise class, so the fp32 phase recovers the fp32 optimum:
+
+        coarse = lambda m, g: m.mll(generator=g, iterative=True,
+                                    max_cg_iters=16, cg_tol=2e-2,
+                                    matvec_int8=True, precond_rank=256,
+                                    num_probes=8)
+        fine   = lambda m, g: m.mll(generator=g, iterative=True,
+                                    max_cg_iters=64, cg_tol=1e-4,
+                                    precond_rank=256, num_probes=8)
+        model, info = fit_two_phase(model, coarse, fine, n_iter=50_000)
+
+    ``kwargs`` go to both :func:`fit` calls. Returns (model, info) with the
+    phases' losses concatenated, n_iter and train_time summed, and each
+    phase's own info under ``info["phases"]``."""
+    n_coarse = int(n_iter * (1.0 - fine_frac))
+    n_fine = n_iter - n_coarse
+    model, info1 = fit(model, coarse_loss_fn, n_iter=n_coarse, lr=lr,
+                       **kwargs)
+    model, info2 = fit(model, fine_loss_fn, n_iter=n_fine,
+                       lr=fine_lr if fine_lr is not None else lr / 10.0,
+                       **kwargs)
+    info = dict(
+        n_iter=info1["n_iter"] + info2["n_iter"],
+        train_time=info1["train_time"] + info2["train_time"],
+        losses=np.concatenate([info1["losses"], info2["losses"]]),
+        loss=info2["loss"],
+        phases=[info1, info2],
+    )
     return model, info

@@ -47,14 +47,15 @@ def make_problem(n=48, t=5, q=3, d=2, s=4, rank=16, seed=0):
 
 
 def jax_value_and_grads(x, leaves, eps, xi, rank, kind, roots=None,
-                        cg=(200, 1e-12), bf16=False):
+                        cg=(200, 1e-12), bf16=False, jit=False):
+    """``jit`` compiles the whole op once: quicker on a first call."""
     def f(*p):
         return jfm.lmc_pcg_log_prob_stationary(
             jax.lax.stop_gradient(jnp.asarray(x)), *p, jnp.asarray(eps),
             jnp.asarray(xi), None if roots is None else jnp.asarray(roots),
             kind, cg[0], cg[1], bf16, rank)
-    v, g = jax.value_and_grad(f, argnums=(0, 1, 2, 3, 4))(
-        *[jnp.asarray(a) for a in leaves])
+    vg = jax.value_and_grad(f, argnums=(0, 1, 2, 3, 4))
+    v, g = (jax.jit(vg) if jit else vg)(*[jnp.asarray(a) for a in leaves])
     return float(v), [np.asarray(a) for a in g]
 
 
@@ -152,11 +153,15 @@ def test_bf16_stack_product_keeps_fp32_result():
 
 
 def test_int8_and_wrong_device_raise():
+    """matvec_int8 runs on the CPU (its parity with JAX is in
+    tests/test_torch_int8.py); a device the port does not take raises."""
     x, leaves, eps, xi, rank = make_problem(n=20)
     T = [torch.tensor(a) for a in leaves]
     args = (torch.tensor(x), *T, torch.tensor(eps), torch.tensor(xi), None,
             "rbf")
-    with pytest.raises(NotImplementedError):
-        tfm.lmc_pcg_log_prob_stationary(*args, matvec_int8=True, device="cpu")
+    ll = tfm.lmc_pcg_log_prob_stationary(*args, max_cg_iters=16,
+                                         cg_tol=1e-3, precond_rank=rank,
+                                         matvec_int8=True, device="cpu")
+    assert ll.dtype == torch.float64 and torch.isfinite(ll)
     with pytest.raises(ValueError):
         tfm.lmc_pcg_log_prob_stationary(*args, device="meta")
