@@ -13,7 +13,12 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
      main path's shapes (and a ragged n), with its stated tolerance; the
      reductions' bitwise repeats; each kernel's time, its plain version's
      time and its bound (the least time the card could take for the same
-     work); the int8 stack product beside the bf16 one;
+     work). K1 also at n = 20,000, at an n whose rows do not start on 16
+     bytes, at one that leaves a ragged tile and at one below a tile, each
+     stack bitwise symmetric, and within a bf16 step of K6 on (x, x); K2 also at
+     n = 20,000 and a second rank, with its two launches timed apart. The
+     int8 stack product beside the bf16 one, and the bf16 one by the layout
+     of its right-hand sides;
   3. the fused MLL op, value and gradients, on the card with the kernels
      against the CPU with the plain versions (same eps, xi and roots, tight
      CG), n = 2048, on the default backward route, forced onto K4
@@ -114,6 +119,57 @@ def check(name: str, err: float, tol: float):
         raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
 
 
+def stack_error(torch, ck, got, x, ls, os_, dt, block=2500):
+    """K1's stack against its plain version, a block of rows at a time (the
+    plain formula forms a (q, rows, n, d) array): (largest absolute error,
+    largest plain entry)."""
+    err = top = 0.0
+    for i0 in range(0, x.shape[0], block):
+        want = ck.scaled_kernel_stack_plain(x[i0:i0 + block], x, ls, os_,
+                                            "matern25", dt).float()
+        err = max(err, float((got[:, i0:i0 + block].float() - want)
+                             .abs().max()))
+        top = max(top, float(want.abs().max()))
+    return err, top
+
+
+def reduce_plain_by_blocks(torch, ck, x, ls, A, Bf, kind, block=2500):
+    """``lowrank_stationary_reduce_sym_plain``'s formula a block of rows at a
+    time, for an n whose (q, n, n, d) differences do not fit the card."""
+    rows, wx = [], []
+    for i0 in range(0, x.shape[0], block):
+        d2 = ck._sqdist_scaled(x[i0:i0 + block], x, ls)
+        W = torch.matmul(A[:, i0:i0 + block], Bf.transpose(-1, -2)) \
+            * ck.dprofile(kind, d2)
+        rows.append(W.sum(-1))
+        wx.append(torch.matmul(W, x))
+    return torch.cat(rows, 1), torch.cat(wx, 1)
+
+
+def symmetric_factors(rng, t, n, r):
+    """A, Bf (Q, n, r), r odd, with A Bfᵀ symmetric, as the fused backward
+    builds them."""
+    u0 = rng.standard_normal((Q, n, 1))
+    U, V = rng.standard_normal((2, Q, n, (r - 1) // 2))
+    return (t(np.concatenate([u0, U, V], -1)),
+            t(np.concatenate([0.5 * u0, V, U], -1)))
+
+
+def launch_split(torch, fn, reps=5) -> str:
+    """Mean device time of each CUDA kernel that ``fn`` launches, by name."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = [(e.key.split("::")[-1].split("<")[0].split("(")[0],
+              e.device_time_total / 1e3 / reps) for e in prof.key_averages()
+             if getattr(e, "device_time_total", 0) > 0]
+    return ", ".join(f"{k} {v:.4f} ms" for k, v in parts) or "not measured"
+
+
 def kernel_phase(torch, ck, dev):
     """Phase 2: each kernel against its plain version, and its times."""
     rng = np.random.default_rng(1)
@@ -124,21 +180,43 @@ def kernel_phase(torch, ck, dev):
 
     # K1: the fp32 tolerance covers two exp implementations (the kernel's,
     # torch's) and d² summed with and without FMAs, each ~1e-7 relative;
-    # bf16: one rounding of either side
-    for n in (N, 1237):
+    # bf16: one rounding of either side. The sizes are the main path's two,
+    # rows that do not start on 16 bytes (1237), rows that do with a ragged
+    # tile (1240), and one n below a tile; each stack is also held to be
+    # bitwise symmetric
+    for n in (N, N_A, 1237, 1240, 50):
         x = t(rng.standard_normal((n, D)))
         x = x - x.mean(0)
         for dt in (torch.bfloat16, torch.float32):
             got = ck.scaled_kernel_stack_sym(x, ls, os_, "matern25", dt,
                                              device=dev)
-            want = ck.scaled_kernel_stack_sym_plain(x, ls, os_, "matern25", dt)
-            err = float((got.float() - want.float()).abs().max())
-            tol = 2.0 ** -7 * float(want.float().abs().max()) \
-                if dt == torch.bfloat16 else 1e-4
-            check(f"K1 scaled_kernel_stack_sym n={n} {str(dt)[6:]}", err, tol)
+            if tuple(got.shape) != (Q, n, n) or got.dtype != dt:
+                raise SystemExit(f"chip_smoke: K1 gave {tuple(got.shape)} "
+                                 f"{got.dtype}")
+            err, top = stack_error(torch, ck, got, x, ls, os_, dt)
+            tol = 2.0 ** -7 * top if dt == torch.bfloat16 else 1e-4
+            check(f"K1 scaled_kernel_stack_sym n={n} {str(dt)[6:]} (wide "
+                  f"stores of {ck.wide_store_elements(n, dt)})", err, tol)
+            if not torch.equal(got, got.transpose(-1, -2)):
+                raise SystemExit(f"chip_smoke: K1's stack at n={n} "
+                                 f"{str(dt)[6:]} is not bitwise symmetric")
             if n == N and dt == torch.bfloat16:
                 rows["K1"] = dict(max_abs_err=err)
-            del got, want
+                # K6 on (x, x) sums the same d² but takes sqrtf and exp2f
+                # where K1 takes the card's MUFU.RSQ and MUFU.EX2 (~1e-6
+                # apart): entries may round to neighbouring bf16 values
+                full = ck.scaled_kernel_stack(x, x, ls, os_, "matern25", dt,
+                                              device=dev)
+                gap = float((got.float() - full.float()).abs().max())
+                share = float((got != full).sum()) / got.numel()
+                print(f"  K1 bf16 against K6 on (x, x): share of differing "
+                      f"entries {share:.3e}")
+                check("K1 bf16 against K6 on (x, x), one bf16 step",
+                      gap, 2.0 ** -7 * top)
+                del full
+            del got
+            torch.cuda.empty_cache()
+    print("  K1 stacks bitwise symmetric at every n, both types: True")
     x = t(rng.standard_normal((N, D)))
     x = x - x.mean(0)
     rows["K1"]["ms"] = cuda_ms(lambda: ck.scaled_kernel_stack_sym(
@@ -149,38 +227,51 @@ def kernel_phase(torch, ck, dev):
     rows["K1"]["bound"] = bound_ms(
         Q * N * N * 2 + N * D * 4 + Q * (D + 1) * 4,
         pairs * (3 * D + 10))          # d² (3 flops/feature), sqrt, exp, poly
-    torch.cuda.empty_cache()
+    xa = t(rng.standard_normal((N_A, D)))
+    for dt in (torch.bfloat16, torch.float32):
+        ms = {n_: cuda_ms(lambda: ck.scaled_kernel_stack_sym(
+            x_, ls, os_, "matern25", dt, device=dev), reps=10)
+            for n_, x_ in ((N, x), (N_A, xa))}
+        print(f"  K1 {str(dt)[6:]}: {ms[N]:.4f} ms at n={N}, {ms[N_A]:.4f} ms "
+              f"at n={N_A} (write bounds "
+              + ", ".join(f"{Q * n_ * n_ * (2 if dt == torch.bfloat16 else 4) / PEAK_BYTES_PER_S * 1e3:.4f}"
+                          for n_ in (N, N_A)) + " ms)")
+        torch.cuda.empty_cache()
 
     # K2: A Bfᵀ symmetric by construction, as the fused backward's factors;
-    # sums over 10⁴ terms in another order, fast exp: 1e-4 of the largest
+    # sums over 10⁴ terms in another order, fast exp and reciprocal square
+    # root: 1e-4 of the largest. Also at n = N_A, held against the plain
+    # formula by row blocks, and at a second rank, r = 7; every case must
+    # repeat bitwise
     r = 17
-    u0 = rng.standard_normal((Q, N, 1))
-    U = rng.standard_normal((Q, N, 8))
-    V = rng.standard_normal((Q, N, 8))
-    A = t(np.concatenate([u0, U, V], -1))
-    Bf = t(np.concatenate([0.5 * u0, V, U], -1))
-    got_r, got_w = ck.lowrank_stationary_reduce_sym(x, ls, A, Bf, "matern25",
-                                                    device=dev)
-    rep_r, rep_w = ck.lowrank_stationary_reduce_sym(x, ls, A, Bf, "matern25",
-                                                    device=dev)
-    bitwise = bool(torch.equal(got_r, rep_r) and torch.equal(got_w, rep_w))
-    print(f"  K2 lowrank_stationary_reduce_sym repeat bitwise equal: {bitwise}")
-    if not bitwise:
-        raise SystemExit("chip_smoke: K2 is not deterministic")
-    want_r, want_w = ck.lowrank_stationary_reduce_sym_plain(x, ls, A, Bf,
-                                                            "matern25")
-    err = max(float((got_r - want_r).abs().max()),
-              float((got_w - want_w).abs().max()))
-    tol = 1e-4 * max(float(want_r.abs().max()), float(want_w.abs().max()))
-    check(f"K2 lowrank_stationary_reduce_sym n={N} r={r}", err, tol)
-    del want_r, want_w
-    torch.cuda.empty_cache()
-    rows["K2"] = dict(max_abs_err=err)
-    rows["K2"]["ms"] = cuda_ms(lambda: ck.lowrank_stationary_reduce_sym(
-        x, ls, A, Bf, "matern25", device=dev), reps=20)
-    rows["K2"]["plain_ms"] = cuda_ms(lambda: ck.lowrank_stationary_reduce_sym_plain(
-        x, ls, A, Bf, "matern25"), reps=3, warmup=1)
-    torch.cuda.empty_cache()
+    for n_, r_, x_ in ((N, r, x), (N_A, r, xa), (N_A, 7, xa), (N, 7, x)):
+        A, Bf = symmetric_factors(rng, t, n_, r_)
+        run_k2 = lambda: ck.lowrank_stationary_reduce_sym(  # noqa
+            x_, ls, A, Bf, "matern25", device=dev)
+        got, rep = run_k2(), run_k2()
+        bitwise = all(torch.equal(g, p) for g, p in zip(got, rep))
+        print(f"  K2 lowrank_stationary_reduce_sym n={n_} r={r_} repeat "
+              f"bitwise equal: {bitwise}")
+        if not bitwise:
+            raise SystemExit("chip_smoke: K2 is not deterministic")
+        want = ck.lowrank_stationary_reduce_sym_plain(
+            x_, ls, A, Bf, "matern25") if n_ == N else reduce_plain_by_blocks(
+            torch, ck, x_, ls, A, Bf, "matern25")
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        check(f"K2 lowrank_stationary_reduce_sym n={n_} r={r_}", err,
+              1e-4 * max(float(w.abs().max()) for w in want))
+        del got, rep, want
+        torch.cuda.empty_cache()
+        if r_ == r:
+            ms = cuda_ms(run_k2, reps=20 if n_ == N else 10)
+            print(f"  K2 at n={n_}: {ms:.4f} ms; by launch "
+                  f"{launch_split(torch, run_k2)}")
+        if (n_, r_) == (N, r):
+            rows["K2"] = dict(max_abs_err=err, ms=ms, plain_ms=cuda_ms(
+                lambda: ck.lowrank_stationary_reduce_sym_plain(
+                    x_, ls, A, Bf, "matern25"), reps=3, warmup=1))
+            torch.cuda.empty_cache()
+    del xa
     rows["K2"]["bound"] = bound_ms(
         2 * Q * N * r * 4 + N * D * 4 + Q * N * (1 + D) * 4,
         # T (2r), d² (3d), g′ (~7 incl. sqrt, exp), row and column sums
@@ -307,10 +398,7 @@ def kr_phase(torch, ck, dev, rng, t, ls, os_):
     for n in (N, 1237):
         x = t(rng.standard_normal((n, D)))
         x = x - x.mean(0)
-        u0 = rng.standard_normal((Q, n, 1))
-        U, V = rng.standard_normal((2, Q, n, 8))
-        A = t(np.concatenate([u0, U, V], -1))
-        Bf = t(np.concatenate([0.5 * u0, V, U], -1))
+        A, Bf = symmetric_factors(rng, t, n, r)
         runs = [("K4", "kr", None)] + [
             ("K5", f"krs {str(dt)[6:]} stack",
              ck.scaled_kernel_stack_sym(x, ls, os_, kind, dt, device=dev))
@@ -403,10 +491,7 @@ def fullgrid_phase(torch, ck, dev, rng, t, ls, os_):
                                    grid_pairs * (pair_ops + 2))
 
     r = 17
-    u0 = rng.standard_normal((Q, N, 1))
-    U, V = rng.standard_normal((2, Q, N, 8))
-    A = t(np.concatenate([u0, U, V], -1))
-    Bf = t(np.concatenate([0.5 * u0, V, U], -1))
+    A, Bf = symmetric_factors(rng, t, N, r)
     run = lambda: ck.lowrank_stationary_reduce(x, ls, A, Bf, KIND,  # noqa
                                                device=dev)
     got, rep = run(), run()
@@ -465,6 +550,7 @@ def int8_product(torch, ck, it, dev, rng, t, x, ls, os_):
         mv_i8 = cuda_ms(lambda: it.lmc_matvec_int8(Kq, kscale, H, St, Vr),
                         reps=20)
         mv_bf = cuda_ms(lambda: it.lmc_matvec(Kb, H, St, Vr), reps=20)
+        bf16_product_layouts(torch, it, Kb, rng, t, r)
         print(f"  r={r}: product int8 {ms_i8:.4f} ms (row-major right-hand "
               f"side {ms_row:.4f} ms), bf16 {ms_bf:.4f} ms "
               f"(bounds {Q * N * N / PEAK_BYTES_PER_S * 1e3:.4f} and "
@@ -472,6 +558,40 @@ def int8_product(torch, ck, it, dev, rng, t, x, ls, os_):
               f"stack); whole matvec int8 {mv_i8:.4f} ms, bf16 {mv_bf:.4f} ms")
     del Kq, Kb
     torch.cuda.empty_cache()
+
+
+def bf16_product_layouts(torch, it, Kb, rng, t, r):
+    """A measurement beside the port's bf16 stack product
+    (``iterative._stack_matmul``, which it does not change): one
+    ``torch.bmm`` of the (Q, N, N) bf16 stack with r bf16 right-hand sides
+    and an fp32 result, the right-hand sides held row-major, column-major,
+    and column-major zero-padded to a multiple of 8 columns: the layout that
+    decided the int8 product's speed."""
+    if not it._BMM_OUT_DTYPE:
+        print(f"  r={r}: bf16 product by layout: not measured (this torch "
+              f"has no bmm with out_dtype)")
+        return
+    W = t(rng.standard_normal((Q, N, r))).to(torch.bfloat16)
+    rp = -(-r // 8) * 8
+    Wp = torch.zeros((Q, rp, N), dtype=torch.bfloat16, device=W.device)
+    Wp[:, :r] = W.transpose(1, 2)
+    forms = {"row-major": W,
+             "column-major": W.transpose(1, 2).contiguous().transpose(1, 2),
+             f"column-major padded to {rp}": Wp.transpose(1, 2)}
+    ref = torch.bmm(Kb, W, out_dtype=torch.float32)
+    parts = []
+    for name, w in forms.items():
+        out = torch.bmm(Kb, w, out_dtype=torch.float32)[..., :r]
+        # the same bf16 products, summed in fp32 in another order
+        rel = float((out - ref).abs().max() / ref.abs().max())
+        if not rel <= 1e-4:
+            raise SystemExit(f"chip_smoke: the {name} bf16 product differs "
+                             f"by {rel:.2e}")
+        ms = cuda_ms(lambda: torch.bmm(Kb, w, out_dtype=torch.float32),
+                     reps=20)
+        parts.append(f"{name} {ms:.4f} ms")
+    print(f"  r={r}: bf16 product (fp32 result) by right-hand-side layout: "
+          + ", ".join(parts))
 
 
 def row_major_int8_product(torch, Kq, Wq):
@@ -731,10 +851,7 @@ def route_kernels_ms(torch, ck, it, dev, n):
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa
     x = t(rng.standard_normal((n, D)))
     ls, os_ = t(rng.uniform(0.5, 1.5, (Q, 1, D))), t(np.ones(Q))
-    u0 = rng.standard_normal((Q, n, 1))
-    U, V = rng.standard_normal((2, Q, n, 8))
-    A = t(np.concatenate([u0, U, V], -1))
-    Bf = t(np.concatenate([0.5 * u0, V, U], -1))
+    A, Bf = symmetric_factors(rng, t, n, 17)
     Ks = ck.scaled_kernel_stack_sym(x, ls, os_, "matern25", torch.bfloat16,
                                     device=dev)
     R3 = A.permute(2, 1, 0).contiguous()            # (r, n, q)

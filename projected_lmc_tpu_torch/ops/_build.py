@@ -64,7 +64,7 @@ def library() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     signatures = {
         "plmc_tile_size": [],
-        "plmc_scaled_stack_sym": [P, P, P, P, I, I, I, I, I, P],
+        "plmc_scaled_stack_sym": [P, P, P, P, I, I, I, I, I, I, P],
         "plmc_kernel_matrix": [P, P, P, P, I, I, I, I, I, P],
         "plmc_lowrank_reduce_sym": [P, P, P, P, P, P, P, I, I, I, I, I, P],
         "plmc_lowrank_reduce_sym_kr": [P] * 9 + [I] * 5 + [P],

@@ -135,6 +135,14 @@ def scaled_kernel_stack_sym_plain(x, lengthscale, outputscale, kind: str,
                                      out_dtype)
 
 
+def wide_store_elements(n: int, dtype) -> int:
+    """Elements of one 16-byte store into a row of a contiguous (q, n, n)
+    stack of ``dtype`` (8 in bf16, 4 in fp32) when every row starts on a
+    16-byte boundary, else 1: K1 then stores element by element."""
+    per_store = 16 // torch.empty((), dtype=dtype).element_size()
+    return per_store if n % per_store == 0 else 1
+
+
 def scaled_kernel_stack_sym(x, lengthscale, outputscale, kind: str,
                             out_dtype=None, device="cuda"):
     """K1. os_b · K_b(x, x) for the symmetric training stack, (q, n, n),
@@ -144,12 +152,16 @@ def scaled_kernel_stack_sym(x, lengthscale, outputscale, kind: str,
     pallas_kernels.py:278; body ``_scaled_tile_kernel_tri`` :225) and its
     aliased mirror pass ``_symmetrize_lower`` (:247, body ``_mirror_tile``).
     Bound on the card: the write of the stack, q·n²·2 bytes in bf16 (800 MB
-    at n = 10⁴, q = 4). Design: each block evaluates one lower tile once
-    (sqrt and exp for half the pairs) and stores it and its transpose, both
-    along rows, through shared memory; it writes exactly (q, n, n) with the
-    ragged edge masked, so no padded stack and no second pass over memory.
-    A bf16 result uses the card's exp2 (rel. err ~1e-6 ≪ bf16's 2⁻⁸); fp32
-    uses libm expf."""
+    at n = 10⁴, q = 4). Design: each block evaluates one lower 128 × 128
+    tile once (sqrt and exp for half the pairs), each thread an 8 × 8 block
+    in registers, rounded once to the output type; a row's 8 values leave
+    as one 16-byte store to the tile and a column's 8 as one 16-byte store
+    to the mirrored tile, so the two halves are the same bits and nothing
+    is staged in shared memory. It writes exactly (q, n, n): where the rows
+    do not start on 16 bytes (``wide_store_elements`` is 1) it stores
+    element by element, bounds-checked. A bf16 result uses the card's exp2
+    and reciprocal square root (MUFU.EX2, MUFU.RSQ; rel. err ~1e-6 ≪
+    bf16's 2⁻⁸); fp32 uses sqrtf and libm expf."""
     dev = check_device(device, x, lengthscale, outputscale)
     if dev.type == "cpu":
         return scaled_kernel_stack_sym_plain(x, lengthscale, outputscale, kind,
@@ -164,7 +176,8 @@ def scaled_kernel_stack_sym(x, lengthscale, outputscale, kind: str,
     out = torch.empty((q, n, n), dtype=dtype, device=x.device)
     _launch("plmc_scaled_stack_sym", x.data_ptr(), ls.data_ptr(),
             outputscale.data_ptr(), out.data_ptr(), q, n, d, _kind_id(kind),
-            int(out_dtype == torch.bfloat16), _stream(x))
+            int(dtype == torch.bfloat16),
+            int(wide_store_elements(n, dtype) > 1), _stream(x))
     scaled_kernel_stack_sym.launches += 1
     return out
 
@@ -182,6 +195,15 @@ def lowrank_stationary_reduce_sym_plain(x, lengthscale, A, Bf, kind: str):
     return W.sum(-1), torch.matmul(W, x)
 
 
+def reduce_sym_slots_shape(q: int, n: int, d: int, tile: int):
+    """Shape of K2's fp32 scratch: for each (latent, row block of ``tile``
+    rows) up to nt = ⌈n/tile⌉ partial sums of (1+d, tile) — the column sums
+    of the nt−1−R tiles below row block R, then the row sums of its own
+    runs of column tiles (never more than R+1)."""
+    nt = -(-n // tile)
+    return (q, nt, nt, 1 + d, tile)
+
+
 def lowrank_stationary_reduce_sym(x, lengthscale, A, Bf, kind: str,
                                   device="cuda"):
     """K2. rows (q, n) and wx (q, n, d) of the SYMMETRIC low-rank kernel
@@ -192,14 +214,17 @@ def lowrank_stationary_reduce_sym(x, lengthscale, A, Bf, kind: str,
     pallas_kernels.py:470; body ``_lowrank_vjp_tile_sym`` :406). Bound on
     the card: arithmetic — per unordered pair a rank-r dot product
     (r = 1 + 2·probes = 17), d², a sqrt and an exp, 2(1+d) accumulations;
-    the factors are only ~11 MB at n = 10⁴. Design: a lower-triangle grid
-    (each g′ once per pair), the rank-r product register-blocked 4×4 per
-    thread, the card's exp2. Every block writes its row partials, and for
-    I ≠ J its mirrored column partials, into its own slot of a
-    (q, nt, nt, 64, 1+d) buffer; a second kernel sums each row block's slots
-    in index order. No float atomics, so the result is bitwise the same on
-    every run. (The TPU kernel's resident full-height accumulator works
-    around a Mosaic race that Hopper does not have, and is not carried.)"""
+    the factors are only ~11 MB at n = 10⁴. Design: a block owns (latent,
+    row tile, a run of 8 lower column tiles) and walks the run with its
+    row sums in registers; a thread's 4 × 4 block of each 64 × 64 tile is
+    adjacent rows and columns, read from shared memory 16 bytes at a time.
+    The sums run on the scaled features alone, wx = l · Σ W (x/l). Only
+    each tile's mirrored column sums, and one set of row sums per run,
+    leave the block, each into its own slot of a (q, nt, nt, 1+d, 64)
+    buffer that a second kernel sums in slot order: no float atomics, the
+    same bits on every run. (The TPU kernel's resident full-height
+    accumulator works around a Mosaic race that Hopper does not have, and
+    is not carried.)"""
     dev = check_device(device, x, lengthscale, A, Bf)
     if dev.type == "cpu":
         return lowrank_stationary_reduce_sym_plain(x, lengthscale, A, Bf, kind)
@@ -211,9 +236,8 @@ def lowrank_stationary_reduce_sym(x, lengthscale, A, Bf, kind: str,
     _require("Bf", Bf, (q, n, r))
     ls = _lengthscale_2d(lengthscale, q, d)
     tile = _build.library().plmc_tile_size()
-    nt = -(-n // tile)
-    slots = torch.empty((q, nt, nt, tile, 1 + d), dtype=torch.float32,
-                        device=x.device)
+    slots = torch.empty(reduce_sym_slots_shape(q, n, d, tile),
+                        dtype=torch.float32, device=x.device)
     rows = torch.empty((q, n), dtype=torch.float32, device=x.device)
     wx = torch.empty((q, n, d), dtype=torch.float32, device=x.device)
     _launch("plmc_lowrank_reduce_sym", x.data_ptr(), ls.data_ptr(),
@@ -308,7 +332,7 @@ def lowrank_stationary_reduce_sym_kr(x, lengthscale, outputscale, A, Bf,
     pallas_kernels.py:630; body ``_lowrank_vjp_tile_sym_kr`` :524). Bound
     on the card: arithmetic — K2's per-pair work (rank-r product, d², one
     exp for g and g′, the W sums) plus 4r for the two KA products of each
-    unordered pair. Design: K2's — one block per lower tile, whose sums for
+    unordered pair. Design: one block per lower tile, whose sums for
     its row block and mirrored sums for its column block go to their own
     slots of a (q, nt, nt, 64, 1+d+r) fp32 buffer (2.2 GB at n = 2·10⁴,
     q = 4, d = 4, r = 17; 2.6 GB at n = 16,384, q = 7), which a second
@@ -373,8 +397,8 @@ def kernel_matrix(x1, x2, lengthscale, kind: str, device="cuda"):
     Replaces ``_pallas_forward`` of ``fused_kernel_matrix`` (projected_lmc_tpu/
     ops/pallas_kernels.py:912 and :881; body ``_tile_kernel`` :76). Bound on
     the card: the (q, n, m) fp32 write (41 MB for the Nyström cross block at
-    n = 10⁴, m = 256). Design: K1's tile code without the outputscale and
-    the symmetry, libm exp. Its gradient is the plain-torch backward of
+    n = 10⁴, m = 256). Design: one block per 64 × 64 tile of the full
+    grid, d² from direct differences, libm exp. Its gradient is the plain-torch backward of
     ``kernels.stationary_kernel_matrix``, as the TPU kernel's VJP is XLA."""
     dev = check_device(device, x1, x2, lengthscale)
     if dev.type == "cpu":
@@ -419,7 +443,7 @@ def scaled_kernel_stack(x1, x2, lengthscale, outputscale, kind: str,
     block per 64 × 64 tile, d² from direct differences) with the
     outputscale applied in the tile; it writes exactly (q, n, m), the
     ragged edges masked, never a padded stack. A bf16 result uses the
-    card's exp2, as K1 does; fp32 uses libm expf."""
+    card's exp2 (``exp2f``); fp32 uses libm expf."""
     dev = check_device(device, x1, x2, lengthscale, outputscale)
     if dev.type == "cpu":
         return scaled_kernel_stack_plain(x1, x2, lengthscale, outputscale,

@@ -4,11 +4,15 @@
 Runs the main path of ``chip_smoke.py`` (n = 10,000, T = 7, q = 4, d = 4,
 Matérn-2.5, mll(max_cg_iters=16, cg_tol=2e-2, matvec_bf16=True,
 precond_rank=256, num_probes=8) + AdamW, roots fixed for the window) and
-profiles a few steady steps with ``torch.profiler``. Prints the wall time per
-step, the device-busy share (sum of kernel times over wall time) and the
-kernels by total device time. Needs one NVIDIA card:
+first times ``--timed-steps`` steps without the profiler (median and fastest,
+host clock around a synchronised step), then profiles a few steady steps with
+``torch.profiler``. Prints the wall time per step, the device-busy share (sum
+of kernel times over wall time) and the kernels by total device time. It runs
+the package that lies beside it, so a copy inside an unpacked earlier commit
+measures that commit on the same card. Needs one NVIDIA card:
 
-    python3 scripts/profile_torch_step.py [--steps 8] [--out step_trace.json]
+    python3 scripts/profile_torch_step.py [--steps 8] [--timed-steps 32]
+                                          [--out step_trace.json]
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import numpy as np
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--timed-steps", type=int, default=32,
+                    help="steps timed without the profiler first")
     ap.add_argument("--n", type=int, default=10_000)
     ap.add_argument("--out", default="",
                     help="optional path for a chrome trace of the window")
@@ -65,6 +71,16 @@ def main() -> int:
     for _ in range(3):
         step()
     torch.cuda.synchronize()
+    step_ms = []
+    for _ in range(args.timed_steps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if step_ms:
+        print(f"unprofiled: {len(step_ms)} steps, median "
+              f"{float(np.median(step_ms)):.3f} ms, fastest "
+              f"{min(step_ms):.3f} ms")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
