@@ -16,7 +16,8 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
      work). K1 also at n = 20,000, at an n whose rows do not start on 16
      bytes, at one that leaves a ragged tile and at one below a tile, each
      stack bitwise symmetric, and within a bf16 step of K6 on (x, x); K2 also at
-     n = 20,000 and a second rank, with its two launches timed apart. The
+     n = 20,000 and a second rank, with its two launches timed apart; K4
+     and K5 also timed at n = 20,000, with the bytes of their scratch. The
      int8 stack product beside the bf16 one, and the bf16 one by the layout
      of its right-hand sides;
   3. the fused MLL op, value and gradients, on the card with the kernels
@@ -33,7 +34,8 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
   A. path A: that step at n = 20,000, and at 5,000 and 10,000 for the
      routing rule, one 16-step chunk on each backward route (K2 + stack
      product, K4, K5): step times, peak memory, launch counts, each route's
-     kernel times, and the route the port takes by default;
+     kernel times, the two tests of the rule that sets ``KR_MIN_N``, and the
+     route the port takes by default;
   B. path B: ``ExactGPModel`` (T = 7, Matérn-2.5, outputscales) at
      n = 16,384, whose MLL auto-routes to the fused iterative op, 8 AdamW
      steps; and its value and gradients on the card against the CPU at
@@ -72,6 +74,7 @@ ROUTING_N = (5_000, N, N_A)              # path A's sizes, for the routing rule
 N_B, STEPS_B = 16_384, 8                 # path B: ExactGPModel, T = 7
 PEAK_BYTES_PER_S = 3.35e12               # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12                  # H100 SXM fp32, non-tensor-core
+PEAK_BF16_FLOPS = 989e12                 # H100 SXM bf16 tensor cores, dense
 MLL_KW = dict(iterative=True, max_cg_iters=16, cg_tol=2e-2, matvec_bf16=True,
               precond_rank=256, num_probes=8)
 INT8_KW = dict(MLL_KW, matvec_bf16=False, matvec_int8=True)   # path C, coarse
@@ -105,9 +108,13 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float):
-    """(least time in ms, "bytes" or "operations") at the published peaks."""
-    tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float, bf16_flops: float = 0.0):
+    """(least time in ms, "bytes" or "operations") at the published peaks:
+    fp32 operations at the non-tensor rate, bf16 tensor-core operations at
+    theirs. The two units run side by side, so the operations take the
+    longer of the two times."""
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    to = max(flops / PEAK_FP32_FLOPS, bf16_flops / PEAK_BF16_FLOPS) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -380,19 +387,24 @@ def check_counts(name: str, got, want) -> int:
 def check_kr(name: str, got, want) -> float:
     """K4/K5 against the plain version: rows and wx within 1e-4 of their
     largest magnitude (sums over n terms in another order, fast exp), KA
-    within 2⁻⁷ of max|KA| (room for a bf16-rate product; this one is fp32).
-    Returns the largest absolute error."""
+    within 2⁻⁷ of max|KA| (room for a bf16-rate product) and, since its
+    products run as hi·hi + hi·lo + lo·hi of bf16 splits (~2⁻¹⁷ relative),
+    within 1e-4 of max|KA|: one plain bf16 product, or one that lost a
+    split, misses that. Returns the largest absolute error."""
     errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
     scale = max(float(w.abs().max()) for w in want[:2])
+    ka_scale = float(want[2].abs().max())
     check(f"{name} rows, wx", max(errs[:2]), 1e-4 * scale)
-    check(f"{name} KA", errs[2], 2.0 ** -7 * float(want[2].abs().max()))
+    check(f"{name} KA", errs[2], 2.0 ** -7 * ka_scale)
+    check(f"{name} KA, split products", errs[2], 1e-4 * ka_scale)
     return max(errs)
 
 
 def kr_phase(torch, ck, dev, rng, t, ls, os_):
     """K4 and K5 at the main path's widths (q=4, d=4, r=17, os ≠ 1), at
     n = N and a ragged n; K5 on fp32 and bf16 stacks built by K1 and held
-    against its plain version on the same stack. Bitwise repeats, times."""
+    against its plain version on the same stack. Bitwise repeats, times
+    (also at n = N_A), scratch bytes."""
     r, kind = 17, "matern25"
     rows = {}
     for n in (N, 1237):
@@ -429,14 +441,35 @@ def kr_phase(torch, ck, dev, rng, t, ls, os_):
                     plain_ms=cuda_ms(plain, reps=2, warmup=1))
                 torch.cuda.empty_cache()
         del runs, Ks
+    # the main path's second size, and each kernel's scratch
+    x = t(rng.standard_normal((N_A, D)))
+    x = x - x.mean(0)
+    A, Bf = symmetric_factors(rng, t, N_A, r)
+    Ks = ck.scaled_kernel_stack_sym(x, ls, os_, kind, torch.bfloat16,
+                                    device=dev)
+    k4 = cuda_ms(lambda: ck.lowrank_stationary_reduce_sym_kr(
+        x, ls, os_, A, Bf, kind, device=dev), reps=5)
+    k5 = cuda_ms(lambda: ck.lowrank_stationary_reduce_sym_krs(
+        x, ls, os_, A, Bf, Ks, kind, device=dev), reps=5)
+    print(f"  K4 at n={N_A}: {k4:.4f} ms; K5 (bf16 stack): {k5:.4f} ms")
+    del x, A, Bf, Ks
+    torch.cuda.empty_cache()
+    for n in (N, N_A):
+        pack, slots = (4 * math.prod(shape)
+                       for shape in ck.kr_scratch_shapes(Q, n, D, r))
+        print(f"  K4/K5 scratch at n={n} (q={Q}, d={D}, r={r}): slots "
+              f"{slots / 1e9:.3f} GB + factor pack {pack / 1e6:.1f} MB")
     pairs = Q * N * (N + 1) / 2
     io = 2 * Q * N * r * 4 + N * D * 4 + Q * (D + 1) * 4 \
         + Q * N * (1 + D + r) * 4        # A, Bf, x, l, os in; rows, wx, KA out
     k2_ops = 2 * r + 3 * D + 7 + 2 * (1 + 2 * D)   # K2's count, as above
-    # + 4r: K_ij A_j into row i and K_ij A_i into row j, a multiply-add each
-    rows["K4"]["bound"] = bound_ms(io, pairs * (k2_ops + 4 * r))
+    # + KA: K_ij A_j into row i and K_ij A_i into row j, a multiply-add each,
+    # the function's one bf16 pass (as the TPU kernel's), at the tensor-core
+    # rate; the kernel's split products are its own cost, not the function's
+    rows["K4"]["bound"] = bound_ms(io, pairs * k2_ops, pairs * 4 * r)
     # K5: no exp (one operation fewer), and the lower half of the bf16 stack
-    rows["K5"]["bound"] = bound_ms(io + pairs * 2, pairs * (k2_ops - 1 + 4 * r))
+    rows["K5"]["bound"] = bound_ms(io + pairs * 2, pairs * (k2_ops - 1),
+                                   pairs * 4 * r)
     return rows
 
 
@@ -871,7 +904,7 @@ def path_a_phase(torch, pl, ck, fm, it, dev, totals):
     """Path A: one 16-step chunk of the exact-LMC step on each backward
     route at n = N_A, and at smaller n for the routing rule; each route's
     kernel times beside it."""
-    times = {}
+    times, peaks, kernels = {}, {}, {}
     for n in ROUTING_N:
         X, Y = bench_data(n, seed=0)
         for route in ("stack", "kr", "krs"):
@@ -881,14 +914,23 @@ def path_a_phase(torch, pl, ck, fm, it, dev, totals):
                                 lmc_mll, 1, STEPS_PER_CHUNK)
             report(res, lmc_counts(route, 1, STEPS_PER_CHUNK), totals)
             times[(n, route)] = res["median_ms"]
+            peaks[(n, route)] = res["peak_gib"]
             torch.cuda.empty_cache()
-        ms = route_kernels_ms(torch, ck, it, dev, n)
+        ms = kernels[n] = route_kernels_ms(torch, ck, it, dev, n)
         print(f"  n={n} kernels: K2 {ms['K2']:.4f} + stack product "
               f"{ms['product']:.4f} = {ms['K2'] + ms['product']:.4f} ms; "
               f"K4 {ms['K4']:.4f} ms; K5 (bf16 stack) {ms['K5']:.4f} ms")
     for n in ROUTING_N:
+        ms = kernels[n]
+        # the rule that sets KR_MIN_N: K4 beats K2 plus the stack product,
+        # and the kr step's median is no slower than the stack step's
+        beats = ms["K4"] < ms["K2"] + ms["product"]
+        no_slower = times[(n, "kr")] <= times[(n, "stack")]
         print(f"  n={n}: median step stack {times[(n, 'stack')]:.3f} ms, kr "
               f"{times[(n, 'kr')]:.3f} ms, krs {times[(n, 'krs')]:.3f} ms; "
+              f"peak GiB stack {peaks[(n, 'stack')]:.2f}, kr "
+              f"{peaks[(n, 'kr')]:.2f}, krs {peaks[(n, 'krs')]:.2f}; K4 beats "
+              f"K2 + product: {beats}; kr step no slower: {no_slower}; "
               f"default route {default_route(fm, n)} "
               f"(KR_MIN_N = {fm.KR_MIN_N})")
 

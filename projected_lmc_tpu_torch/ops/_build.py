@@ -21,8 +21,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "stationary.cu"
 BUILD_DIR = _PKG / "_build"
+# --split-compile=0: the compiler's optimisation passes on every CPU
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 
 def _nvcc() -> str:
@@ -67,8 +69,8 @@ def library() -> ctypes.CDLL:
         "plmc_scaled_stack_sym": [P, P, P, P, I, I, I, I, I, I, P],
         "plmc_kernel_matrix": [P, P, P, P, I, I, I, I, I, P],
         "plmc_lowrank_reduce_sym": [P, P, P, P, P, P, P, I, I, I, I, I, P],
-        "plmc_lowrank_reduce_sym_kr": [P] * 9 + [I] * 5 + [P],
-        "plmc_lowrank_reduce_sym_krs": [P] * 10 + [I] * 6 + [P],
+        "plmc_lowrank_reduce_sym_kr": [P] * 10 + [I] * 5 + [P],
+        "plmc_lowrank_reduce_sym_krs": [P] * 11 + [I] * 6 + [P],
         "plmc_scaled_stack": [P] * 5 + [I] * 6 + [P],
         "plmc_quantized_stack": [P] * 4 + [I] * 7 + [P],
         "plmc_lowrank_reduce": [P] * 6 + [I] * 5 + [P],
@@ -77,4 +79,11 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = I
+    # K4/K5's scratch sizes, so that the caller allocates what the kernels
+    # index
+    for name, argtypes in (("plmc_kr_slot_count", [I]),
+                           ("plmc_kr_pack_floats", [I, I])):
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
     return lib

@@ -293,6 +293,19 @@ def lowrank_stationary_reduce_sym_krs_plain(x, lengthscale, outputscale, A, Bf,
     return W.sum(-1), torch.matmul(W, x), torch.matmul(Kf, A)
 
 
+def kr_scratch_shapes(q: int, n: int, d: int, r: int):
+    """Shapes of K4/K5's two fp32 scratch buffers, as the kernel library
+    sizes them: the pack of the factors, (q, nt, floats of one tile's
+    pack), and the slots, (q, slots of one latent, 1+d+r, tile) — only the
+    slots that are written (every lower tile's mirrored side, every run's
+    rows), packed by row block."""
+    lib = _build.library()
+    tile = lib.plmc_tile_size()
+    nt = -(-n // tile)
+    return ((q, nt, lib.plmc_kr_pack_floats(r, d)),
+            (q, lib.plmc_kr_slot_count(nt), 1 + d + r, tile))
+
+
 def _kr_launch(fn_name, x, lengthscale, outputscale, A, Bf, Ks, kind):
     """Checks, scratch and outputs shared by K4 and K5 (``Ks`` None for K4)."""
     n = x.shape[0]
@@ -303,17 +316,16 @@ def _kr_launch(fn_name, x, lengthscale, outputscale, A, Bf, Ks, kind):
     _require("A", A, (q, n, r))
     _require("Bf", Bf, (q, n, r))
     ls = _lengthscale_2d(lengthscale, q, d)
-    tile = _build.library().plmc_tile_size()
-    nt = -(-n // tile)
-    slots = torch.empty((q, nt, nt, tile, 1 + d + r), dtype=torch.float32,
-                        device=x.device)
+    pack_shape, slots_shape = kr_scratch_shapes(q, n, d, r)
+    pack = torch.empty(pack_shape, dtype=torch.float32, device=x.device)
+    slots = torch.empty(slots_shape, dtype=torch.float32, device=x.device)
     rows = torch.empty((q, n), dtype=torch.float32, device=x.device)
     wx = torch.empty((q, n, d), dtype=torch.float32, device=x.device)
     ka = torch.empty((q, n, r), dtype=torch.float32, device=x.device)
     head = (x.data_ptr(), ls.data_ptr(), outputscale.data_ptr(), A.data_ptr(),
             Bf.data_ptr())
-    tail = (slots.data_ptr(), rows.data_ptr(), wx.data_ptr(), ka.data_ptr(),
-            q, n, r, d, _kind_id(kind))
+    tail = (pack.data_ptr(), slots.data_ptr(), rows.data_ptr(),
+            wx.data_ptr(), ka.data_ptr(), q, n, r, d, _kind_id(kind))
     if Ks is None:
         _launch(fn_name, *head, *tail, _stream(x))
     else:
@@ -331,13 +343,21 @@ def lowrank_stationary_reduce_sym_kr(x, lengthscale, outputscale, A, Bf,
     Replaces ``lowrank_stationary_reduce_sym_kr`` (projected_lmc_tpu/ops/
     pallas_kernels.py:630; body ``_lowrank_vjp_tile_sym_kr`` :524). Bound
     on the card: arithmetic — K2's per-pair work (rank-r product, d², one
-    exp for g and g′, the W sums) plus 4r for the two KA products of each
-    unordered pair. Design: one block per lower tile, whose sums for
-    its row block and mirrored sums for its column block go to their own
-    slots of a (q, nt, nt, 64, 1+d+r) fp32 buffer (2.2 GB at n = 2·10⁴,
-    q = 4, d = 4, r = 17; 2.6 GB at n = 16,384, q = 7), which a second
-    kernel sums in index order: no float atomics, the same bits on every
-    run. KA is an fp32 product (the TPU kernel's is a bf16 pass)."""
+    exp for g and g′, the W sums) in fp32; KA's 4r operations a pair, one
+    bf16 pass as in the TPU kernel, run on the tensor cores beside it, not
+    after it. Design: K2's (a block
+    walks a run of lower tiles of one row tile with its row sums in
+    registers; adjacent 4 × 4 blocks, 16-byte shared loads, sums on x/l,
+    rsqrt and ex2), with os·g of each tile left in shared memory as bf16
+    hi and lo parts; both KA products run from there on the tensor cores
+    (``mma.sync`` fed by ``ldmatrix``) as hi·hi + hi·lo + lo·hi of the
+    splits of K and A, ~2⁻¹⁷ relative. A first kernel packs the factors
+    (``kr_scratch_shapes``) so that a block copies a tile's by ``cp.async``.
+    Only each tile's mirrored sums (W column sums, K_IJᵀ A_I) and one set
+    of row sums per run (W row sums, Σ_J K_IJ A_J) leave the block, each
+    into its own slot of a packed fp32 buffer (``kr_scratch_shapes``: 1.24 GB
+    at n = 2·10⁴, q = 4, d = 4, r = 17), which a last kernel sums in slot
+    order: no float atomics, the same bits on every run."""
     dev = check_device(device, x, lengthscale, outputscale, A, Bf)
     if dev.type == "cpu":
         return lowrank_stationary_reduce_sym_kr_plain(x, lengthscale,
@@ -361,8 +381,12 @@ def lowrank_stationary_reduce_sym_krs(x, lengthscale, outputscale, A, Bf, Ks,
     Replaces ``lowrank_stationary_reduce_sym_krs`` (projected_lmc_tpu/ops/
     pallas_kernels.py:798; body ``_lowrank_vjp_tile_sym_krs`` :703). Bound:
     K4's arithmetic less the exp, plus the read of the stack's lower half.
-    Design: K4's, with each lower tile read from the stack (bounds-checked
-    at the ragged edge) in place of its evaluation."""
+    Design: K4's, with each lower tile read from the stack in place of its
+    evaluation, 16 bytes a load (``cp.async`` for a bf16 stack) where the
+    rows start on 16 bytes (n a multiple of 8 in bf16, of 4 in fp32),
+    element by element otherwise, and g′ from it with one reciprocal; a
+    bf16 stack is its own hi part, so its KA products are two bf16
+    products, not three."""
     dev = check_device(device, x, lengthscale, outputscale, A, Bf, Ks)
     if dev.type == "cpu":
         return lowrank_stationary_reduce_sym_krs_plain(

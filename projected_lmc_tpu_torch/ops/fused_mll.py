@@ -46,12 +46,18 @@ from . import cuda_kernels as ck
 from . import iterative as it
 
 # The n from which the "kr" backward (K4) is the default, None for no n: the
-# smallest n at which K4 beat K2 plus the stack product in the exact-LMC
-# training step (T=7, q=4, d=4, r=17, bf16 stack). On an H100 80GB HBM3 at
-# 700 W (chip_smoke.py path A, median of 16 steps) it did at none:
-#   n =  5,000: stack 17.899 ms, kr 22.252 ms (kernels 0.537 vs 0.582 ms)
-#   n = 10,000: stack 33.369 ms, kr 33.377 ms (kernels 2.070 vs 2.128 ms)
-#   n = 20,000: stack 78.198 ms, kr 79.180 ms (kernels 7.221 vs 8.351 ms)
+# smallest n at which, in each of two runs of chip_smoke.py path A (the
+# exact-LMC training step, T=7, q=4, d=4, r=17, bf16 stack; median of 16
+# steps), K4 beat K2 plus the stack product and the kr step was no slower
+# than the stack step. On an H100 80GB HBM3 at 700 W K4 won at every n, but
+# the kr step lost at every n in one of the two runs (step medians move by
+# more between runs than the ~0.6 ms the kernels save):
+#   n =  5,000: kernels 0.450 / 0.439 vs 0.320 / 0.317 ms;
+#               steps stack 46.196 / 30.910, kr 48.812 / 30.664 ms
+#   n = 10,000: kernels 1.691 / 1.707 vs 1.115 / 1.120 ms;
+#               steps stack 47.155 / 39.013, kr 49.713 / 38.053 ms
+#   n = 20,000: kernels 5.431 / 5.467 vs 4.220 / 4.203 ms;
+#               steps stack 76.882 / 75.399, kr 77.143 / 74.718 ms
 # The kr route keeps ~0.4 GB less at n=20k; it is taken by PLMC_KR_FUSED=1.
 KR_MIN_N = None
 

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""K1 and K2 of the PyTorch port on the card: a check, then their times.
+"""K1, K2, K4 and K5 of the PyTorch port on the card: a check, then times.
 
-K1 is ``scaled_kernel_stack_sym`` and K2 ``lowrank_stationary_reduce_sym``
+K1 is ``scaled_kernel_stack_sym``, K2 ``lowrank_stationary_reduce_sym``, K4
+``lowrank_stationary_reduce_sym_kr`` and K5 ``..._krs`` on a bf16 stack
 (``projected_lmc_tpu_torch/ops/cuda_kernels.py``). The script first holds
-both against their plain versions at a small ragged n, then times them with
-CUDA events at the main path's widths (q = 4, d = 4, r = 17, Matérn-2.5) for
-each n given, splits K2's time into its two launches with ``torch.profiler``,
-and prints the compiler's register counts for the d = 4 kernels. It times
+each against its plain version at small n (50, and 1237 and 1240, whose
+rows do and do not start on 16 bytes in bf16) with a bitwise repeat of the
+reductions, then times them with CUDA events at the main path's widths
+(q = 4, d = 4, r = 17, Matérn-2.5) for each n given, splits the reductions'
+time into their launches with ``torch.profiler`` (K4 and K5: the factor
+pack, the main kernel and the second pass), and prints the
+compiler's register counts for the d = 4, Matérn-2.5 kernels. It times
 whatever package lies beside it, so a copy of it inside an unpacked earlier
 commit times that commit's kernels on the same card. Needs one NVIDIA card:
 
-    python3 scripts/bench_sym_kernels.py [--n 10000 20000] [--nvcc-flag=-DX=1]
+    python3 scripts/bench_sym_kernels.py [--n 10000 20000] [--kernels K4 K5]
+        [--nvcc-flag=-DX=1]
 """
 
 from __future__ import annotations
@@ -53,13 +58,43 @@ def inputs(torch, n, r, seed):
             t(rng.uniform(0.5, 2.0, (Q,))), t(A), t(Bf))
 
 
-def check(torch, ck):
-    """Both kernels against their plain versions at small n; 1.0 means the
+def check_kr(torch, ck, x, ls, os_, A, Bf, Ks, n):
+    """K4, and K5 on the bf16 stack ``Ks``, against their plain versions:
+    rows and wx within 1e-4 of their largest entry, KA within 1e-4 of its,
+    the tighter of ``chip_smoke.check_kr``'s two KA limits (its split bf16
+    products); returns the worst error/tolerance."""
+    worst = 0.0
+    for key, run, plain in (
+            ("K4", lambda: ck.lowrank_stationary_reduce_sym_kr(
+                x, ls, os_, A, Bf, KIND),
+             lambda: ck.lowrank_stationary_reduce_sym_kr_plain(
+                 x, ls, os_, A, Bf, KIND)),
+            ("K5", lambda: ck.lowrank_stationary_reduce_sym_krs(
+                x, ls, os_, A, Bf, Ks, KIND),
+             lambda: ck.lowrank_stationary_reduce_sym_krs_plain(
+                 x, ls, os_, A, Bf, Ks, KIND))):
+        got, rep, want = run(), run(), plain()
+        scale = max(float(w.abs().max()) for w in want[:2])
+        err = max(max(float((g - w).abs().max()) for g, w in
+                      zip(got[:2], want[:2])) / (1e-4 * scale),
+                  float((got[2] - want[2]).abs().max())
+                  / (1e-4 * float(want[2].abs().max())))
+        same = all(torch.equal(a, b) for a, b in zip(got, rep))
+        print(f"  {key} n={n} r={R}: error/tolerance {err:.3f}, repeat "
+              f"bitwise equal {same}")
+        worst = max(worst, err, 0.0 if same else 2.0)
+    return worst
+
+
+def check(torch, ck, kernels):
+    """The kernels against their plain versions at small n; 1.0 means the
     error equals the tolerance."""
     worst = 0.0
     for n in (50, 1237, 1240):
         x, ls, os_, A, Bf = inputs(torch, n, R, seed=n)
         for dt in (torch.bfloat16, torch.float32):
+            if "K1" not in kernels:
+                break
             got = ck.scaled_kernel_stack_sym(x, ls, os_, KIND, dt)
             want = ck.scaled_kernel_stack_sym_plain(x, ls, os_, KIND, dt)
             tol = 2.0 ** -7 * float(want.float().abs().max()) \
@@ -69,28 +104,73 @@ def check(torch, ck):
             print(f"  K1 n={n} {str(dt)[6:]}: error/tolerance {err:.3f}, "
                   f"bitwise symmetric {sym}")
             worst = max(worst, err, 0.0 if sym else 2.0)
-        got = ck.lowrank_stationary_reduce_sym(x, ls, A, Bf, KIND)
-        rep = ck.lowrank_stationary_reduce_sym(x, ls, A, Bf, KIND)
-        want = ck.lowrank_stationary_reduce_sym_plain(x, ls, A, Bf, KIND)
-        tol = 1e-4 * max(float(w.abs().max()) for w in want)
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want)) / tol
-        same = all(torch.equal(a, b) for a, b in zip(got, rep))
-        print(f"  K2 n={n} r={R}: error/tolerance {err:.3f}, repeat bitwise "
-              f"equal {same}")
-        worst = max(worst, err, 0.0 if same else 2.0)
+        if "K2" in kernels:
+            got = ck.lowrank_stationary_reduce_sym(x, ls, A, Bf, KIND)
+            rep = ck.lowrank_stationary_reduce_sym(x, ls, A, Bf, KIND)
+            want = ck.lowrank_stationary_reduce_sym_plain(x, ls, A, Bf, KIND)
+            tol = 1e-4 * max(float(w.abs().max()) for w in want)
+            err = max(float((g - w).abs().max())
+                      for g, w in zip(got, want)) / tol
+            same = all(torch.equal(a, b) for a, b in zip(got, rep))
+            print(f"  K2 n={n} r={R}: error/tolerance {err:.3f}, repeat "
+                  f"bitwise equal {same}")
+            worst = max(worst, err, 0.0 if same else 2.0)
+        if "K4" in kernels or "K5" in kernels:
+            Ks = ck.scaled_kernel_stack_sym(x, ls, os_, KIND, torch.bfloat16)
+            worst = max(worst, check_kr(torch, ck, x, ls, os_, A, Bf, Ks, n))
     return worst
+
+
+def by_launch(torch, fn, names, reps=5):
+    """Mean device ms of each named kernel that ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_time_total", 0) <= 0:
+            continue
+        kernel = e.key.split("<")[0].split("(")[-1].split("::")[-1]
+        for name in names:
+            if name == kernel or name in e.key.split("<")[0].split("::")[-1]:
+                parts[name] = parts.get(name, 0.0) \
+                    + e.device_time_total / 1e3 / reps
+    return ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) \
+        or "not measured"
+
+
+def registers(lib):
+    """ptxas's report for the kernels timed here, at d = 4 and Matérn-2.5
+    (template arguments Li4E and Li3E; K4/K5 of earlier commits have no
+    kind argument), and the second passes."""
+    log = lib.with_suffix(".log").read_text().splitlines()
+    for i, line in enumerate(log):
+        if "Compiling entry" not in line:
+            continue
+        name = line.split("'")[1]
+        if "slot_reduce" in name or (
+                ("Li4E" in name or "scaled_stack_sym" in name)
+                and ("Li3E" in name or "kr_kernelILi4ELb" in name)):
+            used = next((u for u in log[i + 1:i + 4] if "Used" in u), "")
+            print("  ptxas:", name[:80], "|",
+                  used.replace("ptxas info    : ", ""))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, nargs="+", default=[10_000, 20_000])
+    ap.add_argument("--kernels", nargs="+", default=["K1", "K2", "K4", "K5"],
+                    choices=["K1", "K2", "K4", "K5"])
     ap.add_argument("--nvcc-flag", action="append", default=[],
                     help="extra nvcc flag for the kernel build (repeatable)")
     ap.add_argument("--build-only", action="store_true")
     args = ap.parse_args()
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print("bench_sym_kernels: needs an NVIDIA card", file=sys.stderr)
         return 2
@@ -105,36 +185,39 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
     print(f"card {card}; flags {args.nvcc_flag}; {lib.name}")
-    log = lib.with_suffix(".log").read_text().splitlines()
-    for i, line in enumerate(log):
-        if "Compiling entry" in line and any(
-                k in line for k in ("scaled_stack_sym", "lowrank_reduce_sym_kernel",
-                                    "slot_reduce")) \
-                and "kr_" not in line and ("Li4E" in line or "ILi" not in line):
-            used = next((u for u in log[i + 1:i + 4] if "Used" in u), "")
-            print("  ptxas:", line.split("'")[1][:70], "|",
-                  used.replace("ptxas info    : ", ""))
+    registers(lib)
 
-    worst = check(torch, ck)
+    worst = check(torch, ck, args.kernels)
     for n in args.n:
         x, ls, os_, A, Bf = inputs(torch, n, R, seed=1)
-        k1 = {str(dt)[6:]: cuda_ms(torch, lambda: ck.scaled_kernel_stack_sym(
-            x, ls, os_, KIND, dt)) for dt in (torch.bfloat16, torch.float32)}
-        torch.cuda.empty_cache()
-        run_k2 = lambda: ck.lowrank_stationary_reduce_sym(x, ls, A, Bf, KIND)  # noqa
-        k2 = cuda_ms(torch, run_k2)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                run_k2()
-            torch.cuda.synchronize()
-        parts = {name: e.device_time_total / 1e3 / 5
-                 for e in prof.key_averages()
-                 for name in ("lowrank_reduce_sym_kernel", "slot_reduce_kernel")
-                 if name in e.key and "kr_" not in e.key
-                 and getattr(e, "device_time_total", 0) > 0}
-        print(f"n={n}: K1 bf16 {k1['bfloat16']:.4f} ms, fp32 "
-              f"{k1['float32']:.4f} ms; K2 {k2:.4f} ms, by launch "
-              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+        out = []
+        if "K1" in args.kernels:
+            k1 = {str(dt)[6:]: cuda_ms(torch, lambda: ck.scaled_kernel_stack_sym(
+                x, ls, os_, KIND, dt)) for dt in (torch.bfloat16, torch.float32)}
+            out.append(f"K1 bf16 {k1['bfloat16']:.4f} ms, fp32 "
+                       f"{k1['float32']:.4f} ms")
+            torch.cuda.empty_cache()
+        if "K2" in args.kernels:
+            run_k2 = lambda: ck.lowrank_stationary_reduce_sym(  # noqa
+                x, ls, A, Bf, KIND)
+            out.append(f"K2 {cuda_ms(torch, run_k2):.4f} ms, by launch "
+                       + by_launch(torch, run_k2, ("lowrank_reduce_sym_kernel",
+                                                   "slot_reduce_kernel")))
+        kr_names = ("kr_pack_kernel", "lowrank_reduce_kr_kernel",
+                    "kr_slot_reduce_kernel")
+        if "K4" in args.kernels:
+            run_k4 = lambda: ck.lowrank_stationary_reduce_sym_kr(  # noqa
+                x, ls, os_, A, Bf, KIND)
+            out.append(f"K4 {cuda_ms(torch, run_k4, reps=10):.4f} ms, by "
+                       f"launch " + by_launch(torch, run_k4, kr_names))
+        if "K5" in args.kernels:
+            Ks = ck.scaled_kernel_stack_sym(x, ls, os_, KIND, torch.bfloat16)
+            run_k5 = lambda: ck.lowrank_stationary_reduce_sym_krs(  # noqa
+                x, ls, os_, A, Bf, Ks, KIND)
+            out.append(f"K5 (bf16 stack) {cuda_ms(torch, run_k5, reps=10):.4f}"
+                       f" ms, by launch " + by_launch(torch, run_k5, kr_names))
+            del Ks
+        print(f"n={n}: " + "; ".join(out))
         torch.cuda.empty_cache()
     if worst > 1.0:
         print("bench_sym_kernels: a kernel disagrees with its plain version",
