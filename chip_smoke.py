@@ -17,9 +17,13 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
      bytes, at one that leaves a ragged tile and at one below a tile, each
      stack bitwise symmetric, and within a bf16 step of K6 on (x, x); K2 also at
      n = 20,000 and a second rank, with its two launches timed apart; K4
-     and K5 also timed at n = 20,000, with the bytes of their scratch. The
-     int8 stack product beside the bf16 one, and the bf16 one by the layout
-     of its right-hand sides;
+     and K5 also timed at n = 20,000, with the bytes of their scratch; K8's
+     symmetric stack bitwise symmetric and equal to the full grid's; K3
+     with a bf16 output equal to its fp32 result cast once. Every kernel at
+     small n for each profile and d = 1, 3, 8, 9, 21, 32; K1, K2, K7 and K8
+     timed at n = 10,000 with d = 21 beside d = 4. The int8 stack product
+     beside the bf16 one, and the bf16 one by the layout of its right-hand
+     sides;
   3. the fused MLL op, value and gradients, on the card with the kernels
      against the CPU with the plain versions (same eps, xi and roots, tight
      CG), n = 2048, on the default backward route, forced onto K4
@@ -45,7 +49,11 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
      fp32 steps of mll(max_cg_iters=64, cg_tol=1e-4) (K8 + K2, then K1 +
      K2), then one 16-step chunk of the int8 step with stale roots;
   D. path D: phase 4's step with ``PLMC_SYM_BUILD=0`` (K6 + K7), one
-     16-step chunk.
+     16-step chunk;
+  E. path E: phase 4's step at d = 21 (SARCOS's input features; the
+     reductions run at a padded width of 24), one 16-step chunk, then one
+     16-step chunk of mll(matvec_int8=True) at d = 21 (K1 + K2, then
+     K8 + K2, with K3).
 
 Every training run sets the launch counts to 0 just before it and reads
 them just after. The last lines are one JSON object with every kernel's
@@ -68,6 +76,7 @@ import warnings
 import numpy as np
 
 N, T, Q, D = 10_000, 7, 4, 4             # the main path's widths
+DE = 21                                  # path E: SARCOS's input features
 STEPS_PER_CHUNK, CHUNKS = 16, 2
 N_A = 20_000                             # path A: the large-n exact-LMC step
 ROUTING_N = (5_000, N, N_A)              # path A's sizes, for the routing rule
@@ -308,12 +317,14 @@ def kernel_phase(torch, ck, dev):
     torch.cuda.empty_cache()
     rows.update(kr_phase(torch, ck, dev, rng, t, ls, os_))
     rows.update(fullgrid_phase(torch, ck, dev, rng, t, ls, os_))
-    # every profile and several feature counts (kernel templates), small n
+    # every profile and several feature counts (kernel templates), small n;
+    # above 8 features the reductions run at a padded width (24, 32) and
+    # the lengthscales grow with √d, so that the distances stay those of d=8
     for kind in ck.KINDS:
-        for d in (1, 3, 8):
+        for d in (1, 3, 8, 9, 21, 32):
             n = 333
             xs = t(rng.standard_normal((n, d)))
-            lss = t(rng.uniform(0.5, 1.5, (Q, 1, d)))
+            lss = t(rng.uniform(0.5, 1.5, (Q, 1, d)) * max(1.0, (d / 8) ** 0.5))
             U, V = rng.standard_normal((2, Q, n, 3))
             As, Bs = t(np.concatenate([U, V], -1)), t(np.concatenate([V, U], -1))
             e1 = float((ck.scaled_kernel_stack_sym(xs, lss, os_, kind,
@@ -348,6 +359,15 @@ def kernel_phase(torch, ck, dev):
                                                    device=dev),
                          ck.quantized_kernel_stack_plain(xs, xs[:50], lss,
                                                          kind, (336, 56)))
+            # K8's symmetric call: lower tiles and their mirror
+            Kq = ck.quantized_kernel_stack(xs, xs, lss, kind, (336, 336),
+                                           device=dev)
+            check_counts(f"K8 {kind} d={d} n={n} symmetric", Kq,
+                         ck.quantized_kernel_stack_plain(xs, xs, lss, kind,
+                                                         (336, 336)))
+            if not torch.equal(Kq, Kq.transpose(-1, -2)):
+                raise SystemExit(f"chip_smoke: K8's stack at d={d} is not "
+                                 f"bitwise symmetric")
             Ks = ck.scaled_kernel_stack_sym(xs, lss, os_, kind, device=dev)
             check_kr(f"K4 {kind} d={d} n={n}",
                      ck.lowrank_stationary_reduce_sym_kr(
@@ -359,11 +379,105 @@ def kernel_phase(torch, ck, dev):
                          xs, lss, os_, As, Bs, Ks, kind, device=dev),
                      ck.lowrank_stationary_reduce_sym_krs_plain(
                          xs, lss, os_, As, Bs, Ks, kind))
+    wide_phase(torch, ck, dev, rng, t, os_, rows)
     for k, row in rows.items():
         b, by = row["bound"]
         print(f"  {k}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
               f"bound {b:.4f} ms by {by})")
     return rows
+
+
+def k8_bound(n, nw, d):
+    """K8's least time on the call (x, x) padded to (nw, nw): the write of
+    q·nw² counts, or the operations of the n(n+1)/2 unordered pairs the
+    function needs (3d + 10 for g, 2 for the scale and rounding)."""
+    return bound_ms(Q * nw * nw + n * d * 4 + Q * d * 4,
+                    Q * n * (n + 1) / 2 * (3 * d + 12))
+
+
+def reduce_bounds(n, d, r):
+    """K2's and K7's least times at n, d, r (their operation counts, as in
+    phase 2's rows)."""
+    io = 2 * Q * n * r * 4 + n * d * 4 + Q * n * (1 + d) * 4
+    k2 = bound_ms(io, Q * n * (n + 1) / 2
+                  * (2 * r + 3 * d + 7 + 2 * (1 + 2 * d)))
+    k7 = bound_ms(io, Q * n * n * (2 * r + 3 * d + 7 + (1 + 2 * d)))
+    return k2, k7
+
+
+def wide_phase(torch, ck, dev, rng, t, os_, rows):
+    """K1, K2, K7 and K8 at n = N with d = DE (SARCOS's features; the
+    reductions run at their padded width) beside d = D: times and bounds.
+    At d = DE each is first held against its plain version on the inputs it
+    is timed on, at the tolerances of phase 2 at d = D (the plain versions
+    a block of rows at a time)."""
+    from projected_lmc_tpu_torch.ops import iterative as it
+    r, nw = 17, it.int8_width(N)
+    for d in (D, DE):
+        x = t(rng.standard_normal((N, d)))
+        x = x - x.mean(0)
+        ls = t(rng.uniform(0.5, 1.5, (Q, 1, d)) * (d / D) ** 0.5)
+        A, Bf = symmetric_factors(rng, t, N, r)
+        if d == DE:
+            wide_values(torch, ck, dev, x, ls, os_, A, Bf, nw)
+        ms = {"K1": cuda_ms(lambda: ck.scaled_kernel_stack_sym(
+                  x, ls, os_, KIND, torch.bfloat16, device=dev), reps=10),
+              "K2": cuda_ms(lambda: ck.lowrank_stationary_reduce_sym(
+                  x, ls, A, Bf, KIND, device=dev), reps=5),
+              "K7": cuda_ms(lambda: ck.lowrank_stationary_reduce(
+                  x, ls, A, Bf, KIND, device=dev), reps=5),
+              "K8": cuda_ms(lambda: ck.quantized_kernel_stack(
+                  x, x, ls, KIND, (nw, nw), device=dev), reps=10)}
+        k2, k7 = reduce_bounds(N, d, r)
+        bounds = {"K1": bound_ms(Q * N * N * 2 + N * d * 4 + Q * (d + 1) * 4,
+                                 Q * N * (N + 1) / 2 * (3 * d + 10)),
+                  "K2": k2, "K7": k7, "K8": k8_bound(N, nw, d)}
+        print(f"  d={d} (K2 and K7 at {ck.reduce_width(d)} features), "
+              f"n={N}: "
+              + "; ".join(f"{k} {ms[k]:.4f} ms (bound {bounds[k][0]:.4f} by "
+                          f"{bounds[k][1]})" for k in ms))
+        del x, A, Bf
+        torch.cuda.empty_cache()
+
+
+def wide_values(torch, ck, dev, x, ls, os_, A, Bf, nw, block=1000):
+    """K1 (bf16), K2, K7 and K8 on the (N, DE) inputs that ``wide_phase``
+    times, against their plain versions a block of rows at a time (the plain
+    formulas form (q, rows, N, d) differences): K1 within one bf16 step, K2
+    and K7 within 1e-4 of the largest entry, K8's counts as
+    ``check_counts`` holds them, its stack bitwise symmetric."""
+    got = ck.scaled_kernel_stack_sym(x, ls, os_, KIND, torch.bfloat16,
+                                     device=dev)
+    err, top = stack_error(torch, ck, got, x, ls, os_, torch.bfloat16, block)
+    check(f"K1 bf16 d={DE} n={N}", err, 2.0 ** -7 * top)
+    del got
+    torch.cuda.empty_cache()
+    want = reduce_plain_by_blocks(torch, ck, x, ls, A, Bf, KIND, block)
+    tol = 1e-4 * max(float(w.abs().max()) for w in want)
+    for name, fn in (("K2", ck.lowrank_stationary_reduce_sym),
+                     ("K7", ck.lowrank_stationary_reduce)):
+        got = fn(x, ls, A, Bf, KIND, device=dev)
+        check(f"{name} d={DE} n={N} r={A.shape[-1]} (at "
+              f"{ck.reduce_width(DE)} features)",
+              max(float((g - w).abs().max()) for g, w in zip(got, want)), tol)
+    del got, want
+    torch.cuda.empty_cache()
+    Kq = ck.quantized_kernel_stack(x, x, ls, KIND, (nw, nw), device=dev)
+    if not torch.equal(Kq, Kq.transpose(-1, -2)):
+        raise SystemExit(f"chip_smoke: K8's stack at d={DE} is not bitwise "
+                         f"symmetric")
+    n = x.shape[0]
+    worst = ndiff = 0
+    for i0 in range(0, n, block):
+        want = ck.quantized_kernel_stack_plain(x[i0:i0 + block], x, ls, KIND)
+        diff = (Kq[:, i0:i0 + want.shape[1], :n].short() - want.short()).abs()
+        worst, ndiff = max(worst, int(diff.max())), ndiff + int((diff > 0).sum())
+    if bool(Kq[:, n:].any()) or bool(Kq[:, :, n:].any()):
+        raise SystemExit(f"chip_smoke: K8's padding at d={DE} is not zero")
+    count_verdict(f"K8 d={DE} ({Q},{nw},{nw}), bitwise symmetric",
+                  worst, ndiff / Kq.numel())
+    del Kq
+    torch.cuda.empty_cache()
 
 
 def check_counts(name: str, got, want) -> int:
@@ -376,6 +490,12 @@ def check_counts(name: str, got, want) -> int:
                          f"{want.dtype}")
     worst = int((got.short() - want.short()).abs().max())
     share = float((got != want).sum()) / got.numel()
+    return count_verdict(name, worst, share)
+
+
+def count_verdict(name: str, worst: int, share: float) -> int:
+    """``check_counts``'s limits on the largest count difference and the
+    share of differing entries; returns the largest difference."""
     ok = worst <= 1 and share <= 1e-4
     print(f"  {name}: max |count difference| {worst}, share of differing "
           f"entries {share:.3e} (tolerances 1, 1e-4) {'ok' if ok else 'FAIL'}")
@@ -451,7 +571,9 @@ def kr_phase(torch, ck, dev, rng, t, ls, os_):
         x, ls, os_, A, Bf, kind, device=dev), reps=5)
     k5 = cuda_ms(lambda: ck.lowrank_stationary_reduce_sym_krs(
         x, ls, os_, A, Bf, Ks, kind, device=dev), reps=5)
-    print(f"  K4 at n={N_A}: {k4:.4f} ms; K5 (bf16 stack): {k5:.4f} ms")
+    b4, b5 = kr_bounds(N_A, r)
+    print(f"  K4 at n={N_A}: {k4:.4f} ms (bound {b4[0]:.4f} ms by {b4[1]}); "
+          f"K5 (bf16 stack): {k5:.4f} ms (bound {b5[0]:.4f} ms by {b5[1]})")
     del x, A, Bf, Ks
     torch.cuda.empty_cache()
     for n in (N, N_A):
@@ -459,18 +581,22 @@ def kr_phase(torch, ck, dev, rng, t, ls, os_):
                        for shape in ck.kr_scratch_shapes(Q, n, D, r))
         print(f"  K4/K5 scratch at n={n} (q={Q}, d={D}, r={r}): slots "
               f"{slots / 1e9:.3f} GB + factor pack {pack / 1e6:.1f} MB")
-    pairs = Q * N * (N + 1) / 2
-    io = 2 * Q * N * r * 4 + N * D * 4 + Q * (D + 1) * 4 \
-        + Q * N * (1 + D + r) * 4        # A, Bf, x, l, os in; rows, wx, KA out
+    rows["K4"]["bound"], rows["K5"]["bound"] = kr_bounds(N, r)
+    return rows
+
+
+def kr_bounds(n, r):
+    """K4's and K5's least times at n (d = D, bf16 stack for K5)."""
+    pairs = Q * n * (n + 1) / 2
+    io = 2 * Q * n * r * 4 + n * D * 4 + Q * (D + 1) * 4 \
+        + Q * n * (1 + D + r) * 4        # A, Bf, x, l, os in; rows, wx, KA out
     k2_ops = 2 * r + 3 * D + 7 + 2 * (1 + 2 * D)   # K2's count, as above
     # + KA: K_ij A_j into row i and K_ij A_i into row j, a multiply-add each,
     # the function's one bf16 pass (as the TPU kernel's), at the tensor-core
     # rate; the kernel's split products are its own cost, not the function's
-    rows["K4"]["bound"] = bound_ms(io, pairs * k2_ops, pairs * 4 * r)
     # K5: no exp (one operation fewer), and the lower half of the bf16 stack
-    rows["K5"]["bound"] = bound_ms(io + pairs * 2, pairs * (k2_ops - 1),
-                                   pairs * 4 * r)
-    return rows
+    return (bound_ms(io, pairs * k2_ops, pairs * 4 * r),
+            bound_ms(io + pairs * 2, pairs * (k2_ops - 1), pairs * 4 * r))
 
 
 def fullgrid_phase(torch, ck, dev, rng, t, ls, os_):
@@ -499,13 +625,25 @@ def fullgrid_phase(torch, ck, dev, rng, t, ls, os_):
                 rows["K6"] = dict(max_abs_err=err)
             del got, want
         pad = (Nw, Nw) if x1 is x else None
+        Kq = ck.quantized_kernel_stack(x1, x2, ls, KIND, pad, device=dev)
         worst = check_counts(
-            f"K8 quantized_kernel_stack {shape} padded to {pad}",
-            ck.quantized_kernel_stack(x1, x2, ls, KIND, pad, device=dev),
+            f"K8 quantized_kernel_stack {shape} padded to {pad}", Kq,
             ck.quantized_kernel_stack_plain(x1, x2, ls, KIND, pad))
         if x1 is x:
             rows["K8"] = dict(max_abs_err=float(worst))
+            # the symmetric call mirrors lower tiles: bitwise symmetric, and
+            # the same bits as the full grid over a copy of the points
+            sym = torch.equal(Kq, Kq.transpose(-1, -2))
+            same = torch.equal(Kq, ck.quantized_kernel_stack(
+                x, x.clone(), ls, KIND, pad, device=dev))
+            print(f"  K8 on (x, x): bitwise symmetric {sym}; equal to the "
+                  f"full grid's stack {same}")
+            if not (sym and same):
+                raise SystemExit("chip_smoke: K8's symmetric stack is not "
+                                 "the full grid's, mirrored")
+        del Kq
         torch.cuda.empty_cache()
+    bf16_kernel_matrix(torch, dev, x, ls)
     rows["K6"]["ms"] = cuda_ms(lambda: ck.scaled_kernel_stack(
         x, x, ls, os_, KIND, torch.bfloat16, device=dev), reps=20)
     rows["K6"]["plain_ms"] = cuda_ms(lambda: ck.scaled_kernel_stack_plain(
@@ -519,9 +657,8 @@ def fullgrid_phase(torch, ck, dev, rng, t, ls, os_):
     pair_ops = 3 * D + 10                  # d² (3 flops/feature), sqrt, exp, poly
     rows["K6"]["bound"] = bound_ms(Q * N * N * 2 + N * D * 4 + Q * (D + 1) * 4,
                                    grid_pairs * pair_ops)
-    # + the scale by 127 and the rounding
-    rows["K8"]["bound"] = bound_ms(Q * Nw * Nw + N * D * 4 + Q * D * 4,
-                                   grid_pairs * (pair_ops + 2))
+    # the call measured is (x, x): its unordered pairs are the work
+    rows["K8"]["bound"] = k8_bound(N, Nw, D)
 
     r = 17
     A, Bf = symmetric_factors(rng, t, N, r)
@@ -544,11 +681,27 @@ def fullgrid_phase(torch, ck, dev, rng, t, ls, os_):
                           x, ls, A, Bf, KIND), reps=2, warmup=1))
     torch.cuda.empty_cache()
     # K2's per-pair count less the column sums, over n² ordered pairs
-    rows["K7"]["bound"] = bound_ms(
-        2 * Q * N * r * 4 + N * D * 4 + Q * N * (1 + D) * 4,
-        grid_pairs * (2 * r + 3 * D + 7 + (1 + 2 * D)))
+    rows["K7"]["bound"] = reduce_bounds(N, D, r)[1]
     int8_product(torch, ck, it, dev, rng, t, x, ls, os_)
     return rows
+
+
+def bf16_kernel_matrix(torch, dev, x, ls):
+    """K3's route with a bf16 output (``kernels.stationary_kernel_matrix``,
+    the Nyström cross block's shape): K3 in fp32, cast once, as the JAX
+    ``_skm_fwd`` does; equal to the fp32 route's matrix cast, bit for bit."""
+    from projected_lmc_tpu_torch.kernels import stationary_kernel_matrix
+    z = x[::max(1, x.shape[0] // 256)][:256]
+    half = stationary_kernel_matrix(x, z, ls, KIND, torch.bfloat16,
+                                    device=dev)
+    full = stationary_kernel_matrix(x, z, ls, KIND, device=dev)
+    same = half.dtype == torch.bfloat16 and torch.equal(
+        half, full.to(torch.bfloat16))
+    print(f"  K3 with a bf16 output {tuple(half.shape)}: equal to the fp32 "
+          f"matrix cast once: {same}")
+    if not same:
+        raise SystemExit("chip_smoke: K3's bf16 output is not its fp32 "
+                         "result cast")
 
 
 def int8_product(torch, ck, it, dev, rng, t, x, ls, os_):
@@ -640,9 +793,9 @@ def row_major_int8_product(torch, Kq, Wq):
     return out[:, :n, :r]
 
 
-def bench_data(n, seed=0):
+def bench_data(n, seed=0, d=D):
     rng = np.random.default_rng(seed)
-    X = rng.standard_normal((n, D)).astype(np.float32)
+    X = rng.standard_normal((n, d)).astype(np.float32)
     Y = rng.standard_normal((n, T)).astype(np.float32)
     return X, Y
 
@@ -1074,6 +1227,35 @@ def path_d_phase(torch, pl, ck, dev, totals, sym_median):
     torch.cuda.empty_cache()
 
 
+def path_e_phase(torch, pl, ck, dev, totals, median_4):
+    """Path E: phase 4's step at SARCOS's width, d = DE (the reductions at
+    their padded width), one 16-step chunk; then one 16-step chunk of the
+    int8 step (mll(matvec_int8=True)) at the same width. Inputs N(0, 1), the
+    lengthscales started √(DE/D) times the default, so that the distances
+    are those of the d = D step."""
+    X, Y = bench_data(N, seed=9, d=DE)
+    medians = {}
+    for label, kw, fwd in (("bf16 stack", MLL_KW, "K1"),
+                           ("int8 stack", INT8_KW, "K8")):
+        model = make_model(pl, X, Y, dev)
+        cov = model.covar_module
+        cov.set_lengthscale(cov.lengthscale.detach() * (DE / D) ** 0.5)
+        print(f"  {label}, {STEPS_PER_CHUNK} steps, roots once:")
+        with routed("default"):
+            res = train_run(torch, ck, model,
+                            lambda m, r, g, kw=kw: m.mll(precond_roots=r,
+                                                         generator=g, **kw),
+                            1, STEPS_PER_CHUNK)
+        report(res, expect(**{fwd: STEPS_PER_CHUNK, "K2": STEPS_PER_CHUNK,
+                              "K3": 2}), totals)
+        medians[label] = res["median_ms"]
+        del model
+        torch.cuda.empty_cache()
+    print(f"  median step at d={DE}: bf16 {medians['bf16 stack']:.3f} ms, "
+          f"int8 {medians['int8 stack']:.3f} ms; at d={D} (phase 4) "
+          f"{median_4:.3f} ms")
+
+
 def fit_phase(torch, pl, dev):
     """Phase 5: the ``training.fit`` entry point at a smaller n."""
     X, Y = bench_data(2000, seed=4)
@@ -1144,6 +1326,10 @@ def main() -> int:
     print(f"path D: the step on the full grid (PLMC_SYM_BUILD=0), n={N}, "
           f"{STEPS_PER_CHUNK} steps")
     path_d_phase(torch, pl, ck, dev, totals, median_4)
+    print(f"path E: the step at d={DE} (SARCOS's features), n={N}, "
+          f"{STEPS_PER_CHUNK} steps on a bf16 stack, then {STEPS_PER_CHUNK} "
+          f"on an int8 stack")
+    path_e_phase(torch, pl, ck, dev, totals, median_4)
 
     meta = [("K1", "scaled_kernel_stack_sym",
              "projected_lmc_tpu/ops/pallas_kernels.py:278"),

@@ -71,11 +71,12 @@ class _StationaryKernelMatrix(torch.autograd.Function):
         # distance expansion stays safe for large-offset features
         mu = x1.mean(0)
         x1c, x2c = x1 - mu, x2 - mu
-        if x1c.is_cuda and (x1c.dtype != torch.float32
-                            or out_dtype not in (None, torch.float32)):
+        if x1c.is_cuda and x1c.dtype != torch.float32:
             raise NotImplementedError(
-                "on the card the dense kernel matrix is float32 in and out "
-                "(kernel K3); other types are ported in a later slice")
+                "on the card the dense kernel matrix takes float32 inputs "
+                "(kernel K3)")
+        # another out_dtype (bf16 for a bf16 stack) is K3's fp32 matrix cast
+        # once, as the JAX _skm_fwd's XLA branch casts
         K = ck.kernel_matrix(x1c, x2c, ls, kind, device=device)
         ctx.save_for_backward(x1c, x2c, ls)
         ctx.kind = kind

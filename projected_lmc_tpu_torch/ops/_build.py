@@ -72,17 +72,21 @@ def library() -> ctypes.CDLL:
         "plmc_lowrank_reduce_sym_kr": [P] * 10 + [I] * 5 + [P],
         "plmc_lowrank_reduce_sym_krs": [P] * 11 + [I] * 6 + [P],
         "plmc_scaled_stack": [P] * 5 + [I] * 6 + [P],
-        "plmc_quantized_stack": [P] * 4 + [I] * 7 + [P],
-        "plmc_lowrank_reduce": [P] * 6 + [I] * 5 + [P],
+        "plmc_quantized_stack": [P] * 4 + [I] * 8 + [P],
+        "plmc_lowrank_reduce": [P] * 8 + [I] * 5 + [P],
+        "plmc_reduce_runs": [I],
+        "plmc_max_features": [],
+        "plmc_reduce_width": [I, I],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = I
-    # K4/K5's scratch sizes, so that the caller allocates what the kernels
-    # index
+    # K4/K5's and K7's scratch sizes, so that the caller allocates what the
+    # kernels index
     for name, argtypes in (("plmc_kr_slot_count", [I]),
-                           ("plmc_kr_pack_floats", [I, I])):
+                           ("plmc_kr_pack_floats", [I, I]),
+                           ("plmc_reduce_pack_floats", [I, I])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_longlong

@@ -24,7 +24,6 @@ from ..utils.device import check_device
 from . import _build
 
 KINDS = {"rbf": 0, "matern05": 1, "matern15": 2, "matern25": 3}
-MAX_FEATURES = 8          # DMAX in csrc/stationary.cu
 
 
 def profile(kind: str, d2):
@@ -91,11 +90,41 @@ def _require(name: str, t, shape):
 
 
 def _features(x):
+    """x's feature count d, which the kernels must take (1..32, as the
+    library reports)."""
     d = x.shape[-1]
-    if not 1 <= d <= MAX_FEATURES:
+    most = _build.library().plmc_max_features()
+    if not 1 <= d <= most:
         raise NotImplementedError(
-            f"the CUDA kernels take 1..{MAX_FEATURES} input features, got {d}")
+            f"the CUDA kernels take 1..{most} input features, got {d}")
     return d
+
+
+def reduce_width(d: int, kr: bool = False) -> int:
+    """The feature count at which the library runs a reduction for d
+    features (K4/K5 with ``kr``, else K2 and K7): d itself up to 8, else a
+    wider width compiled for it, to which the wrapper pads x."""
+    width = _build.library().plmc_reduce_width(d, int(kr))
+    if width == 0:
+        raise NotImplementedError(
+            f"the CUDA kernels take 1..{_build.library().plmc_max_features()}"
+            f" input features, got {d}")
+    return width
+
+
+def pad_features(x, ls, width: int):
+    """x (n, d) and lengthscales (q, d) widened to ``width`` features: zero
+    columns of x with lengthscale 1. Each adds exactly 0 to the squared
+    distances, which the kernels sum from direct differences, and has a wx
+    column of 0, which the caller drops."""
+    n, d = x.shape
+    if width == d:
+        return x, ls
+    xw = torch.zeros((n, width), dtype=x.dtype, device=x.device)
+    xw[:, :d] = x
+    lw = torch.ones((ls.shape[0], width), dtype=ls.dtype, device=ls.device)
+    lw[:, :d] = ls
+    return xw, lw
 
 
 def _lengthscale_2d(lengthscale, q, d):
@@ -187,6 +216,26 @@ scaled_kernel_stack_sym.launches = 0
 
 # -- K2: symmetric low-rank cotangent reduction -------------------------------
 
+def _reduce_inputs(x, lengthscale, A, Bf, kr=False):
+    """The checks shared by the reductions (K2, K4/K5, K7), and their x and
+    (q, d) lengthscales padded to ``reduce_width(d, kr)`` features:
+    (x, ls, d)."""
+    n = x.shape[0]
+    d = _features(x)
+    q, _, r = A.shape
+    _require("x", x, (n, d))
+    _require("A", A, (q, n, r))
+    _require("Bf", Bf, (q, n, r))
+    x, ls = pad_features(x, _lengthscale_2d(lengthscale, q, d),
+                         reduce_width(d, kr))
+    return x, ls, d
+
+
+def _drop_padding(wx, d):
+    """wx (q, n, width) of a padded call → its first d features."""
+    return wx if wx.shape[-1] == d else wx[..., :d].contiguous()
+
+
 def lowrank_stationary_reduce_sym_plain(x, lengthscale, A, Bf, kind: str):
     """(rows, wx) with W_b = (A_b Bf_bᵀ) ⊙ g′(d²_b): rows[b,i] = Σ_j W_bij,
     wx[b,i,:] = Σ_j W_bij x_j — ``fused_mll._lowrank_reduce``'s dense branch."""
@@ -228,23 +277,19 @@ def lowrank_stationary_reduce_sym(x, lengthscale, A, Bf, kind: str,
     dev = check_device(device, x, lengthscale, A, Bf)
     if dev.type == "cpu":
         return lowrank_stationary_reduce_sym_plain(x, lengthscale, A, Bf, kind)
-    n = x.shape[0]
-    d = _features(x)
-    q, _, r = A.shape
-    _require("x", x, (n, d))
-    _require("A", A, (q, n, r))
-    _require("Bf", Bf, (q, n, r))
-    ls = _lengthscale_2d(lengthscale, q, d)
+    x, ls, d = _reduce_inputs(x, lengthscale, A, Bf)
+    q, n, r = A.shape
+    w = x.shape[1]
     tile = _build.library().plmc_tile_size()
-    slots = torch.empty(reduce_sym_slots_shape(q, n, d, tile),
+    slots = torch.empty(reduce_sym_slots_shape(q, n, w, tile),
                         dtype=torch.float32, device=x.device)
     rows = torch.empty((q, n), dtype=torch.float32, device=x.device)
-    wx = torch.empty((q, n, d), dtype=torch.float32, device=x.device)
+    wx = torch.empty((q, n, w), dtype=torch.float32, device=x.device)
     _launch("plmc_lowrank_reduce_sym", x.data_ptr(), ls.data_ptr(),
             A.data_ptr(), Bf.data_ptr(), slots.data_ptr(), rows.data_ptr(),
-            wx.data_ptr(), q, n, r, d, _kind_id(kind), _stream(x))
+            wx.data_ptr(), q, n, r, w, _kind_id(kind), _stream(x))
     lowrank_stationary_reduce_sym.launches += 1
-    return rows, wx
+    return rows, _drop_padding(wx, d)
 
 
 lowrank_stationary_reduce_sym.launches = 0
@@ -308,30 +353,26 @@ def kr_scratch_shapes(q: int, n: int, d: int, r: int):
 
 def _kr_launch(fn_name, x, lengthscale, outputscale, A, Bf, Ks, kind):
     """Checks, scratch and outputs shared by K4 and K5 (``Ks`` None for K4)."""
-    n = x.shape[0]
-    d = _features(x)
-    q, _, r = A.shape
-    _require("x", x, (n, d))
+    x, ls, d = _reduce_inputs(x, lengthscale, A, Bf, kr=True)
+    q, n, r = A.shape
+    w = x.shape[1]
     _require("outputscale", outputscale, (q,))
-    _require("A", A, (q, n, r))
-    _require("Bf", Bf, (q, n, r))
-    ls = _lengthscale_2d(lengthscale, q, d)
-    pack_shape, slots_shape = kr_scratch_shapes(q, n, d, r)
+    pack_shape, slots_shape = kr_scratch_shapes(q, n, w, r)
     pack = torch.empty(pack_shape, dtype=torch.float32, device=x.device)
     slots = torch.empty(slots_shape, dtype=torch.float32, device=x.device)
     rows = torch.empty((q, n), dtype=torch.float32, device=x.device)
-    wx = torch.empty((q, n, d), dtype=torch.float32, device=x.device)
+    wx = torch.empty((q, n, w), dtype=torch.float32, device=x.device)
     ka = torch.empty((q, n, r), dtype=torch.float32, device=x.device)
     head = (x.data_ptr(), ls.data_ptr(), outputscale.data_ptr(), A.data_ptr(),
             Bf.data_ptr())
     tail = (pack.data_ptr(), slots.data_ptr(), rows.data_ptr(),
-            wx.data_ptr(), ka.data_ptr(), q, n, r, d, _kind_id(kind))
+            wx.data_ptr(), ka.data_ptr(), q, n, r, w, _kind_id(kind))
     if Ks is None:
         _launch(fn_name, *head, *tail, _stream(x))
     else:
         _launch(fn_name, *head, Ks.data_ptr(), *tail,
                 int(Ks.dtype == torch.bfloat16), _stream(x))
-    return rows, wx, ka
+    return rows, _drop_padding(wx, d), ka
 
 
 def lowrank_stationary_reduce_sym_kr(x, lengthscale, outputscale, A, Bf,
@@ -497,6 +538,18 @@ scaled_kernel_stack.launches = 0
 lowrank_stationary_reduce_plain = lowrank_stationary_reduce_sym_plain
 
 
+def reduce_scratch_shapes(q: int, n: int, d: int, r: int):
+    """Shapes of K7's two fp32 scratch buffers, as the kernel library sizes
+    them: the pack of the factors, (q, nt, floats of one tile's pack), and
+    the slots, (q, nt, runs a row tile, 1+d, tile): one set of row sums for
+    each run of column tiles that a block walks."""
+    lib = _build.library()
+    tile = lib.plmc_tile_size()
+    nt = -(-n // tile)
+    return ((q, nt, lib.plmc_reduce_pack_floats(r, d)),
+            (q, nt, lib.plmc_reduce_runs(nt), 1 + d, tile))
+
+
 def lowrank_stationary_reduce(x, lengthscale, A, Bf, kind: str, device="cuda"):
     """K7. rows (q, n) and wx (q, n, d) of W_b = (A_b Bf_bᵀ) ⊙ g′(d²_b) over
     the full grid, for any factors (A Bfᵀ need not be symmetric).
@@ -504,28 +557,33 @@ def lowrank_stationary_reduce(x, lengthscale, A, Bf, kind: str, device="cuda"):
     Replaces ``lowrank_stationary_reduce`` (projected_lmc_tpu/ops/
     pallas_kernels.py:364; body ``_lowrank_vjp_tile`` :322), the fused
     backward's reduction under ``PLMC_SYM_BUILD=0``. Bound on the card:
-    arithmetic — per ordered pair the rank-r product, d², a sqrt and an
-    exp, and 1+d accumulations, over n² pairs (about twice K2's). Design:
-    one block per (latent, row tile) walks every column tile in order,
-    keeping its rows' sums in registers, and writes rows and wx once: no
-    slots, no second pass, no atomics, the same bits on every run."""
+    arithmetic — per ordered pair the rank-r product, d², g′, and 1+d
+    accumulations, over n² pairs (about twice K2's). Design, K2's where it
+    fits the full grid: a first kernel packs each tile's factors and x/l
+    (``reduce_scratch_shapes``); a block owns (latent, row tile, a run of 8
+    column tiles), copies their packs by ``cp.async`` and keeps its rows'
+    sums in registers; a thread's 4 × 4 block of each 64 × 64 tile is
+    adjacent rows and columns, read 16 bytes at a time; the kind is a
+    template parameter, g′ takes the card's rsqrt and ex2; the sums run on
+    x/l, wx = l · Σ W (x/l). Each run's row sums go to their own slot, and
+    a last kernel sums a row tile's slots in run order: no float atomics,
+    the same bits on every run."""
     dev = check_device(device, x, lengthscale, A, Bf)
     if dev.type == "cpu":
         return lowrank_stationary_reduce_plain(x, lengthscale, A, Bf, kind)
-    n = x.shape[0]
-    d = _features(x)
-    q, _, r = A.shape
-    _require("x", x, (n, d))
-    _require("A", A, (q, n, r))
-    _require("Bf", Bf, (q, n, r))
-    ls = _lengthscale_2d(lengthscale, q, d)
+    x, ls, d = _reduce_inputs(x, lengthscale, A, Bf)
+    q, n, r = A.shape
+    w = x.shape[1]
+    pack_shape, slots_shape = reduce_scratch_shapes(q, n, w, r)
+    pack = torch.empty(pack_shape, dtype=torch.float32, device=x.device)
+    slots = torch.empty(slots_shape, dtype=torch.float32, device=x.device)
     rows = torch.empty((q, n), dtype=torch.float32, device=x.device)
-    wx = torch.empty((q, n, d), dtype=torch.float32, device=x.device)
+    wx = torch.empty((q, n, w), dtype=torch.float32, device=x.device)
     _launch("plmc_lowrank_reduce", x.data_ptr(), ls.data_ptr(), A.data_ptr(),
-            Bf.data_ptr(), rows.data_ptr(), wx.data_ptr(), q, n, r, d,
-            _kind_id(kind), _stream(x))
+            Bf.data_ptr(), pack.data_ptr(), slots.data_ptr(), rows.data_ptr(),
+            wx.data_ptr(), q, n, r, w, _kind_id(kind), _stream(x))
     lowrank_stationary_reduce.launches += 1
-    return rows, wx
+    return rows, _drop_padding(wx, d)
 
 
 lowrank_stationary_reduce.launches = 0
@@ -563,12 +621,16 @@ def quantized_kernel_stack(x1, x2, lengthscale, kind: str, padded_to=None,
 
     Replaces ``quantized_kernel_stack`` (projected_lmc_tpu/ops/
     pallas_kernels.py:190; body ``_quant_tile_kernel`` :169). Bound on the
-    card: the larger of the q·rows·cols-byte write (400 MB at n = 10⁴) and
-    the arithmetic of the q·n·m pairs. Design: the full grid over (x1, x2),
-    as the TPU kernel, on K3's tile kernel, rounding each value to its
-    count (``__float2int_rn``, half to even, as ``torch.round``) in the
-    tile; libm expf, so counts differ from the plain version's only where
-    127·g lies within ~1e-5 of a half."""
+    card: the q·rows·cols-byte write (400 MB at n = 10⁴, 0.119 ms), above
+    the pair arithmetic. Design: one block per (latent, 128 × 128 tile), a
+    thread's 8 × 16 block of counts in registers, each row's 16 counts one
+    16-byte store. When x1 and x2 are the same points (``symmetric_call``,
+    the fused MLL's only call) into a square stack, only the lower tiles
+    are evaluated and each thread also stores its counts, packed by column,
+    into the mirrored tile: half the pairs, a bitwise symmetric stack equal
+    to the full grid's. The kind is a template parameter; a square root within an ulp and libm expf, so counts differ from the
+    plain version's only where 127·g lies within ~1e-5 of a half (rounded
+    half to even, as ``torch.round``)."""
     dev = check_device(device, x1, x2, lengthscale)
     n, m = x1.shape[0], x2.shape[0]
     rows, cols = _padded_shape(n, m, padded_to)
@@ -583,9 +645,19 @@ def quantized_kernel_stack(x1, x2, lengthscale, kind: str, padded_to=None,
     out = torch.empty((q, rows, cols), dtype=torch.int8, device=x1.device)
     _launch("plmc_quantized_stack", x1.data_ptr(), x2.data_ptr(),
             ls.data_ptr(), out.data_ptr(), q, n, m, rows, cols, d,
-            _kind_id(kind), _stream(x1))
+            _kind_id(kind), int(symmetric_call(x1, x2, rows, cols)),
+            _stream(x1))
     quantized_kernel_stack.launches += 1
     return out
 
 
 quantized_kernel_stack.launches = 0
+
+
+def symmetric_call(x1, x2, rows, cols) -> bool:
+    """Whether K8 may evaluate the lower tiles only and mirror them: x1 and
+    x2 are the same points (one tensor, or two views of the same memory)
+    and the stack is square."""
+    return (rows == cols and x1.shape == x2.shape
+            and x1.data_ptr() == x2.data_ptr()
+            and x1.stride() == x2.stride())
