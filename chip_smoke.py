@@ -15,11 +15,15 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
      time and its bound (the least time the card could take for the same
      work). K1 also at n = 20,000, at an n whose rows do not start on 16
      bytes, at one that leaves a ragged tile and at one below a tile, each
-     stack bitwise symmetric, and within a bf16 step of K6 on (x, x); K2 also at
+     stack bitwise symmetric, and bitwise equal to K6 on (x, x) at n = 10,000
+     in both types; K3 bitwise equal to K6 at os = 1, at the Nystrom block
+     and at the dense (4, 10,000, 10,000), with its profiler device time; K2 also at
      n = 20,000 and a second rank, with its two launches timed apart; K4
      and K5 also timed at n = 20,000, with the bytes of their scratch; K8's
      symmetric stack bitwise symmetric and equal to the full grid's; K3
-     with a bf16 output equal to its fp32 result cast once. Every kernel at
+     and K6 on ragged rectangles (m not a multiple of 8; m a multiple of 8
+     with a ragged n); K3 with a bf16 output equal to its fp32 result cast
+     once. Every kernel at
      small n for each profile and d = 1, 3, 8, 9, 21, 32; K1, K2, K7 and K8
      timed at n = 10,000 with d = 21 beside d = 4. The int8 stack product
      beside the bf16 one, and the bf16 one by the layout of its right-hand
@@ -68,6 +72,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -149,6 +154,17 @@ def stack_error(torch, ck, got, x, ls, os_, dt, block=2500):
     return err, top
 
 
+def k3_is_k6(torch, ck, dev, got, x1, x2, ls, one):
+    """K3's matrix ``got`` against K6's fp32 stack at os = 1 on the same
+    inputs: one kernel, so the same bits."""
+    same = torch.equal(got, ck.scaled_kernel_stack(x1, x2, ls, one, KIND,
+                                                   device=dev))
+    print(f"  K3 ({Q},{x1.shape[0]},{x2.shape[0]}) bitwise equal to K6 at "
+          f"os = 1: {same}")
+    if not same:
+        raise SystemExit("chip_smoke: K3 is not K6's fp32 stack at os = 1")
+
+
 def reduce_plain_by_blocks(torch, ck, x, ls, A, Bf, kind, block=2500):
     """``lowrank_stationary_reduce_sym_plain``'s formula a block of rows at a
     time, for an n whose (q, n, n, d) differences do not fit the card."""
@@ -216,20 +232,18 @@ def kernel_phase(torch, ck, dev):
             if not torch.equal(got, got.transpose(-1, -2)):
                 raise SystemExit(f"chip_smoke: K1's stack at n={n} "
                                  f"{str(dt)[6:]} is not bitwise symmetric")
-            if n == N and dt == torch.bfloat16:
-                rows["K1"] = dict(max_abs_err=err)
-                # K6 on (x, x) sums the same d² but takes sqrtf and exp2f
-                # where K1 takes the card's MUFU.RSQ and MUFU.EX2 (~1e-6
-                # apart): entries may round to neighbouring bf16 values
-                full = ck.scaled_kernel_stack(x, x, ls, os_, "matern25", dt,
-                                              device=dev)
-                gap = float((got.float() - full.float()).abs().max())
-                share = float((got != full).sum()) / got.numel()
-                print(f"  K1 bf16 against K6 on (x, x): share of differing "
-                      f"entries {share:.3e}")
-                check("K1 bf16 against K6 on (x, x), one bf16 step",
-                      gap, 2.0 ** -7 * top)
-                del full
+            if n == N:
+                if dt == torch.bfloat16:
+                    rows["K1"] = dict(max_abs_err=err)
+                # K6 sums the same d² and takes the same profile of the
+                # output type: on (x, x) it must give K1's stack bit for bit
+                same = torch.equal(got, ck.scaled_kernel_stack(
+                    x, x, ls, os_, "matern25", dt, device=dev))
+                print(f"  K1 {str(dt)[6:]} bitwise equal to K6 on (x, x): "
+                      f"{same}")
+                if not same:
+                    raise SystemExit(f"chip_smoke: K6 on (x, x) is not K1's "
+                                     f"{str(dt)[6:]} stack")
             del got
             torch.cuda.empty_cache()
     print("  K1 stacks bitwise symmetric at every n, both types: True")
@@ -293,26 +307,40 @@ def kernel_phase(torch, ck, dev):
         # T (2r), d² (3d), g′ (~7 incl. sqrt, exp), row and column sums
         pairs * (2 * r + 3 * D + 7 + 2 * (1 + 2 * D)))
 
-    # K3: the Nyström blocks of the main path, fp32 (tolerance as K1 fp32)
+    # K3: the Nyström blocks of the main path, fp32 (tolerance as K1 fp32);
+    # K6's kernel at os = 1, so K6's fp32 values bit for bit
     idx = torch.as_tensor(np.linspace(0, N - 1, 256).astype(np.int32),
                           device=dev, dtype=torch.long)
     z = x[idx]
+    one = torch.ones(Q, dtype=torch.float32, device=dev)
     for a, b in ((x, z), (z, z)):
         got = ck.kernel_matrix(a, b, ls, "matern25", device=dev)
         want = ck.kernel_matrix_plain(a, b, ls, "matern25")
         err = float((got - want).abs().max())
         check(f"K3 kernel_matrix ({Q},{a.shape[0]},{b.shape[0]})", err, 1e-4)
+        k3_is_k6(torch, ck, dev, got, a, b, ls, one)
         if a.shape[0] == N:
             rows["K3"] = dict(max_abs_err=err)
-    rows["K3"]["ms"] = cuda_ms(
-        lambda: ck.kernel_matrix(x, z, ls, "matern25", device=dev), reps=50)
+    run_k3 = lambda: ck.kernel_matrix(x, z, ls, "matern25", device=dev)  # noqa
+    rows["K3"]["ms"] = cuda_ms(run_k3, reps=50)
     rows["K3"]["plain_ms"] = cuda_ms(
         lambda: ck.kernel_matrix_plain(x, z, ls, "matern25"), reps=50)
     rows["K3"]["bound"] = bound_ms(Q * N * 256 * 4 + (N + 256) * D * 4,
                                    Q * N * 256 * (3 * D + 10))
+    print(f"  K3 ({Q},{N},256): {rows['K3']['ms']:.4f} ms by events, device "
+          f"{launch_split(torch, run_k3, reps=50)}")
     small = cuda_ms(
         lambda: ck.kernel_matrix(z, z, ls, "matern25", device=dev), reps=50)
     print(f"  K3 at ({Q},256,256): {small:.4f} ms")
+    # the dense (q, n, n) fp32 matrix that projected LMC's exact MLL builds
+    dense = ck.kernel_matrix(x, x, ls, "matern25", device=dev)
+    k3_is_k6(torch, ck, dev, dense, x, x, ls, one)
+    del dense
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: ck.kernel_matrix(x, x, ls, "matern25", device=dev),
+                 reps=10)
+    b, by = bound_ms(Q * N * N * 4 + N * D * 4, Q * N * N * (3 * D + 10))
+    print(f"  K3 at ({Q},{N},{N}): {ms:.4f} ms (bound {b:.4f} ms by {by})")
     del A, Bf
     torch.cuda.empty_cache()
     rows.update(kr_phase(torch, ck, dev, rng, t, ls, os_))
@@ -338,6 +366,12 @@ def kernel_phase(torch, ck, dev):
                                                device=dev)
                         - ck.scaled_kernel_stack_plain(xs, xs[:50], lss, os_,
                                                        kind)).abs().max())
+            # K6 in bf16 below one tile: one bf16 rounding of either side
+            want6 = ck.scaled_kernel_stack_plain(xs, xs[:50], lss, os_, kind,
+                                                 torch.bfloat16).float()
+            e6b = float((ck.scaled_kernel_stack(
+                xs, xs[:50], lss, os_, kind, torch.bfloat16, device=dev).float()
+                - want6).abs().max())
             got = ck.lowrank_stationary_reduce_sym(xs, lss, As, Bs, kind,
                                                    device=dev)
             want = ck.lowrank_stationary_reduce_sym_plain(xs, lss, As, Bs, kind)
@@ -351,6 +385,8 @@ def kernel_phase(torch, ck, dev):
             e7 = max(float((g - w).abs().max()) for g, w in zip(got, want))
             scale7 = max(float(w.abs().max()) for w in want)
             check(f"K1+K3+K6 {kind} d={d} n={n}", max(e1, e3, e6), 1e-4)
+            check(f"K6 bf16 {kind} d={d} ({Q},{n},50)", e6b,
+                  2.0 ** -7 * float(want6.abs().max()))
             check(f"K2 {kind} d={d} n={n}", e2, 1e-4 * scale)
             check(f"K7 {kind} d={d} n={n}", e7, 1e-4 * scale7)
             check_counts(f"K8 {kind} d={d} n={n}",
@@ -408,9 +444,10 @@ def reduce_bounds(n, d, r):
 def wide_phase(torch, ck, dev, rng, t, os_, rows):
     """K1, K2, K7 and K8 at n = N with d = DE (SARCOS's features; the
     reductions run at their padded width) beside d = D: times and bounds.
-    At d = DE each is first held against its plain version on the inputs it
-    is timed on, at the tolerances of phase 2 at d = D (the plain versions
-    a block of rows at a time)."""
+    At d = DE each, and K3 on path E's Nyström blocks, is first held
+    against its plain version on the inputs it is timed on, at the
+    tolerances of phase 2 at d = D (the plain versions a block of rows at a
+    time)."""
     from projected_lmc_tpu_torch.ops import iterative as it
     r, nw = 17, it.int8_width(N)
     for d in (D, DE):
@@ -445,13 +482,29 @@ def wide_values(torch, ck, dev, x, ls, os_, A, Bf, nw, block=1000):
     times, against their plain versions a block of rows at a time (the plain
     formulas form (q, rows, N, d) differences): K1 within one bf16 step, K2
     and K7 within 1e-4 of the largest entry, K8's counts as
-    ``check_counts`` holds them, its stack bitwise symmetric."""
+    ``check_counts`` holds them, its stack bitwise symmetric. K3 on the
+    Nyström blocks that path E builds, (N, 256) with 16-byte stores over
+    two column tiles and (256, 256), within phase 2's 1e-4, and bitwise
+    K6's fp32 stack at os = 1."""
     got = ck.scaled_kernel_stack_sym(x, ls, os_, KIND, torch.bfloat16,
                                      device=dev)
     err, top = stack_error(torch, ck, got, x, ls, os_, torch.bfloat16, block)
     check(f"K1 bf16 d={DE} n={N}", err, 2.0 ** -7 * top)
     del got
     torch.cuda.empty_cache()
+    idx = torch.as_tensor(np.linspace(0, N - 1, 256).astype(np.int32),
+                          device=dev, dtype=torch.long)
+    z = x[idx]
+    one = torch.ones(Q, dtype=torch.float32, device=dev)
+    for a in (x, z):
+        got = ck.kernel_matrix(a, z, ls, KIND, device=dev)
+        err = max(float((got[:, i0:i0 + block] - ck.kernel_matrix_plain(
+            a[i0:i0 + block], z, ls, KIND)).abs().max())
+            for i0 in range(0, a.shape[0], block))
+        check(f"K3 kernel_matrix d={DE} ({Q},{a.shape[0]},256) (wide stores "
+              f"of {ck.wide_store_elements(256, torch.float32)})", err, 1e-4)
+        k3_is_k6(torch, ck, dev, got, a, z, ls, one)
+        del got
     want = reduce_plain_by_blocks(torch, ck, x, ls, A, Bf, KIND, block)
     tol = 1e-4 * max(float(w.abs().max()) for w in want)
     for name, fn in (("K2", ck.lowrank_stationary_reduce_sym),
@@ -602,16 +655,25 @@ def kr_bounds(n, r):
 def fullgrid_phase(torch, ck, dev, rng, t, ls, os_):
     """K6, K7 and K8 at the main path's widths (q=4, d=4, r=17): K6 in fp32
     and bf16 and K8 at n = m = N and at a ragged rectangle (n ≠ m, neither
-    a multiple of the tile), K8 at the int8 product's padded width; K7 with
-    a bitwise repeat. Times, bounds, and the int8 stack product beside the
-    bf16 one."""
+    a multiple of the tile), K8 at the int8 product's padded width; K6 and
+    K3 also at a rectangle whose rows start on 16 bytes with a ragged n
+    (m % 8 = 0); K7 with a bitwise repeat. Times, bounds, and the int8
+    stack product beside the bf16 one."""
     from projected_lmc_tpu_torch.ops import iterative as it
     rows = {}
     Nw = it.int8_width(N)
     x = t(rng.standard_normal((N, D)))
     x = x - x.mean(0)
     xr1, xr2 = t(rng.standard_normal((1237, D))), t(rng.standard_normal((907, D)))
-    for x1, x2 in ((x, x), (xr1, xr2)):
+    xr3 = t(rng.standard_normal((904, D)))
+    for x1, x2 in ((xr1, xr3), (xr1, xr2)):
+        # m % 8 = 0 (16-byte rows in both types) and m % 8 ≠ 0, ragged n
+        err = float((ck.kernel_matrix(x1, x2, ls, KIND, device=dev)
+                     - ck.kernel_matrix_plain(x1, x2, ls, KIND)).abs().max())
+        check(f"K3 kernel_matrix ({Q},{x1.shape[0]},{x2.shape[0]}) (wide "
+              f"stores of {ck.wide_store_elements(x2.shape[0], torch.float32)})",
+              err, 1e-4)
+    for x1, x2 in ((x, x), (xr1, xr2), (xr1, xr3)):
         shape = f"({Q},{x1.shape[0]},{x2.shape[0]})"
         for dt in (torch.bfloat16, torch.float32):
             got = ck.scaled_kernel_stack(x1, x2, ls, os_, KIND, dt, device=dev)
@@ -620,10 +682,14 @@ def fullgrid_phase(torch, ck, dev, rng, t, ls, os_):
             # as K1: one bf16 rounding of either side; fp32 two exps
             tol = 2.0 ** -7 * float(want.float().abs().max()) \
                 if dt == torch.bfloat16 else 1e-4
-            check(f"K6 scaled_kernel_stack {shape} {str(dt)[6:]}", err, tol)
+            check(f"K6 scaled_kernel_stack {shape} {str(dt)[6:]} (wide "
+                  f"stores of {ck.wide_store_elements(x2.shape[0], dt)})",
+                  err, tol)
             if x1 is x and dt == torch.bfloat16:
                 rows["K6"] = dict(max_abs_err=err)
             del got, want
+        if x2 is xr3:
+            continue
         pad = (Nw, Nw) if x1 is x else None
         Kq = ck.quantized_kernel_stack(x1, x2, ls, KIND, pad, device=dev)
         worst = check_counts(
@@ -1297,9 +1363,14 @@ def main() -> int:
     print(f"  kernel build {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
     log = lib_path.with_suffix(".log")
     if log.exists():
+        entry = ""
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+            if "Compiling entry" in line:   # the kernel the lines below are for
+                entry = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_stationary_cu_[0-9a-f]{8}",
+                               "", line.split("'")[1])[:60]
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {entry}:", line.replace("ptxas info    :", "")
+                      .strip())
     print(f"  bf16 stack product with fp32 result via "
           f"{'torch.bmm(out_dtype=float32)' if it._BMM_OUT_DTYPE else 'per-latent fp32 up-cast'}")
 

@@ -164,12 +164,14 @@ def scaled_kernel_stack_sym_plain(x, lengthscale, outputscale, kind: str,
                                      out_dtype)
 
 
-def wide_store_elements(n: int, dtype) -> int:
-    """Elements of one 16-byte store into a row of a contiguous (q, n, n)
-    stack of ``dtype`` (8 in bf16, 4 in fp32) when every row starts on a
-    16-byte boundary, else 1: K1 then stores element by element."""
+def wide_store_elements(row: int, dtype) -> int:
+    """Elements of one 16-byte store into a contiguous (q, n, ``row``)
+    output of ``dtype`` (8 in bf16, 4 in fp32) when every row starts on a
+    16-byte boundary, else 1: the kernel then stores element by element.
+    K1's wrapper passes it for its (q, n, n) stack; the K3/K6 launcher
+    applies the same rule to the row width m of its (q, n, m) grid."""
     per_store = 16 // torch.empty((), dtype=dtype).element_size()
-    return per_store if n % per_store == 0 else 1
+    return per_store if row % per_store == 0 else 1
 
 
 def scaled_kernel_stack_sym(x, lengthscale, outputscale, kind: str,
@@ -181,16 +183,19 @@ def scaled_kernel_stack_sym(x, lengthscale, outputscale, kind: str,
     pallas_kernels.py:278; body ``_scaled_tile_kernel_tri`` :225) and its
     aliased mirror pass ``_symmetrize_lower`` (:247, body ``_mirror_tile``).
     Bound on the card: the write of the stack, q·n²·2 bytes in bf16 (800 MB
-    at n = 10⁴, q = 4). Design: each block evaluates one lower 128 × 128
-    tile once (sqrt and exp for half the pairs), each thread an 8 × 8 block
-    in registers, rounded once to the output type; a row's 8 values leave
+    at n = 10⁴, q = 4). Design (bf16): each block evaluates one lower
+    128 × 128 tile once (sqrt and exp for half the pairs), each thread an
+    8 × 8 block in registers, rounded once to bf16; a row's 8 values leave
     as one 16-byte store to the tile and a column's 8 as one 16-byte store
     to the mirrored tile, so the two halves are the same bits and nothing
     is staged in shared memory. It writes exactly (q, n, n): where the rows
     do not start on 16 bytes (``wide_store_elements`` is 1) it stores
-    element by element, bounds-checked. A bf16 result uses the card's exp2
-    and reciprocal square root (MUFU.EX2, MUFU.RSQ; rel. err ~1e-6 ≪
-    bf16's 2⁻⁸); fp32 uses sqrtf and libm expf."""
+    element by element, bounds-checked. It uses the card's exp2 and
+    reciprocal square root (MUFU.EX2, MUFU.RSQ; rel. err ~1e-6 ≪ bf16's
+    2⁻⁸). An fp32 stack is K6's kernel on (x, x) (see
+    ``scaled_kernel_stack``; a square root within an ulp and libm expf),
+    which measured faster on the card than mirrored fp32 tiles, and is
+    bitwise symmetric."""
     dev = check_device(device, x, lengthscale, outputscale)
     if dev.type == "cpu":
         return scaled_kernel_stack_sym_plain(x, lengthscale, outputscale, kind,
@@ -462,9 +467,11 @@ def kernel_matrix(x1, x2, lengthscale, kind: str, device="cuda"):
     Replaces ``_pallas_forward`` of ``fused_kernel_matrix`` (projected_lmc_tpu/
     ops/pallas_kernels.py:912 and :881; body ``_tile_kernel`` :76). Bound on
     the card: the (q, n, m) fp32 write (41 MB for the Nyström cross block at
-    n = 10⁴, m = 256). Design: one block per 64 × 64 tile of the full
-    grid, d² from direct differences, libm exp. Its gradient is the plain-torch backward of
-    ``kernels.stationary_kernel_matrix``, as the TPU kernel's VJP is XLA."""
+    n = 10⁴, m = 256). Design: K6's kernel at os = 1 (see
+    ``scaled_kernel_stack``), so its values are K6's fp32 ones bit for bit;
+    16-byte stores where m is a multiple of 4. Its gradient is the
+    plain-torch backward of ``kernels.stationary_kernel_matrix``, as the TPU
+    kernel's VJP is XLA."""
     dev = check_device(device, x1, x2, lengthscale)
     if dev.type == "cpu":
         return kernel_matrix_plain(x1, x2, lengthscale, kind)
@@ -504,11 +511,16 @@ def scaled_kernel_stack(x1, x2, lengthscale, outputscale, kind: str,
     pallas_kernels.py:130; body ``_scaled_tile_kernel`` :110), the
     forward of the fused MLL under ``PLMC_SYM_BUILD=0``. Bound on the card:
     the write, q·n·m·2 bytes in bf16 (800 MB at n = m = 10⁴, q = 4), just
-    above the arithmetic of the n·m pairs. Design: K3's tile kernel (one
-    block per 64 × 64 tile, d² from direct differences) with the
-    outputscale applied in the tile; it writes exactly (q, n, m), the
-    ragged edges masked, never a padded stack. A bf16 result uses the
-    card's exp2 (``exp2f``); fp32 uses libm expf."""
+    above the arithmetic of the n·m pairs. Design: K1's on the rectangle —
+    one block per (latent, 128 × 128 tile), each thread an 8 × 8 block in
+    registers with d² summed as K1 sums it and K1's profile of the output
+    type (the card's exp2 and reciprocal square root in bf16, libm expf in
+    fp32), so that on (x, x) it gives K1's stack bit for bit; every pair is
+    evaluated, no mirror. A row's 8 values leave as 16-byte stores where
+    the rows start on 16 bytes (the kernel's launcher decides it from the
+    row width m: a multiple of 8 in bf16, of 4 in fp32), else element by
+    element, bounds-checked; it writes exactly (q, n, m), never a padded
+    stack."""
     dev = check_device(device, x1, x2, lengthscale, outputscale)
     if dev.type == "cpu":
         return scaled_kernel_stack_plain(x1, x2, lengthscale, outputscale,

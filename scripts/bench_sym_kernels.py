@@ -1,40 +1,46 @@
 #!/usr/bin/env python3
-"""K1, K2, K4, K5, K7 and K8 of the PyTorch port on the card: a check, then
-times (K3 and K6 timed beside K1).
+"""K1–K8 of the PyTorch port on the card: a check, then times.
 
-K1 is ``scaled_kernel_stack_sym``, K2 ``lowrank_stationary_reduce_sym``, K4
-``lowrank_stationary_reduce_sym_kr``, K5 ``..._krs`` on a bf16 stack, K7
+K1 is ``scaled_kernel_stack_sym``, K2 ``lowrank_stationary_reduce_sym``, K3
+``kernel_matrix``, K4 ``lowrank_stationary_reduce_sym_kr``, K5 ``..._krs``
+on a bf16 stack, K6 ``scaled_kernel_stack`` (the full grid), K7
 ``lowrank_stationary_reduce`` (the full grid, here on factors whose A Bfᵀ
 is not symmetric) and K8 ``quantized_kernel_stack`` on (x, x) at the int8
 product's width (``projected_lmc_tpu_torch/ops/cuda_kernels.py``). The
 script first holds each against its plain version at small n (50, and 1237
 and 1240, whose rows do and do not start on 16 bytes in bf16) with a
 bitwise repeat of the reductions and, for K8, a bitwise symmetric stack
-equal to the one a copy of x gives (the full grid), then times them with
-CUDA events at the main path's widths (q = 4, r = 17, Matérn-2.5) for each
-n and d given, splits the reductions' time into their launches with
-``torch.profiler`` (K4, K5, K7: the factor pack, the main kernel and the
-second pass), and prints the compiler's register counts for the d = 4,
-Matérn-2.5 kernels. It times whatever package lies beside it, so a copy of
-it inside an unpacked earlier commit times that commit's kernels on the
-same card (a d that commit does not take is reported as such). Needs one
-NVIDIA card:
+equal to the one a copy of x gives (the full grid). K3 and K6 are held on
+rectangles whose row width m does and does not allow 16-byte stores
+(1237 × 907, 1237 × 904, 1240 × 906) and below one tile (333 × 50), K6 in
+both types, and K6 on (x, x) against K1's stack and K3 against K6 at
+os = 1 for bitwise equality. Then it times them with CUDA events at the
+main path's widths (q = 4, r = 17, Matérn-2.5) for each n and d given (K3
+also by its device time from ``torch.profiler``, at (4, n, 256), (4, 256,
+256) and the dense (4, n, n)), splits the reductions' time into their
+launches with ``torch.profiler`` (K4, K5, K7: the factor pack, the main
+kernel and the second pass), and prints the compiler's register counts for
+the d = 4, Matérn-2.5 kernels. It times whatever package lies beside it,
+so a copy of it inside an unpacked earlier commit times that commit's
+kernels on the same card (a d that commit does not take is reported as
+such). Needs one NVIDIA card:
 
     python3 scripts/bench_sym_kernels.py [--n 10000 20000] [--d 4 21]
-        [--kernels K7 K8] [--nvcc-flag=-DX=1]
+        [--kernels K3 K6] [--nvcc-flag=-DX=1]
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 
 import numpy as np
 
 Q, R, KIND = 4, 17, "matern25"
-KERNELS = ("K1", "K2", "K4", "K5", "K7", "K8")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
 
 
 def cuda_ms(torch, fn, reps=20, warmup=3):
@@ -133,10 +139,57 @@ def check_full_grid(torch, ck, kernels, x, ls, A, n):
     return worst
 
 
+def check_grid(torch, ck, kernels, d):
+    """K3 and K6 against their plain versions (fp32 within 1e-4, bf16 within
+    2⁻⁷ of the largest entry, ``chip_smoke.py``'s tolerances) on rectangles
+    with and without 16-byte rows and below one tile; K6 on (x, x) bitwise
+    equal to K1's stack in both types, K3 bitwise equal to K6 at os = 1;
+    returns the worst error/tolerance."""
+    worst = 0.0
+    rng = np.random.default_rng(d)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")  # noqa
+    ls = t(rng.uniform(0.5, 1.5, (Q, 1, d)) * np.sqrt(d / 4))
+    os_ = t(rng.uniform(0.5, 2.0, (Q,)))
+    for n, m in ((1237, 907), (1237, 904), (1240, 906), (333, 50)):
+        x1, x2 = t(rng.standard_normal((n, d))), t(rng.standard_normal((m, d)))
+        errs = []
+        if "K6" in kernels:
+            for dt in (torch.bfloat16, torch.float32):
+                got = ck.scaled_kernel_stack(x1, x2, ls, os_, KIND, dt)
+                want = ck.scaled_kernel_stack_plain(x1, x2, ls, os_, KIND, dt)
+                tol = 2.0 ** -7 * float(want.float().abs().max()) \
+                    if dt == torch.bfloat16 else 1e-4
+                errs.append((f"K6 {str(dt)[6:]}", float(
+                    (got.float() - want.float()).abs().max()) / tol))
+        if "K3" in kernels:
+            got = ck.kernel_matrix(x1, x2, ls, KIND)
+            errs.append(("K3", float((got - ck.kernel_matrix_plain(
+                x1, x2, ls, KIND)).abs().max()) / 1e-4))
+        print(f"  n={n} m={m} d={d}: " + ", ".join(
+            f"{k} error/tolerance {e:.3f}" for k, e in errs))
+        worst = max([worst] + [e for _, e in errs])
+    if "K6" in kernels:
+        x = t(rng.standard_normal((1240, d)))
+        same = {str(dt)[6:]: torch.equal(
+            ck.scaled_kernel_stack(x, x, ls, os_, KIND, dt),
+            ck.scaled_kernel_stack_sym(x, ls, os_, KIND, dt))
+            for dt in (torch.bfloat16, torch.float32)}
+        one = torch.ones_like(os_)
+        same["K3 = K6 at os = 1"] = torch.equal(
+            ck.kernel_matrix(x, x[:907], ls, KIND),
+            ck.scaled_kernel_stack(x, x[:907], ls, one, KIND))
+        print(f"  d={d}: K6 on (x, x) bitwise equal to K1's stack, and K3 to "
+              f"K6: {same}")
+        worst = max(worst, 0.0 if all(same.values()) else 2.0)
+    return worst
+
+
 def check(torch, ck, kernels, d=4):
     """The kernels against their plain versions at small n; 1.0 means the
     error equals the tolerance."""
     worst = 0.0
+    if "K3" in kernels or "K6" in kernels:
+        worst = check_grid(torch, ck, kernels, d)
     for n in (50, 1237, 1240):
         x, ls, os_, A, Bf = inputs(torch, n, R, seed=n, d=d)
         worst = max(worst, check_full_grid(torch, ck, kernels, x, ls, A, n))
@@ -193,21 +246,25 @@ def by_launch(torch, fn, names, reps=5):
 
 def registers(lib):
     """ptxas's report for the kernels timed here, at d = 4 and Matérn-2.5
-    (template arguments Li4E and Li3E, in either order; K4/K5 of earlier
-    commits have no kind argument), the factor packs and the second
-    passes."""
+    (template arguments Li4E and Li3E, in either order; K4/K5 and the
+    K3/K6 kernel of earlier commits have no kind argument), the factor
+    packs and the second passes."""
     log = lib.with_suffix(".log").read_text().splitlines()
     for i, line in enumerate(log):
         if "Compiling entry" not in line:
             continue
         name = line.split("'")[1]
         if "slot_reduce" in name or "quant_stack_kernelILi3E" in name or (
+                "full_grid_kernel" in name and ("Li3E" in name or "Lb" in name)) or (
                 ("Li4E" in name or "scaled_stack_sym" in name)
                 and ("Li3E" in name or "kr_kernelILi4ELb" in name
                      or "pack_kernelILi4E" in name)):
             used = next((u for u in log[i + 1:i + 4] if "Used" in u), "")
-            print("  ptxas:", name[:80], "|",
-                  used.replace("ptxas info    : ", ""))
+            spill = next((u for u in log[i + 1:i + 5] if "spill" in u), "")
+            short = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_stationary_cu_[0-9a-f]{8}",
+                           "", name)
+            print("  ptxas:", short[:70], "|",
+                  used.replace("ptxas info    : ", ""), "|", spill.strip())
 
 
 def time_kernels(torch, ck, kernels, n, d):
@@ -248,17 +305,23 @@ def time_kernels(torch, ck, kernels, n, d):
                    + by_launch(torch, run_k7, ("k7_pack_kernel",
                                                "lowrank_reduce_kernel",
                                                "slot_reduce_kernel")))
-    if "K1" in kernels:   # K3 and K6, untouched by the redesigns, beside K1
+    if "K6" in kernels:
+        k6 = {str(dt)[6:]: cuda_ms(torch, lambda: ck.scaled_kernel_stack(
+            x, x, ls, os_, KIND, dt)) for dt in (torch.bfloat16, torch.float32)}
+        out.append(f"K6 ({Q}, {n}, {n}) bf16 {k6['bfloat16']:.4f} ms, fp32 "
+                   f"{k6['float32']:.4f} ms")
+        torch.cuda.empty_cache()
+    if "K3" in kernels:
+        # K3 at the Nyström blocks' shapes is short enough (~0.05 ms) for
+        # the host's launch gaps to show in back-to-back events: its device
+        # time from the profiler beside them
         z = x[::max(1, n // 256)][:256].contiguous()
-        run_k3 = lambda: ck.kernel_matrix(x, z, ls, KIND)  # noqa
-        k6 = cuda_ms(torch, lambda: ck.scaled_kernel_stack(
-            x, x, ls, os_, KIND, torch.bfloat16))
-        # K3 is short enough (~0.05 ms) for the host's launch gaps to show in
-        # back-to-back events: its device time from the profiler beside them
-        out.append(f"K3 ({Q}, {n}, 256) {cuda_ms(torch, run_k3, reps=200):.4f}"
-                   f" ms, device " + by_launch(torch, run_k3,
-                                               ("full_grid_kernel",), reps=200)
-                   + f"; K6 bf16 {k6:.4f} ms")
+        for a, b, reps in ((x, z, 200), (z, z, 200), (x, x, 10)):
+            run_k3 = lambda: ck.kernel_matrix(a, b, ls, KIND)  # noqa
+            out.append(f"K3 ({Q}, {a.shape[0]}, {b.shape[0]}) "
+                       f"{cuda_ms(torch, run_k3, reps=reps):.4f} ms, device "
+                       + by_launch(torch, run_k3, ("full_grid_kernel",),
+                                   reps=reps))
         torch.cuda.empty_cache()
     if "K8" in kernels:
         w = it.int8_width(n)

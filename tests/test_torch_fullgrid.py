@@ -1,8 +1,9 @@
 """The port's full-grid kernels K6 (``cuda_kernels.scaled_kernel_stack``,
-TPU kernel B5) and K7 (``lowrank_stationary_reduce``, B6), and the fused
+TPU kernel B5) and K7 (``lowrank_stationary_reduce``, B6), K3
+(``kernel_matrix``, B4's forward, K6's kernel at os = 1), and the fused
 MLL under ``PLMC_SYM_BUILD=0``, against the JAX package on the CPU.
 
-K6 and K7 run only on the card (``chip_smoke.py``); here their plain
+K3, K6 and K7 run only on the card (``chip_smoke.py``); here their plain
 versions run beside the Pallas kernels in interpret mode. The JAX fused op
 on the CPU takes its dense XLA branch whatever ``PLMC_SYM_BUILD`` says,
 which is the same math as both of the port's grids.
@@ -36,29 +37,66 @@ def t32(a):
     return torch.tensor(np.asarray(a, np.float32))
 
 
-@pytest.mark.parametrize("m", [None, 45], ids=["square", "ragged"])
+# (kind, d, n, m, seed): a 70-point square and a ragged rectangle, then
+# (n, m) = (130, 200), which straddle a 128-tile of the Pallas grid and of
+# the card's, at d = 1 and 21 for every kind
+CASES = {"square": ("matern25", 3, 70, None, 0),
+         "ragged": ("matern25", 3, 70, 45, 0),
+         **{f"{kind}-d{d}-130x200": (kind, d, 130, 200, d)
+            for kind in KINDS for d in (1, 21)}}
+
+
+@pytest.mark.parametrize("case", list(CASES))
 @pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
-def test_scaled_stack_matches_pallas(m, bf16):
-    """fp32 at the JAX tests' tolerance (tests/test_fused_mll.py::
-    test_scaled_stack); bf16 within one bf16 step (2⁻⁷ relative): the Pallas
-    tile rounds its short-exp2 value, the plain version its libm one."""
-    rng = np.random.default_rng(0)
-    x1 = rng.uniform(-1, 1, (70, 3)).astype(np.float32)
-    x2 = x1 if m is None else rng.uniform(-1, 1, (m, 3)).astype(np.float32)
-    ls = rng.uniform(0.5, 1.5, (2, 1, 3)).astype(np.float32)
+def test_scaled_stack_matches_pallas(case, bf16):
+    """K6 plain, and in fp32 K3 plain, against the Pallas kernels: fp32 at
+    the JAX tests' tolerance (tests/test_fused_mll.py::test_scaled_stack,
+    rtol 1e-5, atol 1e-6); bf16 within one bf16 step (2⁻⁷ relative): the
+    Pallas tile rounds its short-exp2 value, the plain version its libm
+    one. Matérn-½ at d = 1 has pairs ~1e-4 apart, where the Pallas d²
+    expansion's fp32 cancellation moves g by ~2e-4 against float64
+    (g′ ~ 1/r), while the plain version's direct differences stay within
+    1e-6 of it: there fp32 is held to float64 at 1e-6 and to the Pallas
+    kernel at 5e-4 of the largest entry."""
+    kind, d, n, m, seed = CASES[case]
+    rng = np.random.default_rng(seed)
+    x1 = rng.uniform(-1, 1, (n, d)).astype(np.float32)
+    x2 = x1 if m is None else rng.uniform(-1, 1, (m, d)).astype(np.float32)
+    # lengthscales grow with √d past 8 features, so that the kernel is not
+    # near diagonal
+    ls = (rng.uniform(0.5, 1.5, (2, 1, d))
+          * (np.sqrt(d / 2) if d > 8 else 1.0)).astype(np.float32)
     os_ = np.float32([0.7, 1.9])
-    dt = torch.bfloat16 if bf16 else None
-    want = np.asarray(pk.scaled_kernel_stack(
-        jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(ls), jnp.asarray(os_),
-        "matern25", True, jnp.bfloat16 if bf16 else None)).astype(np.float32)
-    got = ck.scaled_kernel_stack(t32(x1), t32(x2), t32(ls), t32(os_),
-                                 "matern25", dt, device="cpu")
-    assert got.shape == (2, 70, m or 70)
-    assert got.dtype == (torch.bfloat16 if bf16 else torch.float32)
-    if bf16:
-        np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0 ** -7)
-    else:
-        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    J = [jnp.asarray(a) for a in (x1, x2, ls)]
+    T = [t32(a) for a in (x1, x2, ls)]
+    dt = torch.bfloat16 if bf16 else torch.float32
+    want = {"K6": pk.scaled_kernel_stack(*J, jnp.asarray(os_), kind, True,
+                                         jnp.bfloat16 if bf16 else None)}
+    got = {"K6": ck.scaled_kernel_stack(*T, t32(os_), kind, dt,
+                                        device="cpu")}
+    if not bf16:    # K3 is fp32 only
+        want["K3"] = pk.fused_kernel_matrix(*J, kind, True)
+        got["K3"] = ck.kernel_matrix(*T, kind, device="cpu")
+        exact = ck.kernel_matrix(*(torch.tensor(a, dtype=torch.float64)
+                                   for a in (x1, x2, ls)), kind,
+                                 device="cpu")
+    for key in got:
+        assert got[key].shape == (2, n, m or n), key
+        assert got[key].dtype == dt, key
+        g = got[key].float().numpy()
+        w = np.asarray(want[key]).astype(np.float32)
+        if bf16:
+            np.testing.assert_allclose(g, w, rtol=2.0 ** -7, err_msg=key)
+        elif kind == "matern05" and d == 1:
+            scale = 1.0 if key == "K3" else os_[:, None, None]
+            np.testing.assert_allclose(g, exact.numpy() * scale, rtol=0,
+                                       atol=1e-6, err_msg=key)
+            np.testing.assert_allclose(g, w, rtol=0,
+                                       atol=5e-4 * np.abs(w).max(),
+                                       err_msg=key)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6,
+                                       err_msg=key)
 
 
 @pytest.mark.parametrize("kind", KINDS)
