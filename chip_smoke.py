@@ -57,7 +57,20 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
   E. path E: phase 4's step at d = 21 (SARCOS's input features; the
      reductions run at a padded width of 24), one 16-step chunk, then one
      16-step chunk of mll(matvec_int8=True) at d = 21 (K1 + K2, then
-     K8 + K2, with K3).
+     K8 + K2, with K3);
+  F. path F: projected LMC (``ProjectedGPModel`` + ``projected_lmc_mll``,
+     K3 and the dense batched Cholesky). F1: the paper's synthetic default
+     (``generate_synthetic()``: n = 500, p = 100, d = 1) with q = 25, in
+     each model configuration of the paper's experiments (PLMC,
+     PLMC_fast, oilmm, oilmm with ``bulk=False``), 64 ``fit`` steps each:
+     first and last losses, median step, launches and factorizations (one
+     of each a step), the first step on the card against the CPU, the QR's
+     orthogonality, and the QR's (or orthogonal map's) time in a profile.
+     F2: the full-B̃ model on phase 4's data (n = 10,000, p = 7, d = 4)
+     with q = 4, 16 ``fit`` steps: median step, the device time split by
+     labelled ranges, peak memory, the ladder's one factorization against
+     the old ladder's nine, K3 against its plain version at (4, n, n), and
+     the card against the CPU at n = 2048.
 
 Every training run sets the launch counts to 0 just before it and reads
 them just after. The last lines are one JSON object with every kernel's
@@ -1336,6 +1349,346 @@ def fit_phase(torch, pl, dev):
         raise SystemExit("chip_smoke: training.fit gave non-finite losses")
 
 
+# path F: projected LMC, the paper's model, in the model configurations of
+# its experiments (projected_lmc_tpu/experiments/driver.py:45-49); F1 on the
+# paper's synthetic default (generate_synthetic(): n = 500, p = 100, d = 1)
+# with q = 25, F2 on phase 4's data (n = 10,000, p = 7, d = 4) with q = Q
+PROJ_CONFIGS = {
+    "PLMC": dict(BDN=False, diagonal_B=False, scalar_B=False,
+                 diagonal_R=False),
+    "oilmm": dict(BDN=True, diagonal_B=True, scalar_B=True, diagonal_R=True),
+    "PLMC_fast": dict(BDN=True, diagonal_B=True, scalar_B=True,
+                      diagonal_R=False),
+}
+F1_MODELS = (("PLMC", {}), ("PLMC_fast", {}), ("oilmm", {}),
+             ("oilmm", dict(bulk=False)))
+F1_Q, F1_STEPS, F2_STEPS, F_CHECK_N = 25, 64, 16, 2048
+F_RANGES = ("F K3", "F K3 backward (plain)", "F potrf", "F Cholesky pullback",
+            "F triangular solve", "F QR or orthogonal map")
+
+
+def projected_model(pl, X, Y, q, name, extra, device):
+    return pl.ProjectedGPModel(X, Y, Y.shape[1], q, init_lmc_coeffs=True,
+                               mean_type="zero", kernel_type="matern",
+                               device=device, **PROJ_CONFIGS[name], **extra)
+
+
+@contextlib.contextmanager
+def projected_probes(torch):
+    """From outside the package: count the factorizations of the Cholesky
+    ladder (its factor function ``ops.cholesky._factor``), and label for the
+    profiler K3's forward and its plain backward, each factorization, the
+    Cholesky pullback, the exact MLL's triangular solve and the mixing
+    matrix's QR (or orthogonal map)."""
+    from torch.profiler import record_function
+    from projected_lmc_tpu_torch import kernels as kern
+    from projected_lmc_tpu_torch.models import exact, projected
+    from projected_lmc_tpu_torch.ops import cholesky as chol
+    counts = {"factorizations": 0}
+
+    def labelled(label, fn, counted=False):
+        def wrapped(*args, **kwargs):
+            counts["factorizations"] += counted
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    skm, sc = kern._StationaryKernelMatrix, chol._SafeCholesky
+    mix = projected.LMCMixingMatrix
+    patches = ((chol, "_factor", labelled("F potrf", chol._factor, True)),
+               (skm, "forward", staticmethod(labelled("F K3", skm.forward))),
+               (skm, "backward", staticmethod(labelled(
+                   "F K3 backward (plain)", skm.backward))),
+               (sc, "backward", staticmethod(labelled(
+                   "F Cholesky pullback", sc.backward))),
+               (exact, "solve_triangular", labelled(
+                   "F triangular solve", exact.solve_triangular)),
+               (mix, "QR", labelled("F QR or orthogonal map", mix.QR)))
+    saved = [(owner, name, vars(owner)[name]) for owner, name, _ in patches]
+    for owner, name, new in patches:
+        setattr(owner, name, new)
+    try:
+        yield counts
+    finally:
+        for owner, name, old in saved:
+            setattr(owner, name, old)
+
+
+def carried(pl, model, where, make):
+    """A model built by ``make`` on ``where`` carrying ``model``'s leaves
+    (``load_jax_state``), in its own dtype."""
+    from projected_lmc_tpu_torch.module import keyed_state
+    out = make(where)
+    pl.load_jax_state(out, {k: v.detach().cpu().double().numpy()
+                            for k, v in keyed_state(model).items()})
+    return out
+
+
+def grads_of_mll(pl, model):
+    """(value, {name: gradient}) of ``projected_lmc_mll`` over the trainable
+    leaves, on the host in float64."""
+    ll = pl.projected_lmc_mll(model)
+    ll.backward()
+    return float(ll.detach()), {k: p.grad.detach().cpu().double()
+                                for k, p in model.named_parameters()
+                                if p.requires_grad}
+
+
+def card_against_cpu(torch, pl, ck, dev, make, label):
+    """``projected_lmc_mll``'s value and gradients on the card (K3 once, one
+    factorization) against the CPU (plain versions), the CPU model carrying
+    the card model's leaves by ``load_jax_state``, at the SVD init
+    moved by a seeded uniform(−0.3, 0.3) on every trainable leaf (as path
+    B). At the init itself the SVD puts Q at a stationary point of ‖YQ‖²,
+    where the mixing matrix's fp32 gradient is rounding noise on any device:
+    the CPU's fp32 gradients against its fp64 ones there are printed
+    beside. ``make(where, dtype)`` builds the model."""
+    cpu = torch.device("cpu")
+    start = make(cpu, np.float32)
+    _, g32 = grads_of_mll(pl, start)
+    _, g64 = grads_of_mll(pl, carried(pl, start, cpu,
+                                      lambda w: make(w, np.float64)))
+    noise = {k.split(".")[-1]: float((g32[k] - g64[k]).abs().max()
+                                     / g64[k].abs().max()) for k in g64}
+    print(f"  {label}: at the SVD init, CPU fp32 against fp64, "
+          f"max|Δ|/max|fp64|: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in noise.items()))
+    card = make(dev, np.float32)
+    rng = np.random.default_rng(11)
+    with torch.no_grad():
+        for p in card.parameters():
+            p.add_(torch.as_tensor(rng.uniform(-0.3, 0.3, tuple(p.shape)),
+                                   dtype=p.dtype, device=p.device))
+    out = {}
+    zero_counts(ck)
+    with projected_probes(torch) as probes:
+        out["cuda"] = grads_of_mll(pl, card)
+    if read_counts(ck) != expect(K3=1) or probes["factorizations"] != 1:
+        raise SystemExit(f"chip_smoke: {label}'s MLL launched "
+                         f"{read_counts(ck)} and factorized "
+                         f"{probes['factorizations']} times, not K3 and one "
+                         f"factorization")
+    out["cpu"] = grads_of_mll(pl, carried(pl, card, cpu,
+                                          lambda w: make(w, np.float32)))
+    print(f"  {label}, moved off the init: card (K3, one factorization) vs "
+          f"CPU:")
+    names = list(out["cpu"][1])
+    compare_grads({k: (v, [g[n] for n in names]) for k, (v, g) in out.items()},
+                  names)
+
+
+def orthogonality(torch, model) -> float:
+    """max |QᵀQ − I| over the mixing matrix's Q and its complement."""
+    with torch.no_grad():
+        Q, _, Q_orth = model.lmc_coefficients.QR()
+        Qf = Q if Q_orth is None else torch.cat([Q, Q_orth], 1)
+        eye = torch.eye(Qf.shape[1], dtype=Qf.dtype, device=Qf.device)
+        return float((Qf.T @ Qf - eye).abs().max())
+
+
+def projected_fit(torch, pl, ck, model, steps, label, totals):
+    """``steps`` of ``fit(model, projected_lmc_mll, lr=1e-2,
+    schedule=lambda_lr_schedule(1e-2, 1e-3))``: first and last losses
+    (finite and falling), median step, peak memory, K3 launches and
+    factorizations (one of each a step)."""
+    stamps = []
+
+    def loss_fn(m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return pl.projected_lmc_mll(m)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(ck)
+    with projected_probes(torch) as probes:
+        _, info = pl.fit(model, loss_fn, n_iter=steps, lr=1e-2,
+                         schedule=pl.lambda_lr_schedule(1e-2, 1e-3),
+                         device=model.device)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    counts = read_counts(ck)
+    losses = info["losses"]
+    step_ms = np.diff(stamps) * 1e3
+    params = torch.cat([p.detach().flatten() for p in model.parameters()])
+    finite = bool(np.all(np.isfinite(losses)) and torch.isfinite(params).all())
+    median = float(np.median(step_ms))
+    print(f"  {label}: {len(losses)} steps, loss first {losses[0]:.6f} last "
+          f"{losses[-1]:.6f}, all finite {finite}; median step {median:.3f} "
+          f"ms (min {step_ms.min():.3f}, max {step_ms.max():.3f}); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"launches {counts}; factorizations {probes['factorizations']}")
+    if len(losses) != steps or not finite or not losses[-1] < losses[0]:
+        raise SystemExit(f"chip_smoke: {label} did not take {steps} steps "
+                         f"with finite, falling losses")
+    if counts != expect(K3=steps) or probes["factorizations"] != steps:
+        raise SystemExit(f"chip_smoke: {label} did not launch K3 and "
+                         f"factorize once a step")
+    totals["K3"] += counts["K3"]
+    return median
+
+
+def range_split(torch, step, reps=2):
+    """Profile ``reps`` calls of ``step`` (after one unprofiled): the wall
+    time, the device-busy time (every kernel), each labelled range's device
+    time (from its first kernel's start to its last one's end) and host
+    time, all in ms a call, and the kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    avg = prof.key_averages()
+    # a labelled range appears twice: on the host, and as a device
+    # annotation spanning its kernels (not a kernel itself)
+    kernels = sorted((e for e in avg if e.device_type.name == "CUDA"
+                      and getattr(e, "device_time_total", 0) > 0
+                      and e.key not in F_RANGES),
+                     key=lambda e: -e.device_time_total)
+    busy = sum(e.device_time_total for e in kernels) / 1e3 / reps
+    ranges = {k: [float("nan"), float("nan")] for k in F_RANGES}
+    for e in avg:
+        if e.key in F_RANGES:
+            on_device = e.device_type.name == "CUDA"
+            ranges[e.key][0 if on_device else 1] = (
+                e.device_time_total if on_device else e.cpu_time_total) \
+                / 1e3 / reps
+    top = [(e.key.split("<")[0].split("(")[0][:60],
+            e.device_time_total / 1e3 / reps) for e in kernels[:6]]
+    return wall, busy, ranges, top
+
+
+def mll_step(pl, model):
+    def step():
+        model.zero_grad(set_to_none=True)
+        (-pl.projected_lmc_mll(model)).backward()
+    return step
+
+
+def k3_against_plain(ck, model, block=1000):
+    """K3 at the model's (q, n, n) against its plain version, a block of
+    rows at a time; returns the largest absolute error."""
+    x = model.train_x
+    ls = model.covar_module.lengthscale.detach()
+    got = ck.kernel_matrix(x, x, ls, KIND, device=x.device)
+    err = 0.0
+    for i0 in range(0, x.shape[0], block):
+        want = ck.kernel_matrix_plain(x[i0:i0 + block], x, ls, KIND)
+        err = max(err, float((got[:, i0:i0 + block] - want).abs().max()))
+    return err
+
+
+def old_ladder(torch, A, max_tries=8):
+    """The port's ladder before slice 8: the plain factor and all eight
+    jittered ones, chosen on the device by masked selects."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+
+    def nan_factor(M):
+        L, info = torch.linalg.cholesky_ex(M)
+        return torch.where((info != 0)[..., None, None],
+                           torch.full_like(L, float("nan")), L)
+    L = nan_factor(A)
+    ok = torch.isfinite(L).all()
+    jitter = 1e-6
+    for _ in range(max_tries):
+        Lj = nan_factor(A + jitter * eye)
+        L = torch.where(ok, L, Lj)
+        ok = ok | torch.isfinite(Lj).all()
+        jitter *= 10.0
+    return L
+
+
+def path_f_phase(torch, pl, ck, dev, totals):
+    """Path F: projected LMC. F1: the paper's synthetic default in each of
+    the experiments' model configurations, 64 ``fit`` steps each, the
+    first step against the CPU, the QR's orthogonality, and the QR (or orthogonal map)
+    in a profile of the step. F2: the full-B̃ model at phase 4's data, 16
+    ``fit`` steps, the device time split, the ladder's factorizations
+    against the old ladder's, and the card against the CPU at n = 2048."""
+    from projected_lmc_tpu_torch.experiments import generate_synthetic
+    from projected_lmc_tpu_torch.ops import cholesky as chol
+    t0 = time.perf_counter()
+    data = generate_synthetic()
+    X, Y = data["X"], data["Y"]
+    print(f"  F1 data: generate_synthetic() X {X.shape} Y {Y.shape} "
+          f"{Y.dtype} in {time.perf_counter() - t0:.1f} s")
+    for name, extra in F1_MODELS:
+        label = name + "".join(f" {k}={v}" for k, v in extra.items())
+        card_against_cpu(
+            torch, pl, ck, dev, lambda where, dt, name=name, extra=extra:
+            projected_model(pl, X.astype(dt), Y.astype(dt), F1_Q, name,
+                            extra, where), label)
+        model = projected_model(pl, X, Y, F1_Q, name, extra, dev)
+        if name == "PLMC":
+            check(f"K3 kernel_matrix ({F1_Q},{X.shape[0]},{X.shape[0]}) "
+                  f"d=1", k3_against_plain(ck, model), 1e-4)
+        ortho = [orthogonality(torch, model)]
+        projected_fit(torch, pl, ck, model, F1_STEPS, label, totals)
+        ortho.append(orthogonality(torch, model))
+        print(f"  {label}: max|QᵀQ − I| {ortho[0]:.2e} at the start, "
+              f"{ortho[1]:.2e} after training (tolerance 1e-5)")
+        if not max(ortho) <= 1e-5:
+            raise SystemExit(f"chip_smoke: {label}'s Q is not orthogonal")
+        if name == "PLMC" or not extra.get("bulk", True):
+            with projected_probes(torch):
+                wall, busy, ranges, _ = range_split(
+                    torch, mll_step(pl, model), reps=3)
+            dev_ms, host_ms = ranges["F QR or orthogonal map"]
+            print(f"  {label} profile: MLL forward and backward {wall:.3f} "
+                  f"ms (device busy {busy:.3f}); QR or orthogonal map "
+                  f"{host_ms:.3f} ms of host time, {dev_ms:.3f} ms of device "
+                  f"time a step")
+        del model
+        torch.cuda.empty_cache()
+
+    n = N
+    Xb, Yb = bench_data(n, seed=0)
+    model = projected_model(pl, Xb, Yb, Q, "PLMC", {}, dev)
+    check(f"K3 kernel_matrix ({Q},{n},{n}) d={D}",
+          k3_against_plain(ck, model), 1e-4)
+    torch.cuda.empty_cache()
+    median = projected_fit(torch, pl, ck, model, F2_STEPS,
+                           f"F2 PLMC n={n} p={T} q={Q}", totals)
+    with projected_probes(torch):
+        wall, busy, ranges, top = range_split(torch, mll_step(pl, model))
+    split = {k: v[0] for k, v in ranges.items()}
+    parts = ("F K3", "F K3 backward (plain)", "F potrf", "F Cholesky pullback",
+             "F triangular solve")
+    rest = busy - sum(split.get(k, 0.0) for k in parts)
+    print(f"  F2 profile, MLL forward and backward: wall {wall:.3f} ms, "
+          f"device busy {busy:.3f} ms: " + ", ".join(
+              f"{k[2:]} {split.get(k, float('nan')):.3f}" for k in parts)
+          + f", rest {rest:.3f} ms; median fit step {median:.3f} ms")
+    print("  F2 kernels by device time: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in top))
+    with torch.no_grad():
+        A = model.likelihood.add_to_covar(model.covar_module(model.train_x))
+    with projected_probes(torch) as probes:
+        L = chol.safe_cholesky(A)
+    same = torch.equal(L, old_ladder(torch, A))
+    del L
+    new_ms = cuda_ms(lambda: chol.safe_cholesky(A), reps=3, warmup=1)
+    old_ms = cuda_ms(lambda: old_ladder(torch, A), reps=2, warmup=1)
+    print(f"  F2 ladder on ({Q},{n},{n}): {probes['factorizations']} "
+          f"factorization, {new_ms:.3f} ms; the old ladder 9 factorizations, "
+          f"{old_ms:.3f} ms; same factor: {same}")
+    if probes["factorizations"] != 1 or not same:
+        raise SystemExit("chip_smoke: the ladder did not factorize once, or "
+                         "its factor differs from the old ladder's")
+    del A, model
+    torch.cuda.empty_cache()
+
+    Xc, Yc = bench_data(F_CHECK_N, seed=10)
+    card_against_cpu(torch, pl, ck, dev, lambda where, dt: projected_model(
+        pl, Xc.astype(dt), Yc.astype(dt), Q, "PLMC", {}, where),
+        f"F2 PLMC n={F_CHECK_N}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1401,6 +1754,10 @@ def main() -> int:
           f"{STEPS_PER_CHUNK} steps on a bf16 stack, then {STEPS_PER_CHUNK} "
           f"on an int8 stack")
     path_e_phase(torch, pl, ck, dev, totals, median_4)
+    print(f"path F: projected LMC, F1 the paper's synthetic default "
+          f"(q={F1_Q}, {F1_STEPS} fit steps in each model configuration), "
+          f"F2 n={N} p={T} q={Q} ({F2_STEPS} fit steps)")
+    path_f_phase(torch, pl, ck, dev, totals)
 
     meta = [("K1", "scaled_kernel_stack_sym",
              "projected_lmc_tpu/ops/pallas_kernels.py:278"),

@@ -1,5 +1,6 @@
-"""Parameter constraints as bijective transforms (port of
-``projected_lmc_tpu/constraints.py``, the scalar constraints).
+"""Parameter constraints as bijective transforms, and the matrix
+parametrizations of the projected model's mixing matrix and noise factor
+(port of ``projected_lmc_tpu/constraints.py``).
 
 Models store raw (unconstrained) parameters and map them through these
 transforms in their property accessors, as gpytorch does.
@@ -69,3 +70,51 @@ class Interval(_ValueEq):
         t = (torch.as_tensor(y) - self.lower) / (self.upper - self.lower)
         t = torch.clamp(t, 1e-12, 1 - 1e-12)
         return torch.log(t) - torch.log1p(-t)
+
+
+# Matrix parametrizations (the torch.nn.utils.parametrize modules of the
+# reference): each maps a raw matrix to a constrained one; its inverse
+# initializes the raw matrix from a target.
+
+def _with_diagonal(mat, d):
+    """``mat`` with its (batched) diagonal replaced by ``d``."""
+    return mat - torch.diag_embed(torch.diagonal(mat, dim1=-2, dim2=-1)) \
+        + torch.diag_embed(d)
+
+
+def scalar_param(raw, bounds=(-1e16, 1e16)):
+    """Scalar matrix: every entry = clamp(mean(raw), bounds)."""
+    return torch.ones_like(raw) * torch.clamp(raw.mean(), bounds[0], bounds[1])
+
+
+def positive_diagonal_param(raw):
+    """diag(exp(diag(raw)))."""
+    return torch.diag_embed(torch.exp(torch.diagonal(raw, dim1=-2, dim2=-1)))
+
+
+def positive_diagonal_param_inverse(mat):
+    return torch.diag_embed(torch.log(torch.diagonal(mat, dim1=-2, dim2=-1)))
+
+
+def upper_triangular_param(raw, bounds=None):
+    """triu(raw) with an exp diagonal, clamped to ``bounds`` before exp."""
+    d = torch.diagonal(raw, dim1=-2, dim2=-1)
+    if bounds is not None:
+        d = torch.clamp(d, bounds[0], bounds[1])
+    return _with_diagonal(torch.triu(raw), torch.exp(d))
+
+
+def upper_triangular_param_inverse(mat):
+    return _with_diagonal(mat, torch.log(torch.diagonal(mat, dim1=-2,
+                                                        dim2=-1)))
+
+
+def lower_triangular_param(raw, bounds=(-1e16, 1e16)):
+    """tril(raw) with exp(clamp(diag, bounds)) on the diagonal: a Cholesky
+    factor."""
+    d = torch.clamp(torch.diagonal(raw, dim1=-2, dim2=-1), bounds[0],
+                    bounds[1])
+    return _with_diagonal(torch.tril(raw), torch.exp(d))
+
+
+lower_triangular_param_inverse = upper_triangular_param_inverse

@@ -233,6 +233,10 @@ class ScaleKernel(Module):
     def outputscale(self):
         return constraints.softplus(self.raw_outputscale)
 
+    @property
+    def lengthscale(self):
+        return self.base_kernel.lengthscale
+
     def forward(self, x1, x2=None, out_dtype=None):
         K = self.base_kernel(x1, x2) * self.outputscale[:, None, None]
         return K if out_dtype is None else K.to(out_dtype)

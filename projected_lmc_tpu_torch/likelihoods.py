@@ -1,7 +1,9 @@
 """Gaussian likelihoods (port of ``projected_lmc_tpu/likelihoods.py``):
-the batched ``GaussianLikelihood`` and the ``MultitaskGaussianLikelihood``
+the batched ``GaussianLikelihood``, the ``MultitaskGaussianLikelihood``
 whose Σt = F Fᵀ (rank > 0) or diag(task_noises) (rank 0), plus σ²_global I,
-as gpytorch's MultitaskGaussianLikelihood(num_tasks, rank)."""
+as gpytorch's MultitaskGaussianLikelihood(num_tasks, rank), and the
+parameter-free ``FixedTaskNoise`` that ``ProjectedGPModel.full_likelihood``
+returns."""
 
 from __future__ import annotations
 
@@ -87,3 +89,20 @@ class MultitaskGaussianLikelihood(Module):
             sigma = sigma + self.noise[0] * torch.eye(p, dtype=ref.dtype,
                                                       device=ref.device)
         return sigma
+
+
+class FixedTaskNoise(Module):
+    """A fully specified p×p task noise covariance with no free parameters,
+    given by its Cholesky factor ``chol`` (a buffer)."""
+
+    def __init__(self, chol):
+        super().__init__()
+        self.register_buffer("chol", torch.as_tensor(chol))
+        self.num_tasks = int(self.chol.shape[-1])
+
+    def task_covariance(self):
+        return self.chol @ self.chol.T
+
+    @property
+    def task_noise_covar_factor(self):
+        return self.chol

@@ -5,7 +5,8 @@ marginal-likelihood part of ``projected_lmc_tpu/models/exact.py``).
 Cholesky, or, above the dense ceiling (T·n² > ``ITER_TN2_MAX``), through
 the fused iterative MLL of ``ops/fused_mll.py``: the batch IS the LMC
 Σ_b K_b ⊗ e_b e_bᵀ + I ⊗ diag(σ²) with identity mixing. The posterior,
-LOO and the SGPR path (``n_inducing_points``) are later slices.
+LOO and the SGPR path (``n_inducing_points``) are later slices;
+``lscales``/``outputscale`` read the learned hyperparameters.
 """
 
 from __future__ import annotations
@@ -174,6 +175,23 @@ class ExactGPModel(Module):
             x_, ls, os_, H, St, Ydelta, eps, xi, roots, kind, max_cg_iters,
             cg_tol, matvec_bf16, m_rank, device=x_.device)
         return (ll + self.covar_module.prior_log_prob()) / n
+
+    def lscales(self, unpacked: bool = True):
+        """Learned lengthscales, (n_funcs, dims), as a numpy array (a list of
+        one when not ``unpacked``)."""
+        scales = np.squeeze(self.covar_module.lengthscale.detach().cpu()
+                            .numpy())
+        return scales if unpacked else [scales]
+
+    def outputscale(self, unpacked: bool = False):
+        """Learned outputscales, (n_funcs, 1) (ones without a ScaleKernel),
+        as a numpy array; squeezed when ``unpacked``."""
+        cm = self.covar_module
+        if hasattr(cm, "outputscale"):
+            res = cm.outputscale.detach().cpu().numpy()[:, None]
+        else:
+            res = np.ones((self.n_funcs, 1))
+        return res.squeeze() if unpacked else res
 
     def _precond_roots(self, x, rank: int, jitter: float = 1e-4):
         """Nyström roots of the batched task kernels at strided landmarks

@@ -1,13 +1,12 @@
 """PSD-safe Cholesky with an escalating jitter ladder and a hand-written
 backward (port of ``projected_lmc_tpu/ops/cholesky.py``).
 
-The JAX ladder is a ``lax.while_loop`` that decides on the device: a failed
-factorization there yields NaNs, which is the loop's predicate. Here
-``torch.linalg.cholesky_ex`` reports failure in ``info`` without a host
-sync; a failed factor is set to NaN, and the whole ladder (the plain factor
-and ``max_tries`` jittered ones) runs as masked selects, so the choice is
-made on the device as well. The jitter picked is the first that factors
-every batch element, as in JAX.
+The JAX ladder is a ``lax.while_loop`` that stops at the first factor that
+succeeds: a failed factorization there yields NaNs, which is the loop's
+predicate. Here ``torch.linalg.cholesky_ex`` reports failure in ``info``;
+the ladder reads it on the host (one sync a rung) and factorizes again, with
+jitter 1e-6·10^k (fp32), only when a batch element failed. The jitter
+picked is the first that factors every batch element, as in JAX.
 """
 
 from __future__ import annotations
@@ -27,21 +26,28 @@ def cholesky_nan(A):
     return torch.where(bad, torch.full_like(L, float("nan")), L)
 
 
-def _all_finite(L):
-    return torch.isfinite(L).all()
+def _factor(A):
+    """(L, bad): the lower factor and, per batch element, whether it failed
+    (``info`` ≠ 0 or a non-finite diagonal, which a NaN anywhere in a row
+    reaches)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    diag_ok = torch.isfinite(torch.diagonal(L, dim1=-2, dim2=-1)).all(-1)
+    return L, (info != 0) | ~diag_ok
 
 
 def _jittered_cholesky(A, max_tries: int):
-    n = A.shape[-1]
-    eye = torch.eye(n, dtype=A.dtype, device=A.device)
-    L = cholesky_nan(A)
-    ok = _all_finite(L)
+    L, bad = _factor(A)
     jitter = _BASE_JITTER.get(A.dtype, 1e-6)
     for _ in range(max_tries):
-        Lj = cholesky_nan(A + jitter * eye)
-        L = torch.where(ok, L, Lj)
-        ok = ok | _all_finite(Lj)
+        if not bool(bad.any()):
+            return L
+        Aj = A.clone()
+        Aj.diagonal(dim1=-2, dim2=-1).add_(jitter)
+        L, bad = _factor(Aj)
         jitter *= 10.0
+    if bool(bad.any()):     # every rung failed: NaN where it did, as in JAX
+        L = torch.where(bad[..., None, None], torch.full_like(L, float("nan")),
+                        L)
     return L
 
 
