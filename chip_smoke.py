@@ -70,7 +70,26 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
      with q = 4, 16 ``fit`` steps: median step, the device time split by
      labelled ranges, peak memory, the ladder's one factorization against
      the old ladder's nine, K3 against its plain version at (4, n, n), and
-     the card against the CPU at n = 2048.
+     the card against the CPU at n = 2048;
+  G. path G: prediction, served from a cache built once (K3 and the dense
+     batched Cholesky, or K3's stack and PCG). G1: F2's model after 16 ``fit``
+     steps: ``prediction_cache`` once, 8 ``predict`` calls on 2,500 held-out
+     points (first and median), one cold ``predict``, one ``compute_loo``,
+     peak memory and the 15 metrics of ``compute_metrics``. G2: the paper's
+     synthetic default in F1's four configurations, ``fit`` to the plateau
+     (at most 2,000 steps), ``predict(observed=True)`` on its 2,500 test
+     points and R², RMSE, PVA and α_CI beside the README's JAX figures. G3:
+     phase 4's model trained as phase 4, its "lmc_iter" cache (the dense K3
+     stack, Nyström roots, PCG to 1e-5, the residual's spectral bound, the
+     inflated factors) timed by part with the PCG's iterations, its host
+     time an iteration and peak memory, ``posterior`` on 2,500 points, and
+     ``fit`` with the default (dense Woodbury) loss at q·n = 4,096. K3 at
+     the path's cross-covariance shapes against its plain version and
+     bitwise against K6; the card against the CPU (same leaves, moved off the
+     init) at n = 2048 for G1 and G3 (both routes; the LOO at n = 512) and
+     for G2's trained models: mean within 1e-4 of its largest entry (1e-3
+     for "lmc_iter"), variance within 1e-3 of the largest prior variance,
+     LOO σ² and residuals within 1e-3, each metric within 1e-3.
 
 Every training run sets the launch counts to 0 just before it and reads
 them just after. The last lines are one JSON object with every kernel's
@@ -172,8 +191,8 @@ def k3_is_k6(torch, ck, dev, got, x1, x2, ls, one):
     inputs: one kernel, so the same bits."""
     same = torch.equal(got, ck.scaled_kernel_stack(x1, x2, ls, one, KIND,
                                                    device=dev))
-    print(f"  K3 ({Q},{x1.shape[0]},{x2.shape[0]}) bitwise equal to K6 at "
-          f"os = 1: {same}")
+    print(f"  K3 ({ls.shape[0]},{x1.shape[0]},{x2.shape[0]}) bitwise equal "
+          f"to K6 at os = 1: {same}")
     if not same:
         raise SystemExit("chip_smoke: K3 is not K6's fp32 stack at os = 1")
 
@@ -1689,6 +1708,423 @@ def path_f_phase(torch, pl, ck, dev, totals):
         f"F2 PLMC n={F_CHECK_N}")
 
 
+# path G: prediction served from a cache built once. G1: projected LMC at F2's
+# widths; G2: the paper's synthetic default in the experiments' four model
+# configurations, trained to the plateau; G3: the exact-LMC model of phase 4.
+# Card against CPU at F_CHECK_N (the multitask LOO, which factorizes the
+# dense (n·T)² system, at G_LOO_N).
+N_TEST, G_STEPS, G_PREDICTS, G2_MAX_ITER = 2500, 16, 8, 2000
+G_DENSE_N = 1024            # q·n = 4096, the dense Woodbury MLL's largest
+G_CHECK_TEST, G_LOO_N = 500, 512
+# README.md's JAX figures for the synthetic default under the fully
+# converged protocol (R²; context, not limits)
+README_R2 = {"PLMC": 0.923, "PLMC_fast": 0.981, "oilmm": 0.981}
+
+
+def timed(torch, fn):
+    """(fn(), host ms) with the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def served(torch, ck, label, k3, fn, totals):
+    """``fn`` (calls through the port's entry points) with the launch counts
+    set to 0 just before and read just after: it must launch K3 ``k3``
+    times and no other kernel; the counts go into ``totals``. Returns
+    (result, host ms)."""
+    zero_counts(ck)
+    out, ms = timed(torch, fn)
+    if read_counts(ck) != expect(K3=k3):
+        raise SystemExit(f"chip_smoke: {label} launched {read_counts(ck)}, "
+                         f"not K3 {k3} times")
+    totals["K3"] += k3
+    return out, ms
+
+
+def k3_at(torch, ck, dev, x1, x2, ls, block=500):
+    """K3 at path G's shape (q, len(x1), len(x2)) against its plain version,
+    a block of rows at a time (1e-4, as phase 2), and bitwise against K6 at
+    os = 1."""
+    got = ck.kernel_matrix(x1, x2, ls, KIND, device=dev)
+    err = 0.0
+    for i0 in range(0, x1.shape[0], block):
+        want = ck.kernel_matrix_plain(x1[i0:i0 + block], x2, ls, KIND)
+        err = max(err, float((got[:, i0:i0 + block] - want).abs().max()))
+    check(f"K3 kernel_matrix {tuple(got.shape)} d={x1.shape[1]}", err, 1e-4)
+    k3_is_k6(torch, ck, dev, got, x1, x2, ls,
+             torch.ones(ls.shape[0], dtype=torch.float32, device=dev))
+
+
+def held(name, got, want, scale, tol):
+    """max |card − CPU| / scale ≤ tol."""
+    err = float((got.detach().cpu().double() - want.detach().cpu().double())
+                .abs().max()) / scale
+    print(f"  {name}: max|card − cpu| / {scale:.4g} = {err:.2e} "
+          f"(tolerance {tol:.0e})")
+    if not (math.isfinite(err) and err <= tol):
+        raise SystemExit(f"chip_smoke: {name} disagrees between the card and "
+                         f"the CPU")
+
+
+def scale_of(t) -> float:
+    return float(t.detach().abs().max())
+
+
+def prior_var_max(torch, model, x) -> float:
+    """The largest prior variance with noise at x: Σ_b k_b(x, x) H[t,b]² +
+    Σ[t,t], for the projected and the LMC model."""
+    with torch.no_grad():
+        kss = model.covar_module(x, diag=True)                  # (q, n*)
+        if hasattr(model, "full_likelihood"):
+            H2 = model.lmc_coefficients() ** 2                  # (q, p)
+            noise = model.full_likelihood().task_covariance()
+        else:
+            H, noise = model._mixing()
+            H2 = (H * H).T
+        return float((kss.T @ H2 + torch.diagonal(noise)).max())
+
+
+def moved(torch, model, seed):
+    """Every trainable leaf moved by a seeded uniform(−0.3, 0.3)."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.requires_grad:
+                p.add_(torch.as_tensor(rng.uniform(-0.3, 0.3, tuple(p.shape)),
+                                       dtype=p.dtype, device=p.device))
+    return model
+
+
+def predictions_held(torch, label, card, cpu, x, cache=True):
+    """``predict(observed=True)`` (through ``prediction_cache`` when
+    ``cache``) and ``compute_loo`` of a projected model on the card against
+    the CPU model carrying its leaves:
+    mean within 1e-4 of its largest entry, variance within 1e-3 of the
+    largest prior variance, LOO σ² and residuals within 1e-3. Returns the
+    CPU's (mean, variance, σ², residual)."""
+    out = []
+    for m in (card, cpu):
+        with torch.no_grad():
+            c = m.prediction_cache() if cache else None
+            out.append((*m.predict(x.to(m.device), observed=True, cache=c),
+                        *m.compute_loo()))
+    (g, c) = out
+    held(f"{label} mean", g[0], c[0], scale_of(c[0]), 1e-4)
+    held(f"{label} variance", g[1], c[1], prior_var_max(torch, cpu, x), 1e-3)
+    held(f"{label} LOO sigma2", g[2], c[2], scale_of(c[2]), 1e-3)
+    held(f"{label} LOO residual", g[3], c[3], scale_of(c[3]), 1e-3)
+    return c
+
+
+def path_g1(torch, pl, ck, fm, dev, totals):
+    """G1: PLMC at n = 10⁴, p = 7, q = 4 on phase 4's data, 16 ``fit`` steps,
+    then served: the cache once, 8 warm ``predict`` calls on 2,500 held-out
+    points, one cold, one ``compute_loo``, the 15 metrics; the card against
+    the CPU at n = 2048."""
+    Xb, Yb = bench_data(N, seed=0)
+    Xt, Yt = bench_data(N_TEST, seed=20)
+    model = projected_model(pl, Xb, Yb, Q, "PLMC", {}, dev)
+    t0 = time.perf_counter()
+    projected_fit(torch, pl, ck, model, G_STEPS, f"G1 PLMC n={N} p={T} "
+                  f"q={Q}, {G_STEPS} fit steps", totals)
+    train_s = time.perf_counter() - t0
+    with torch.no_grad():
+        loss = float(-pl.projected_lmc_mll(model))
+    x_test = torch.as_tensor(Xt, device=dev)
+    ls = model.covar_module.lengthscale.detach()
+    k3_at(torch, ck, dev, model.train_x, x_test, ls)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), projected_probes(torch) as probes:
+        cache, cache_ms = served(torch, ck, "G1 prediction_cache", 1,
+                                 model.prediction_cache, totals)
+        cache_reads = probes["factorizations"]
+        warm = []
+        for _ in range(G_PREDICTS):
+            (mean, var), ms = served(
+                torch, ck, "G1 predict", 1,
+                lambda: model.predict(x_test, cache=cache), totals)
+            warm.append(ms)
+        predict_reads = (probes["factorizations"] - cache_reads) / G_PREDICTS
+        _, cold_ms = served(torch, ck, "G1 cold predict", 2,
+                            lambda: model.predict(x_test), totals)
+        _, loo_ms = served(torch, ck, "G1 compute_loo", 1, model.compute_loo,
+                           totals)
+        H_hid = model.full_likelihood().task_noise_covar_factor
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.no_grad():
+        for what, fn in (("prediction_cache", model.prediction_cache),
+                         ("predict", lambda: model.predict(x_test,
+                                                           cache=cache)),
+                         ("compute_loo", model.compute_loo)):
+            wall, busy, _, top = range_split(torch, fn, reps=1)
+            print(f"  G1 {what} profiled: wall {wall:.3f} ms, device busy "
+                  f"{busy:.3f} ms; " + ", ".join(f"{k} {v:.3f} ms"
+                                                 for k, v in top))
+    print(f"  G1 served: prediction_cache {cache_ms:.3f} ms; predict "
+          f"({N_TEST} points, cached) first {warm[0]:.3f} ms, median "
+          f"{np.median(warm):.3f} ms of {G_PREDICTS}; cold predict "
+          f"{cold_ms:.3f} ms; compute_loo {loo_ms:.3f} ms; peak memory "
+          f"{peak:.2f} GiB; factorizations (one host read each): cache "
+          f"{cache_reads}, predict {predict_reads:g}")
+    ok = bool(torch.isfinite(mean).all() and torch.isfinite(var).all()
+              and (var > 0).all() and mean.shape == (N_TEST, T))
+    if not ok:
+        raise SystemExit("chip_smoke: G1's prediction is not finite and "
+                         "positive, or not (n*, p)")
+    metrics = pl.compute_metrics(Yt, mean, torch.sqrt(var), loss, H_hid,
+                                 G_STEPS, train_s, np.median(warm) / 1e3,
+                                 print_metrics=False)
+    print("  G1 metrics (noise targets): " + ", ".join(
+        f"{k} {v:.6g}" for k, v in metrics.items()))
+    del model, cache, mean, var
+    torch.cuda.empty_cache()
+
+    Xc, Yc = bench_data(F_CHECK_N, seed=10)
+    xc = torch.as_tensor(bench_data(G_CHECK_TEST, seed=12)[0])
+    make = lambda w: projected_model(pl, Xc, Yc, Q, "PLMC", {}, w)  # noqa
+    card = moved(torch, make(dev), 11)
+    predictions_held(torch, f"G1 n={F_CHECK_N}", card,
+                     carried(pl, card, torch.device("cpu"), make), xc)
+
+
+def path_g2(torch, pl, ck, fm, dev, totals):
+    """G2: the paper's synthetic default in the experiments' four model
+    configurations, ``fit`` to the plateau (at most 2,000 steps),
+    ``predict(observed=True)`` on the 2,500 test points and the metrics,
+    beside the README's fully converged JAX figures; the card against the
+    CPU on each trained model."""
+    from projected_lmc_tpu_torch.experiments import generate_synthetic
+    data = generate_synthetic()
+    X, Y, Xt, Yt = data["X"], data["Y"], data["X_test"], data["Y_test"]
+    x_test = torch.as_tensor(Xt, device=dev)
+    for name, extra in F1_MODELS:
+        label = "G2 " + name + "".join(f" {k}={v}" for k, v in extra.items())
+        model = projected_model(pl, X, Y, F1_Q, name, extra, dev)
+        zero_counts(ck)
+        _, info = pl.fit(model, pl.projected_lmc_mll, n_iter=G2_MAX_ITER,
+                         lr=1e-2, schedule=pl.lambda_lr_schedule(1e-2, 1e-3),
+                         device=dev)
+        steps = len(info["losses"])         # K3 once a step
+        if read_counts(ck) != expect(K3=steps):
+            raise SystemExit(f"chip_smoke: {label}'s fit launched "
+                             f"{read_counts(ck)}, not K3 {steps} times")
+        totals["K3"] += steps
+        if name == "PLMC" and not extra:
+            k3_at(torch, ck, dev, model.train_x, x_test,
+                  model.covar_module.lengthscale.detach())
+        with torch.no_grad():
+            (mean, var), pred_ms = served(
+                torch, ck, f"{label} predict", 2,
+                lambda: model.predict(x_test, observed=True), totals)
+            H_hid = model.full_likelihood().task_noise_covar_factor
+        args = (info["loss"], H_hid, info["n_iter"], info["train_time"],
+                pred_ms / 1e3)
+        got = pl.compute_metrics(Yt, mean, torch.sqrt(var), *args,
+                                 print_metrics=False)
+        print(f"  {label}: {steps} steps in {info['train_time']:.1f} s, loss "
+              f"{info['loss']:.6f}; R2 {got['R2']:.4f} (README, JAX, fully "
+              f"converged: {README_R2[name]}), RMSE {got['RMSE']:.4f}, PVA "
+              f"{got['PVA']:.4f}, alpha_CI {got['alpha_CI']:.4f}; predict "
+              f"{pred_ms:.3f} ms")
+        if not all(math.isfinite(v) for v in got.values()):
+            raise SystemExit(f"chip_smoke: {label}'s metrics are not finite")
+        cpu = carried(pl, model, torch.device("cpu"), lambda w, n=name,
+                      e=extra: projected_model(pl, X, Y, F1_Q, n, e, w))
+        cm, cv, _, _ = predictions_held(torch, label, model, cpu,
+                                        torch.as_tensor(Xt), cache=False)
+        cpu64 = carried(pl, model, torch.device("cpu"), lambda w, n=name,
+                        e=extra: projected_model(pl, X.astype(np.float64),
+                                                 Y.astype(np.float64), F1_Q,
+                                                 n, e, w))
+        with torch.no_grad():
+            m64, _ = cpu64.predict(torch.as_tensor(Xt, dtype=torch.float64),
+                                   observed=True)
+        print(f"  {label}: the CPU's fp32 mean against its fp64 one, "
+              f"max|Δ|/max|fp64| {float((cm - m64).abs().max()) / scale_of(m64):.2e}"
+              f" (the fp32 rounding of the solve, beside the limit above)")
+        want = pl.compute_metrics(Yt, cm, torch.sqrt(cv), *args,
+                                  print_metrics=False)
+        err = max(abs(got[k] - want[k]) / max(1.0, abs(want[k]))
+                  for k in want)
+        print(f"  {label}: the 15 metrics, card against CPU, max|Δ|/max(1, "
+              f"|cpu|) {err:.2e} (tolerance 1e-3)")
+        if not (math.isfinite(err) and err <= 1e-3):
+            raise SystemExit(f"chip_smoke: {label}'s metrics disagree "
+                             f"between the card and the CPU")
+        del model, cpu
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def lmc_iter_probes(torch):
+    """From outside the package: the host time (synchronised) of each part of
+    the "lmc_iter" cache, the PCG's products (its iterations) and its
+    arguments."""
+    from projected_lmc_tpu_torch.ops import iterative as it_ops
+    from projected_lmc_tpu_torch.ops import woodbury as wb_ops
+    parts = {"roots": 0.0, "preconditioner": 0.0, "PCG": 0.0,
+             "spectral bound": 0.0, "factors": 0.0, "products": 0,
+             "pcg_call": None}
+    names = ((it_ops, "nystrom_roots_from_covar", "roots"),
+             (it_ops, "nystrom_precond", "preconditioner"),
+             (it_ops, "batched_pcg", "PCG"),
+             (it_ops, "residual_spectral_bound", "spectral bound"),
+             (wb_ops, "lmc_factors_from_roots", "factors"))
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in names]
+
+    def timing(fn, key):
+        def wrapped(*args, **kwargs):
+            if key == "PCG":
+                parts["pcg_call"] = (fn, args, kwargs)
+            out, ms = timed(torch, lambda: fn(*args, **kwargs))
+            parts[key] += ms
+            return out
+        return wrapped
+
+    matvec = it_ops.lmc_matvec
+
+    def counted(*args):
+        parts["products"] += 1
+        return matvec(*args)
+    for owner, name, key in names:
+        setattr(owner, name, timing(getattr(owner, name), key))
+    it_ops.lmc_matvec = counted
+    try:
+        yield parts
+    finally:
+        it_ops.lmc_matvec = matvec
+        for owner, name, old in saved:
+            setattr(owner, name, old)
+
+
+def lmc_posteriors_held(torch, pl, dev, n, iterative, label):
+    """The LMC posterior (``iterative`` False: "lmc", True: "lmc_iter") at n
+    on the card against the CPU (same leaves and start vector): mean within
+    1e-4 of its largest entry (1e-3 for "lmc_iter"), variance within 1e-3
+    of the largest prior variance."""
+    X, Y = bench_data(n, seed=15)
+    xs = torch.as_tensor(bench_data(G_CHECK_TEST, seed=16)[0])
+    v0 = np.random.default_rng(17).standard_normal((n, T))
+    card = moved(torch, make_model(pl, X, Y, dev), 18)
+    cpu = carried(pl, card, torch.device("cpu"),
+                  lambda w: make_model(pl, X, Y, w))
+    out = []
+    for m in (card, cpu):
+        with torch.no_grad():
+            c = m.precompute_posterior(
+                iterative=iterative, v0=torch.as_tensor(
+                    v0, dtype=torch.float32, device=m.device))
+            p = m.posterior(xs.to(m.device), cache=c)
+        out.append((p.mean, p.variance))
+    (g, c) = out
+    kind = "lmc_iter" if iterative else "lmc"
+    held(f"{label} {kind} mean", g[0], c[0], scale_of(c[0]),
+         1e-3 if iterative else 1e-4)
+    held(f"{label} {kind} variance", g[1], c[1],
+         prior_var_max(torch, cpu, xs), 1e-3)
+
+
+def path_g3(torch, pl, ck, fm, dev, totals):
+    """G3: the exact-LMC model of phase 4 (n = 10⁴, T = 7, q = 4), trained
+    as phase 4, its "lmc_iter" cache timed by part, ``posterior`` on 2,500
+    points; ``fit`` with the default (dense Woodbury) loss at q·n = 4096;
+    the posteriors and the LOO on the card against the CPU."""
+    X, Y = bench_data(N, seed=0)
+    route = default_route(fm, N)
+    model = make_model(pl, X, Y, dev)
+    with routed("default"):
+        res = train_run(torch, ck, model, lmc_mll, CHUNKS, STEPS_PER_CHUNK)
+    print(f"  G3 the exact-LMC model, trained as phase 4 ({CHUNKS}x"
+          f"{STEPS_PER_CHUNK} steps):")
+    report(res, lmc_counts(route, CHUNKS, STEPS_PER_CHUNK), totals)
+    x_test = torch.as_tensor(bench_data(N_TEST, seed=20)[0], device=dev)
+    k3_at(torch, ck, dev, x_test, model.train_x,
+          model.covar_module.lengthscale.detach())
+    torch.cuda.empty_cache()
+    v0 = torch.as_tensor(np.random.default_rng(19).standard_normal((N, T)),
+                         dtype=torch.float32, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), lmc_iter_probes(torch) as parts, \
+            projected_probes(torch) as probes:
+        cache, cache_ms = served(
+            torch, ck, "G3 precompute_posterior", 3,
+            lambda: model.precompute_posterior(v0=v0), totals)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    iters = parts["products"]
+    fn, args, kwargs = parts["pcg_call"]
+    with torch.no_grad():
+        wall, busy, _, _ = range_split(torch, lambda: fn(*args, **kwargs),
+                                       reps=1)
+    rest = cache_ms - sum(parts[k] for k in ("roots", "preconditioner", "PCG",
+                                             "spectral bound", "factors"))
+    print(f"  G3 precompute_posterior ({cache['kind']}): {cache_ms:.3f} ms = "
+          + ", ".join(f"{k} {parts[k]:.3f}" for k in (
+              "roots", "preconditioner", "PCG", "spectral bound", "factors"))
+          + f", the dense K3 stack and the rest {rest:.3f} ms; PCG "
+          f"{iters} iterations (tol 1e-5, at most 400), {busy:.3f} ms of "
+          f"them on the device (profiled, {wall:.3f} ms wall under the "
+          f"profiler): {(parts['PCG'] - busy) / max(iters, 1):.4f} ms an "
+          f"iteration off the device (its residual read and launches); "
+          f"host reads: {iters + 1} of PCG's residuals, "
+          f"{probes['factorizations']} of factorizations; peak memory "
+          f"{peak:.2f} GiB")
+    if cache["kind"] != "lmc_iter" or not 0 < iters <= 400:
+        raise SystemExit("chip_smoke: G3 did not take the lmc_iter route")
+    del fn, args, kwargs, parts
+    with torch.no_grad():
+        post, post_ms = served(torch, ck, "G3 posterior", 1,
+                               lambda: model.posterior(x_test, cache=cache),
+                               totals)
+    finite = bool(torch.isfinite(post.mean).all()
+                  and torch.isfinite(post.variance).all()
+                  and (post.variance > 0).all())
+    print(f"  G3 posterior ({N_TEST} points): {post_ms:.3f} ms; finite and "
+          f"positive: {finite}")
+    if not finite:
+        raise SystemExit("chip_smoke: G3's posterior is not finite")
+    del model, cache, post
+    torch.cuda.empty_cache()
+
+    Xd, Yd = bench_data(G_DENSE_N, seed=14)
+    dense = make_model(pl, Xd, Yd, dev)
+    zero_counts(ck)
+    _, info = pl.fit(dense, n_iter=4, lr=1e-2, device=dev)
+    losses = info["losses"]
+    print(f"  G3 fit with the default loss (the dense Woodbury MLL) at "
+          f"n={G_DENSE_N} q={Q}: losses {np.round(losses, 6).tolist()} in "
+          f"{info['train_time']:.2f} s; launches {read_counts(ck)}")
+    if len(losses) != 4 or not np.all(np.isfinite(losses)) \
+            or read_counts(ck) != expect(K3=4):
+        raise SystemExit("chip_smoke: the dense Woodbury MLL did not take 4 "
+                         "finite steps through K3")
+    totals["K3"] += 4
+    del dense
+
+    for iterative in (False, True):
+        lmc_posteriors_held(torch, pl, dev, F_CHECK_N, iterative,
+                            f"G3 n={F_CHECK_N}")
+    Xl, Yl = bench_data(G_LOO_N, seed=21)
+    card = moved(torch, make_model(pl, Xl, Yl, dev), 22)
+    cpu = carried(pl, card, torch.device("cpu"),
+                  lambda w: make_model(pl, Xl, Yl, w))
+    with torch.no_grad():
+        g, c = card.compute_loo(), cpu.compute_loo()
+    held(f"G3 n={G_LOO_N} LOO sigma2", g[0], c[0], scale_of(c[0]), 1e-3)
+    held(f"G3 n={G_LOO_N} LOO residual", g[1], c[1], scale_of(c[1]), 1e-3)
+
+
+def path_g_phase(torch, pl, ck, fm, dev, totals):
+    """Path G: prediction (G1, G2, G3), each with its wall time."""
+    for label, part in (("G1", path_g1), ("G2", path_g2), ("G3", path_g3)):
+        t0 = time.perf_counter()
+        part(torch, pl, ck, fm, dev, totals)
+        print(f"  {label} took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1707,6 +2143,7 @@ def main() -> int:
     from projected_lmc_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device("cuda")
+    start = time.perf_counter()
     card = card_line()
     print(f"phase 1: card {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
@@ -1758,6 +2195,11 @@ def main() -> int:
           f"(q={F1_Q}, {F1_STEPS} fit steps in each model configuration), "
           f"F2 n={N} p={T} q={Q} ({F2_STEPS} fit steps)")
     path_f_phase(torch, pl, ck, dev, totals)
+    print(f"path G: prediction served from a cache, G1 projected LMC n={N} "
+          f"p={T} q={Q}, G2 the paper's synthetic default (fit to the plateau, "
+          f"at most {G2_MAX_ITER} steps), G3 the exact-LMC model n={N}; "
+          f"{N_TEST} test points")
+    path_g_phase(torch, pl, ck, fm, dev, totals)
 
     meta = [("K1", "scaled_kernel_stack_sym",
              "projected_lmc_tpu/ops/pallas_kernels.py:278"),
@@ -1786,6 +2228,8 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=b, bound_by=by,
             library_ms=None))
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,14 +7,17 @@ JAX nor ``projected_lmc_tpu``. It ports the exact-LMC training step
 dense or fused iterative MLL, ``mlls.exact_mll``), the int8 stack
 (``matvec_int8``) and ``training.fit_two_phase``, and the paper's projected
 LMC (``models.projected.ProjectedGPModel`` trained on
-``mlls.projected_lmc_mll``), with a hand-written CUDA
+``mlls.projected_lmc_mll``), and prediction with all three: the exact,
+LMC and projected-LMC posteriors, LOO (``mlls.loo_pseudo_likelihood``) and
+``metrics.compute_metrics``, with a hand-written CUDA
 kernel for each TPU kernel of the JAX package (``ops/cuda_kernels.py``,
 sources in ``csrc/``). Entry points default to
 ``device="cuda"``; ``device="cpu"`` runs the kernels' plain PyTorch versions.
 """
 
 from .likelihoods import GaussianLikelihood, MultitaskGaussianLikelihood
-from .mlls import exact_mll, projected_lmc_mll
+from .metrics import compute_metrics
+from .mlls import exact_mll, loo_pseudo_likelihood, projected_lmc_mll
 from .models.exact import ExactGPModel
 from .models.multitask import MultitaskGPModel
 from .models.projected import ProjectedGPModel
@@ -22,6 +25,6 @@ from .training import fit, fit_two_phase, lambda_lr_schedule
 from .utils.checkpoint import load_jax_state
 
 __all__ = ["ExactGPModel", "GaussianLikelihood", "MultitaskGaussianLikelihood",
-           "MultitaskGPModel", "ProjectedGPModel", "exact_mll", "fit",
-           "fit_two_phase", "lambda_lr_schedule", "load_jax_state",
-           "projected_lmc_mll"]
+           "MultitaskGPModel", "ProjectedGPModel", "compute_metrics",
+           "exact_mll", "fit", "fit_two_phase", "lambda_lr_schedule",
+           "load_jax_state", "loo_pseudo_likelihood", "projected_lmc_mll"]

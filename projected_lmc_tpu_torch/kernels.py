@@ -177,16 +177,25 @@ class _StationaryKernel(Module):
                 value.expand_as(self.raw_lengthscale)))
         return self
 
-    def forward(self, x1, x2=None, out_dtype=None):
-        """Dense (batch, n, m) evaluation on shared 2-D inputs."""
+    def forward(self, x1, x2=None, diag: bool = False, out_dtype=None):
+        """k(x1, x2) on inputs shared by the batch, (n, d) or 1-D (one
+        feature): dense (batch, n, m) through
+        :func:`stationary_kernel_matrix` (kernel K3 on the card), or with
+        ``diag`` the (batch, min(n, m)) diagonal k(x1_i, x2_i), in plain
+        torch as the JAX package leaves it to XLA."""
         x2 = x1 if x2 is None else x2
+        x1, x2 = (x[:, None] if x.dim() == 1 else x for x in (x1, x2))
         if x1.dim() != 2 or x2.dim() != 2:
-            raise NotImplementedError(
-                "batched 3-D inputs and diagonals are ported with prediction "
-                "(a later slice)")
+            raise NotImplementedError("batched 3-D kernel inputs are ported "
+                                      "in a later slice")
         if self.active_dims is not None:
             idx = list(self.active_dims)
             x1, x2 = x1[:, idx], x2[:, idx]
+        if diag:
+            n = min(x1.shape[0], x2.shape[0])
+            d2 = (((x1[:n] - x2[:n])[None] / self.lengthscale) ** 2).sum(-1)
+            K = ck.profile(self._kind, d2)
+            return K if out_dtype is None else K.to(out_dtype)
         return stationary_kernel_matrix(x1, x2, self.lengthscale, self._kind,
                                         out_dtype, self.device)
 
@@ -237,8 +246,10 @@ class ScaleKernel(Module):
     def lengthscale(self):
         return self.base_kernel.lengthscale
 
-    def forward(self, x1, x2=None, out_dtype=None):
-        K = self.base_kernel(x1, x2) * self.outputscale[:, None, None]
+    def forward(self, x1, x2=None, diag: bool = False, out_dtype=None):
+        K = self.base_kernel(x1, x2, diag=diag)
+        s = self.outputscale
+        K = K * (s[:, None] if diag else s[:, None, None])
         return K if out_dtype is None else K.to(out_dtype)
 
     def prior_log_prob(self):

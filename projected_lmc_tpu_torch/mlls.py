@@ -1,5 +1,6 @@
 """Marginal log-likelihood objectives (port of ``projected_lmc_tpu/mlls.py``:
-``exact_mll`` and the projected model's ``projected_lmc_mll``)."""
+``exact_mll``, the projected model's ``projected_lmc_mll`` and the LOO
+pseudo-likelihood ``loo_pseudo_likelihood``)."""
 
 from __future__ import annotations
 
@@ -69,3 +70,13 @@ def projected_lmc_mll(model, with_terms: bool = False):
     if with_terms:
         return res, terms
     return res
+
+
+def loo_pseudo_likelihood(model, targets=None):
+    """LOO pseudo-likelihood (projected_lmc.py:86-105):
+    (1/n)·Σᵢ [−½ log σᵢ² − ½ (yᵢ−μᵢ)²/σᵢ²] − ½ log 2π from the model's
+    ``compute_loo``; differentiable for a single-output ``ExactGPModel``."""
+    sigma2, yminusmu = model.compute_loo() if targets is None \
+        else model.compute_loo(targets=targets)
+    res = (-0.5 * torch.log(sigma2) - 0.5 * yminusmu ** 2 / sigma2).sum(0)
+    return res.sum() / sigma2.shape[0] - 0.5 * math.log(2 * math.pi)

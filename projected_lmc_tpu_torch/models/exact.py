@@ -4,9 +4,11 @@ marginal-likelihood part of ``projected_lmc_tpu/models/exact.py``).
 ``n_tasks`` independent single-output GPs, evaluated as one batched
 Cholesky, or, above the dense ceiling (T·n² > ``ITER_TN2_MAX``), through
 the fused iterative MLL of ``ops/fused_mll.py``: the batch IS the LMC
-Σ_b K_b ⊗ e_b e_bᵀ + I ⊗ diag(σ²) with identity mixing. The posterior,
-LOO and the SGPR path (``n_inducing_points``) are later slices;
-``lscales``/``outputscale`` read the learned hyperparameters.
+Σ_b K_b ⊗ e_b e_bᵀ + I ⊗ diag(σ²) with identity mixing. The posterior
+factorizes the training system once (``precompute_posterior``, a plain
+dict) for any number of ``posterior`` calls; ``compute_loo`` gives the exact
+leave-one-out residuals. The SGPR path (``n_inducing_points``) is a later
+slice; ``lscales``/``outputscale`` read the learned hyperparameters.
 """
 
 from __future__ import annotations
@@ -17,12 +19,15 @@ import warnings
 import numpy as np
 import torch
 
+from ..distributions import MultivariateNormal, MultitaskMultivariateNormal
 from ..kernels import KERNEL_REGISTRY, handle_covar
+from ..likelihoods import GaussianLikelihood
 from ..means import MEAN_REGISTRY
 from ..module import Module
 from ..ops import fused_mll
 from ..ops import iterative as it_ops
-from ..ops.cholesky import logdet_from_chol, safe_cholesky, solve_triangular
+from ..ops.cholesky import (cho_solve, chol_inverse_diag, logdet_from_chol,
+                            safe_cholesky, solve_triangular)
 from ..utils.device import resolve_device
 
 
@@ -51,6 +56,13 @@ def _canon_targets(y, n_tasks, orientation: str = "auto"):
     return y.T
 
 
+def _as_inputs(x, ref):
+    """``x`` (n, d), or 1-D for one feature, as a tensor in ``ref``'s dtype
+    on its device."""
+    x = torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
+    return x[:, None] if x.dim() == 1 else x
+
+
 def _resolve(registry, spec, default, what):
     spec = default if spec is None else spec
     if not isinstance(spec, str):
@@ -77,7 +89,7 @@ class ExactGPModel(Module):
         super().__init__()
         if n_inducing_points is not None:
             raise NotImplementedError("the SGPR path (n_inducing_points) is "
-                                      "ported in a later slice")
+                                      "ported with slice 5")
         dev = resolve_device(device)
         x = torch.as_tensor(np.asarray(train_x), device=dev)
         if x.dim() == 1:
@@ -102,6 +114,32 @@ class ExactGPModel(Module):
     @property
     def device(self):
         return self.train_x.device
+
+    def _targets(self, targets, orientation):
+        if targets is None:
+            return self.train_y
+        return _canon_targets(torch.as_tensor(
+            targets, dtype=self.train_x.dtype, device=self.device),
+            self.n_funcs, orientation)
+
+    def prior(self, x) -> MultivariateNormal:
+        """Prior p(f(x)): batched MVN with mean (T, n), covariance
+        (T, n, n)."""
+        x = _as_inputs(x, self.train_x)
+        return MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    def forward(self, x):
+        """Train-mode forward (the prior), multitask-wrapped when the
+        likelihood is not a batched Gaussian."""
+        mvn = self.prior(x)
+        if self.n_funcs > 1 and not isinstance(self.likelihood,
+                                               GaussianLikelihood):
+            return MultitaskMultivariateNormal.from_batch_mvn(mvn)
+        return mvn
+
+    def _train_covar(self):
+        """K + σ²I at the training inputs, (T, n, n)."""
+        return self.likelihood.add_to_covar(self.covar_module(self.train_x))
 
     def log_marginal(self, y=None, x=None, orientation: str = "auto"):
         """Per-task log N(y_t; m_t, K_t + σ_t² I), shape (T,), by a batched
@@ -193,8 +231,83 @@ class ExactGPModel(Module):
             res = np.ones((self.n_funcs, 1))
         return res.squeeze() if unpacked else res
 
+    def kernel_cond(self):
+        """Condition number of the training covariance with its noise,
+        (T,)."""
+        return torch.linalg.cond(self._train_covar())
+
+    # -- posterior -------------------------------------------------------------
+    def precompute_posterior(self, targets=None, orientation: str = "auto"):
+        """Factorize the training system once: dict(kind="exact", L, alpha)
+        for :meth:`posterior`. ``targets`` re-targets the model (the
+        projected data of ``ProjectedGPModel``)."""
+        delta = self._targets(targets, orientation) \
+            - self.mean_module(self.train_x)
+        L = safe_cholesky(self._train_covar())
+        alpha = cho_solve(L, delta[..., None])[..., 0]          # (T, n)
+        return dict(kind="exact", L=L, alpha=alpha)
+
+    def posterior(self, x_star, cache=None, full_cov: bool = True,
+                  targets=None) -> MultivariateNormal:
+        """Latent posterior p(f* | data), a batched MVN (T, n*): dense
+        covariance with ``full_cov``, else its diagonal, clipped at 1e-12.
+        The (T, n, n*) cross-covariance is kernel K3 on the card."""
+        if cache is None:
+            cache = self.precompute_posterior(targets)
+        x_star = _as_inputs(x_star, self.train_x)
+        Ks = self.covar_module(self.train_x, x_star)            # (T, n, n*)
+        mean = self.mean_module(x_star) + torch.einsum(
+            "tns,tn->ts", Ks, cache["alpha"])
+        Vs = solve_triangular(cache["L"], Ks, lower=True)
+        if full_cov:
+            covar = self.covar_module(x_star) - Vs.transpose(-1, -2) @ Vs
+            return MultivariateNormal(mean, covar)
+        var = self.covar_module(x_star, diag=True) - (Vs * Vs).sum(-2)
+        return _DiagMVN(mean, torch.clamp(var, min=1e-12))
+
+    def compute_loo(self, targets=None, complex_mean: bool = False,
+                    orientation: str = "auto"):
+        """Exact LOO variances and residuals by σᵢ² = 1/[K⁻¹]ᵢᵢ, both (n, T).
+        Detached when the model has more than one output; a single output
+        stays differentiable (``mlls.loo_pseudo_likelihood`` trains through
+        it). ``complex_mean`` needs a mean with a basis matrix, which the
+        ported means lack: it raises ``ValueError``, as the JAX model does for
+        them."""
+        if complex_mean:
+            raise ValueError("A complex mean treatment was required, but the "
+                             "model mean function doesn't allow it!")
+        delta = self._targets(targets, orientation) \
+            - self.mean_module(self.train_x)
+        L = safe_cholesky(self._train_covar())
+        sigma2 = 1.0 / chol_inverse_diag(L)                     # (T, n)
+        yminusmu = cho_solve(L, delta[..., None])[..., 0] * sigma2
+        if self.n_funcs > 1:
+            return sigma2.T.detach(), yminusmu.T.detach()
+        return sigma2.T, yminusmu.T
+
     def _precond_roots(self, x, rank: int, jitter: float = 1e-4):
         """Nyström roots of the batched task kernels at strided landmarks
         (ops.iterative.nystrom_roots_from_covar), (T, n, rank)."""
         return it_ops.nystrom_roots_from_covar(self.covar_module, x, rank,
                                                jitter)
+
+
+class _DiagMVN(MultivariateNormal):
+    """An MVN that carries only the diagonal of its covariance."""
+
+    def __init__(self, mean, var):
+        self.mean = mean
+        self._var = var
+
+    @property
+    def variance(self):
+        return self._var
+
+    @property
+    def covariance_matrix(self):
+        return torch.diag_embed(self._var)
+
+    def log_prob(self, value):
+        z2 = (value - self.mean) ** 2 / self._var
+        return -0.5 * (z2 + torch.log(self._var)
+                       + math.log(2 * math.pi)).sum(-1)

@@ -1,13 +1,19 @@
-"""Exact multitask GP, LMC coregionalization, on the fused iterative MLL
-(port of the main-path subset of ``projected_lmc_tpu/models/multitask.py``).
+"""Exact multitask GP, LMC coregionalization (port of the LMC part of
+``projected_lmc_tpu/models/multitask.py``).
 
 Σ = Σ_b K_b ⊗ h_b h_bᵀ + I ⊗ Σt with one stationary kernel per latent and
 rank-1 task factors h_b (``covar_factor``, SVD-initialized from the labels).
-The marginal likelihood is the fused op of ``ops/fused_mll.py``: stack build
-(kernel K1; K8 for an int8 stack, K6 under ``PLMC_SYM_BUILD=0``),
-Nyström-preconditioned CG with Lanczos quadrature, and a backward through
-kernel K2 (or K4/K5/K7, the routes of ``ops/fused_mll``); the
-preconditioner's landmark blocks are kernel K3.
+The marginal likelihood is, up to q·n = ``DENSE_QN_MAX``, the dense Woodbury
+one of ``ops/woodbury.py`` (K3, batched Cholesky), and above it the fused op
+of ``ops/fused_mll.py``: stack build (kernel K1; K8 for an int8 stack, K6
+under ``PLMC_SYM_BUILD=0``), Nyström-preconditioned CG with Lanczos
+quadrature, and a backward through kernel K2 (or K4/K5/K7, the routes of
+``ops/fused_mll``); the preconditioner's landmark blocks are kernel K3.
+
+The posterior factorizes once (``precompute_posterior``, a plain dict):
+the dense Woodbury factors ("lmc"), or above ``DENSE_QN_MAX`` a PCG solve
+on the K3 stack with a conservative variance through Nyström factors
+inflated by the residual's spectral bound ("lmc_iter").
 """
 
 from __future__ import annotations
@@ -16,15 +22,18 @@ import numpy as np
 import torch
 
 from ..constraints import softplus
+from ..distributions import MultitaskMultivariateNormal, SumKronRank1Cov
 from ..kernels import KERNEL_REGISTRY, ScaleKernel, handle_covar
 from ..likelihoods import MultitaskGaussianLikelihood
 from ..means import MEAN_REGISTRY
 from ..module import Module
 from ..ops import fused_mll
 from ..ops import iterative as it_ops
+from ..ops import woodbury as wb_ops
+from ..ops.cholesky import cho_solve, safe_cholesky, solve_triangular
 from ..ops.init_ops import init_lmc_coefficients
 from ..utils.device import resolve_device
-from .exact import _canon_targets, _resolve
+from .exact import _as_inputs, _canon_targets, _resolve
 
 
 def _fused_stationary_spec(cov, dim):
@@ -65,9 +74,11 @@ class MultitaskGPModel(Module):
         super().__init__()
         if model_type not in ("ICM", "LMC"):
             raise ValueError("Wrong specified model type, should be ICM or LMC")
-        if model_type == "ICM" or n_inducing_points is not None:
-            raise NotImplementedError("the ICM and SGPR models are ported in "
-                                      "later slices")
+        if model_type == "ICM":
+            raise NotImplementedError("the ICM model is ported with slice 4")
+        if n_inducing_points is not None:
+            raise NotImplementedError("the SGPR path (n_inducing_points) is "
+                                      "ported with slice 5")
         dev = resolve_device(device)
         x_host = np.asarray(train_x)
         y_host = np.asarray(train_y, x_host.dtype)
@@ -128,6 +139,28 @@ class MultitaskGPModel(Module):
         return F @ F.transpose(-1, -2) + torch.diag_embed(
             softplus(self.raw_var))
 
+    def lmc_coefficients(self):
+        """(q, T) mixing coefficients, as a numpy array."""
+        return self.covar_factor[..., 0].detach().cpu().numpy()
+
+    def _mixing(self):
+        """H (T, q) and the LMC's task noise Σt + Σ_b diag(softplus(raw_var_b))."""
+        return (self.covar_factor[..., 0].T,
+                self.likelihood.task_covariance()
+                + torch.diag(self._lmc_extra_diag()))
+
+    def _train_delta(self):
+        """Y − m(x), (n, T), at the training inputs."""
+        return self.train_y.T - self.mean_module(self.train_x).T
+
+    def forward(self, x):
+        """Prior multitask distribution at x: mean (n, T), covariance
+        Σ_b K_b ⊗ h_b h_bᵀ."""
+        x = _as_inputs(x, self.train_x)
+        return MultitaskMultivariateNormal(
+            self.mean_module(x).T,
+            SumKronRank1Cov(self.covar_module(x), self.covar_factor[..., 0].T))
+
     def _lmc_extra_diag(self):
         """Σ_b diag(softplus(raw_var_b)): the per-task variance capacity,
         carried as a white task-covariance term (see the JAX model)."""
@@ -144,9 +177,10 @@ class MultitaskGPModel(Module):
             matvec_bf16: bool = False, precond_rank: int = 0,
             quad_method: str = "pcg", precond_roots=None,
             matvec_int8: bool = False, eps=None, xi=None, generator=None):
-        """Exact multitask MLL / (n·T), plus hyper-prior terms, through the
-        fused PCG estimator (``iterative``, ``precond_rank > 0``,
-        ``quad_method="pcg"``).
+        """Exact multitask MLL / (n·T), plus hyper-prior terms: the dense
+        Woodbury log-density up to q·n = ``DENSE_QN_MAX`` (or with
+        ``iterative=False``), above it the fused PCG estimator
+        (``precond_rank > 0``, ``quad_method="pcg"``).
 
         eps (num_probes, n, T) and xi (num_probes, q, rank) are the standard
         normals of the probes; when not given they are drawn from
@@ -160,23 +194,24 @@ class MultitaskGPModel(Module):
         y = self.train_y if y is None else _canon_targets(
             torch.as_tensor(y, dtype=x.dtype, device=x.device), self.n_tasks)
         n = x.shape[0]
+        Ydelta = y.T - self.mean_module(x).T                    # (n, T)
+        H, St = self._mixing()
         if iterative is None:
             iterative = self.n_latents * n > self.DENSE_QN_MAX
         if not iterative:
-            raise NotImplementedError("the dense Woodbury LMC MLL is ported "
-                                      "in a later slice; pass iterative=True")
+            ll = wb_ops.lmc_log_prob(self.covar_module(x), H, St, Ydelta)
+            return (ll + self.covar_module.prior_log_prob()) \
+                / (n * self.n_tasks)
         if precond_rank <= 0 or quad_method != "pcg":
-            raise NotImplementedError("only the Nyström-preconditioned "
-                                      "quad_method='pcg' route is ported")
+            raise NotImplementedError(
+                "the unpreconditioned SLQ route (precond_rank <= 0 or "
+                "quad_method='slq') is ported with slice 6; pass "
+                "precond_rank > 0")
         spec = _fused_stationary_spec(self.covar_module, self.dim)
         if spec is None:
             raise NotImplementedError("the composed kernel→log-prob route is "
                                       "ported in a later slice")
         kind, ls, os_ = spec
-        Ydelta = y.T - self.mean_module(x).T                    # (n, T)
-        H = self.covar_factor[..., 0].T                         # (T, q)
-        St = self.likelihood.task_covariance() \
-            + torch.diag(self._lmc_extra_diag())
         if eps is None or xi is None:
             if generator is None:
                 generator = torch.Generator(device=x.device).manual_seed(0)
@@ -193,3 +228,103 @@ class MultitaskGPModel(Module):
             max_cg_iters, cg_tol, matvec_bf16, precond_rank, matvec_int8,
             device=x.device)
         return (ll + self.covar_module.prior_log_prob()) / (n * self.n_tasks)
+
+    # -- posterior ---------------------------------------------------------------
+    def precompute_posterior(self, iterative: bool = None,
+                             max_cg_iters: int = 400, cg_tol: float = 1e-5,
+                             precond_rank: int = 256, v0=None,
+                             generator=None):
+        """Factorize the training system once, a dict for :meth:`posterior`.
+
+        Up to q·n = ``DENSE_QN_MAX`` (or with ``iterative=False``) the dense
+        Woodbury factors ("lmc"). Above it ("lmc_iter"): the mean from a
+        tight PCG solve on the materialized (q, n, n) stack (kernel K3),
+        Nyström-preconditioned at ``precond_rank``, and a conservative
+        variance through M_up = Σ_b Q_b ⊗ h_bh_bᵀ + I ⊗ (Σt + c·I) ⪰ Σ,
+        c the residual's λmax from power iteration started at ``v0``
+        (n, T), or at a draw from ``generator``."""
+        x = self.train_x
+        n = x.shape[0]
+        Ydelta = self._train_delta()
+        H, St = self._mixing()
+        if iterative is None:
+            iterative = self.n_latents * n > self.DENSE_QN_MAX
+        Ks = self.covar_module(x)
+        if not iterative:
+            fac = wb_ops.lmc_factors(Ks, H, St)
+            return dict(kind="lmc", fac=fac, alpha=wb_ops.lmc_solve(Ydelta, fac),
+                        H=H, Sigma_t=St)
+        roots = self._precond_roots(x, precond_rank)
+        minv = it_ops.nystrom_precond(Ks, H, St, precond_rank, roots=roots)
+        Md = torch.clamp(it_ops._jacobi_diag(Ks, H, St), min=1e-10)
+        alpha = it_ops.batched_pcg(
+            lambda V: it_ops.lmc_matvec(Ks, H, St, V), Ydelta[None], Md,
+            max_iters=max_cg_iters, tol=cg_tol, minv=minv)[0]
+        c = it_ops.residual_spectral_bound(Ks, roots, H, v0=v0,
+                                           generator=generator)
+        eye = torch.eye(self.n_tasks, dtype=St.dtype, device=St.device)
+        fac_up = wb_ops.lmc_factors_from_roots(roots, H, St + c * eye)
+        return dict(kind="lmc_iter", alpha=alpha, H=H, Sigma_t=St, fac=fac_up)
+
+    def posterior(self, x_star, cache=None, observed: bool = True):
+        """Posterior mean and variance diagonal (n*, T) at x_star, with the
+        observation noise when ``observed``. The (q, n*, n) cross-covariance
+        is kernel K3 on the card; the prior and noise use the true Σt, the
+        "lmc_iter" correction the inflated factors."""
+        if cache is None:
+            cache = self.precompute_posterior()
+        x_star = _as_inputs(x_star, self.train_x)
+        Kstars = self.covar_module(x_star, self.train_x)        # (q, n*, n)
+        mean = wb_ops.lmc_posterior_mean(Kstars, cache["H"], cache["alpha"],
+                                         self.mean_module(x_star).T)
+        var = wb_ops.lmc_posterior_variance(
+            Kstars, self.covar_module(x_star, diag=True), cache["H"],
+            cache["Sigma_t"], cache["fac"], noise=observed)
+        return _MeanVarMT(mean, var)
+
+    def compute_var(self, x_star):
+        """The ICM's memory-safe posterior variance; not defined for LMC."""
+        raise ValueError("This method is only available for ICM models")
+
+    def _dense_cov(self):
+        H, St = self._mixing()
+        return SumKronRank1Cov(self.covar_module(self.train_x), H, St).dense()
+
+    def compute_loo(self):
+        """Multitask LOO on the dense (n·T)² system: (σ², y − μ), both
+        (n, T), detached."""
+        n = self.train_x.shape[0]
+        dense = self._dense_cov()
+        L = safe_cholesky(dense)
+        eye = torch.eye(dense.shape[-1], dtype=dense.dtype,
+                        device=dense.device)
+        Linv = solve_triangular(L, eye, lower=True)
+        sigma2 = 1.0 / (Linv * Linv).sum(0)
+        alpha = cho_solve(L, self._train_delta().reshape(-1, 1))[:, 0]
+        return (sigma2.reshape(n, self.n_tasks).detach(),
+                (alpha * sigma2).reshape(n, self.n_tasks).detach())
+
+    def kernel_cond(self):
+        """Condition number of the dense (n·T, n·T) training covariance with
+        its noise."""
+        return torch.linalg.cond(self._dense_cov())
+
+
+class _MeanVarMT:
+    """A multitask prediction: mean and variance diagonals, (n*, T)."""
+
+    def __init__(self, mean, var):
+        self.mean = mean
+        self._var = var
+
+    @property
+    def variance(self):
+        return self._var
+
+    @property
+    def stddev(self):
+        return torch.sqrt(self._var)
+
+    def confidence_region(self, k: float = 2.0):
+        s = self.stddev
+        return self.mean - k * s, self.mean + k * s

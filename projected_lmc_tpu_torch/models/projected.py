@@ -1,5 +1,5 @@
-"""Projected LMC, the paper's model (port of the training part of
-``projected_lmc_tpu/models/projected.py``).
+"""Projected LMC, the paper's model (port of
+``projected_lmc_tpu/models/projected.py`` without the SGPR path).
 
 q batch-independent exact latent GPs on the projected data
 T(Y) = R⁻¹QᵀYᵀ, coupled by the mixing matrix H = QR: the p-coupled LMC
@@ -16,9 +16,13 @@ Mixing-matrix parametrizations:
 
 Noise coupling: BDN (block-diagonal noise; else the learned cross term M),
 and a scalar, diagonal or full (Cholesky-parametrized) B̃ for the
-discarded-noise factor. Prediction (``predict``, the latent posterior, LOO)
-is ported with slice 3 and the SGPR path (``n_inducing_points``) with
-slice 5; both raise ``NotImplementedError`` here.
+discarded-noise factor.
+
+Prediction re-targets the latent exact GP to the projected data:
+``prediction_cache`` factorizes the (q, n, n) training system once (K3 and
+one batched Cholesky), and each ``predict`` then costs the (q, n, n*)
+cross-covariance (K3) and one triangular solve. The SGPR path
+(``n_inducing_points``) is ported with slice 5 and raises here.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from ..constraints import (GreaterThan, lower_triangular_param,
                            positive_diagonal_param_inverse, scalar_param,
                            upper_triangular_param,
                            upper_triangular_param_inverse)
+from ..distributions import MultitaskMultivariateNormal, SumKronRank1Cov
 from ..likelihoods import FixedTaskNoise, GaussianLikelihood
 from ..module import Module
 from ..ops.cholesky import safe_cholesky, solve_triangular
@@ -117,11 +122,6 @@ def _cayley_skew(X):
 
 
 _ORTHO_MAPS = {"matrix_exp": _expm_skew, "cayley": _cayley_skew}
-
-
-def _prediction_slice(what: str):
-    return NotImplementedError(f"ProjectedGPModel.{what} is ported with "
-                               f"prediction (slice 3)")
 
 
 class LMCMixingMatrix(Module):
@@ -406,21 +406,52 @@ class ProjectedGPModel(ExactGPModel):
         chol = safe_cholesky(Sigma + 1e-6 * eye_p)
         return FixedTaskNoise(chol if differentiable else chol.detach())
 
-    # -- prediction: slice 3 --------------------------------------------------
+    # -- latent and task posteriors ------------------------------------------
     def prediction_cache(self):
-        raise _prediction_slice("prediction_cache")
+        """Factorize the training system once for repeated posterior
+        queries: project the task targets and factorize K + Σ_P. Pass the
+        returned dict as ``cache=`` to :meth:`predict` or
+        :meth:`compute_latent_distrib`; each call then costs only the
+        (q, n, n*) cross-covariance and its solve."""
+        proj = self.project_data(self.train_y_tasks)
+        return self.precompute_posterior(targets=proj, orientation="tn")
 
     def compute_latent_distrib(self, x, full_cov: bool = True, cache=None):
-        raise _prediction_slice("compute_latent_distrib")
+        """Batched latent posterior at x, the exact GP re-targeted to the
+        projected data."""
+        if cache is None:
+            cache = self.prediction_cache()
+        return self.posterior(x, cache=cache, full_cov=full_cov)
 
     def latent_prior(self, x):
-        raise _prediction_slice("latent_prior")
+        """Training-mode forward: the batched latent prior."""
+        return self.prior(x)
 
     def compute_loo(self):
-        raise _prediction_slice("compute_loo")
+        """LOO in latent space: (σ², y − μ), both (n, q), detached when
+        q > 1."""
+        proj = self.project_data(self.train_y_tasks)
+        return super().compute_loo(targets=proj, orientation="tn")
 
     def forward(self, x, observed: bool = False, full_cov: bool = False):
-        raise _prediction_slice("__call__")
+        """Eval-mode full posterior: the latent posterior mixed up to the
+        tasks, covariance Σ_b K_b ⊗ h_b h_bᵀ (+ I ⊗ Σ when ``observed``)."""
+        latent = self.compute_latent_distrib(x, full_cov=True)
+        H = self.lmc_coefficients()                             # (q, p)
+        Sigma = self.full_likelihood().task_covariance() if observed else None
+        return MultitaskMultivariateNormal(
+            latent.mean.T @ H,
+            SumKronRank1Cov(latent.covariance_matrix, H.T, Sigma))
 
     def predict(self, x, observed: bool = True, cache=None):
-        raise _prediction_slice("predict")
+        """(mean, variance), both (n*, p), at x, with the observation noise
+        when ``observed``. Pass ``cache=model.prediction_cache()`` to reuse
+        the training system's factorization across calls."""
+        latent = self.compute_latent_distrib(x, full_cov=False, cache=cache)
+        H = self.lmc_coefficients()
+        mean = latent.mean.T @ H
+        var = latent.variance.T @ (H * H)
+        if observed:
+            Sigma = self.full_likelihood().task_covariance()
+            var = var + torch.diagonal(Sigma)[None, :]
+        return mean, var

@@ -99,3 +99,16 @@ def cho_solve(L, B):
 def logdet_from_chol(L):
     """log det(L Lᵀ) = 2 Σ log diag(L); batched."""
     return 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+
+
+def chol_inverse_diag(L):
+    """diag((L Lᵀ)⁻¹) from the full inverse of the factor, batched; the
+    exact LOO identities σᵢ² = 1/[K⁻¹]ᵢᵢ. Differentiable (the LOO
+    pseudo-likelihood trains through it)."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    return (Linv * Linv).sum(-2)
+
+
+def add_jitter(A, jitter):
+    return A + jitter * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)

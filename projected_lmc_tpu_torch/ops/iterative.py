@@ -326,3 +326,89 @@ def _pcg_fwd_impl(Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
     logdet = logdet_M + (rz0[1:] * logquad).mean()
     ll = -0.5 * (quad + logdet + n * t * math.log(2 * math.pi))
     return ll, (alpha, W, minv(z))
+
+
+# -- the matrix-free LMC posterior (models.multitask, "lmc_iter") -------------
+
+def _jacobi_diag(Ks, H, St):
+    """diag(Σ) as an (n, T) grid: Σ_b K_b[i,i] h_b[t]² + Σt[t,t]."""
+    kdiag = torch.diagonal(Ks, dim1=-2, dim2=-1)            # (q, n)
+    return kdiag.T @ (H * H).T + torch.diagonal(St)[None, :]
+
+
+def nystrom_precond(Ks, H, St, rank: int = 128, jitter: float = 1e-4,
+                    roots=None):
+    """The apply M⁻¹ for M = Σ_b Q_b ⊗ h_b h_bᵀ + I ⊗ Σt, Q_b the rank-
+    ``rank`` Nyström approximations of the K_b (strided landmarks), or the
+    given ``roots`` (q, n, m)."""
+    return _nystrom_precond_parts(Ks, H, St, rank, jitter, roots)[2]
+
+
+def batched_pcg(matvec, B, Md, max_iters: int = 256, tol: float = 1e-4,
+                minv=None):
+    """Preconditioned CG for r simultaneous (n, T)-shaped right-hand sides
+    B (r, n, T); Md (n, T) a positive diagonal (the Jacobi preconditioner
+    unless ``minv`` is given). Returns X with Σ X_k = B_k.
+
+    Stops, as the JAX ``while_loop`` does, before the first iteration at
+    which every right-hand side has a relative residual ≤ ``tol``, or after
+    ``max_iters``: one host read of the residuals an iteration. A right-hand
+    side whose direction meets pAp ≤ 0 (operator noise) keeps its iterate
+    and restarts from steepest descent."""
+    if minv is None:
+        minv = lambda R: R / Md                             # noqa: E731
+
+    def dot(a, b):
+        return (a * b).sum(dim=(-2, -1))                    # (r,)
+
+    bnorm = torch.sqrt(torch.clamp(dot(B, B), min=1e-30))
+    X = torch.zeros_like(B)
+    R = B
+    Z = minv(R)
+    P = Z
+    rz = dot(R, Z)
+    for _ in range(max_iters):
+        rel = torch.sqrt(torch.clamp(dot(R, R), min=0.0)) / bnorm
+        if not bool(rel.max() > tol):
+            break
+        Ap = matvec(P)
+        pAp = dot(P, Ap)
+        ok = pAp > 0.0
+        alpha = torch.where(ok, rz / torch.clamp(pAp, min=1e-30),
+                            torch.zeros_like(rz))
+        X = X + alpha[:, None, None] * P
+        R = torch.where(ok[:, None, None], R - alpha[:, None, None] * Ap, R)
+        Z = minv(R)
+        rz_new = dot(R, Z)
+        beta = torch.where(ok, rz_new / torch.clamp(rz, min=1e-30),
+                           torch.zeros_like(rz))
+        P = torch.where(ok[:, None, None], Z + beta[:, None, None] * P, Z)
+        rz = rz_new
+    return X
+
+
+def residual_spectral_bound(Ks, roots, H, n_iters: int = 12, v0=None,
+                            generator=None):
+    """Power-iteration estimate of λmax of the Nyström residual operator
+    R(V) = Σ_b (K_b − R_b R_bᵀ)(V h_b) h_bᵀ, clamped at 0: the inflation c
+    that makes M + c·I bound Σ from above (a conservative posterior
+    variance). The start vector is ``v0`` (n, T), or a standard normal
+    draw from ``generator`` when ``v0`` is None."""
+    n, t = Ks.shape[-1], H.shape[0]
+
+    def resid_mv(V):
+        W = V @ H                                           # (n, q)
+        RtW = torch.einsum("bnk,nb->bk", roots, W)
+        QW = torch.einsum("bnk,bk->nb", roots, RtW)
+        return (_stack_matmul(Ks, W) - QW) @ H.T
+
+    if v0 is None:
+        v0 = torch.randn((n, t), generator=generator, dtype=Ks.dtype,
+                         device=Ks.device)
+    v = v0 / torch.sqrt((v0 * v0).sum())
+    for _ in range(n_iters):
+        w = resid_mv(v)
+        v = w / torch.clamp(torch.sqrt((w * w).sum()), min=1e-30)
+    w = resid_mv(v)
+    return torch.clamp((v * w).sum() / torch.clamp((v * v).sum(), min=1e-30),
+                       min=0.0)

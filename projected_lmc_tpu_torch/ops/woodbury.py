@@ -1,0 +1,117 @@
+"""Exact LMC marginal likelihood and posterior by the matrix-determinant
+lemma (port of ``projected_lmc_tpu/ops/woodbury.py``, dense part).
+
+With f = (H ⊗ I) u the LMC covariance is
+
+    Cov = D + A G Aᵀ,   D = I_n ⊗ Σt,   G = blockdiag(K_b),   A[(i,t),(b,j)] = H[t,b] δ_ij
+
+and with G = L Lᵀ (one batched Cholesky over the q latents, or low-rank
+roots) the capacitance Cap = I_{qr} + L_Gᵀ (C ⊗ I) L_G, C = Hᵀ Σt⁻¹ H (q×q),
+gives logdet Cov = n·logdet Σt + logdet Cap and Woodbury solves. Every step
+is a batched Cholesky, a triangular solve or a large product (true fp32 on
+the card, see ``utils.device``). The posterior variance runs over test
+points a chunk at a time, in a Python loop.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .cholesky import (add_jitter, cho_solve, logdet_from_chol,
+                       safe_cholesky, solve_triangular)
+
+
+def lmc_factors(Ks, H, Sigma_t, jitter: float = 1e-6):
+    """The Woodbury factors from dense latent kernels Ks (q, n, n), H (t, q)
+    and Σt (t, t): the roots are the n×n Cholesky factors."""
+    return lmc_factors_from_roots(safe_cholesky(add_jitter(Ks, jitter)), H,
+                                  Sigma_t)
+
+
+def lmc_factors_from_roots(roots, H, Sigma_t):
+    """Woodbury factors for Σ = Σ_b (R_b R_bᵀ) ⊗ h_b h_bᵀ + I ⊗ Σt, roots
+    R (q, n, r): dict with L_G = R, Rt = chol(Σt), C, SinvH, L_cap, H and
+    the sizes q, n, r. The capacitance's blocks C[b,c]·L_bᵀL_c come from one
+    (q·r, n)·(n, q·r) product of Ltall[m, (c,l)] = L_G[c,m,l]."""
+    q, n, r = roots.shape
+    Rt = safe_cholesky(Sigma_t)
+    SinvH = cho_solve(Rt, H)                        # Σt⁻¹ H  (t, q)
+    C = H.T @ SinvH                                 # (q, q)
+    Ltall = roots.permute(1, 0, 2).reshape(n, q * r)
+    P = (Ltall.T @ Ltall).reshape(q, r, q, r)
+    cap = (C[:, None, :, None] * P).reshape(q * r, q * r) \
+        + torch.eye(q * r, dtype=roots.dtype, device=roots.device)
+    return dict(L_G=roots, Rt=Rt, C=C, SinvH=SinvH, L_cap=safe_cholesky(cap),
+                H=H, q=q, n=n, r=r)
+
+
+def _u_from_y(Ydelta, fac):
+    """W = Y Σt⁻¹ (n, t) and u = Aᵀ D⁻¹ vec(Y) as (q, n)."""
+    W = cho_solve(fac["Rt"], Ydelta.T).T
+    return W, (W @ fac["H"]).T
+
+
+def lmc_log_prob(Ks, H, Sigma_t, Ydelta, jitter: float = 1e-6, fac=None):
+    """log N(vec(Y); 0, Σ_b K_b ⊗ h_b h_bᵀ + I ⊗ Σt), exact and dense;
+    Ydelta (n, t)."""
+    n, t = Ydelta.shape
+    if fac is None:
+        fac = lmc_factors(Ks, H, Sigma_t, jitter)
+    W, u = _u_from_y(Ydelta, fac)
+    s = torch.einsum("bnk,bn->bk", fac["L_G"], u)              # L_Gᵀ u
+    v = solve_triangular(fac["L_cap"], s.reshape(-1, 1), lower=True)
+    quad = (Ydelta * W).sum() - (v * v).sum()
+    logdet = n * logdet_from_chol(fac["Rt"]) + logdet_from_chol(fac["L_cap"])
+    return -0.5 * (quad + logdet + n * t * math.log(2 * math.pi))
+
+
+def lmc_solve(Ydelta, fac):
+    """α (n, t) with vec(α) = Cov⁻¹ vec(Y)."""
+    W, u = _u_from_y(Ydelta, fac)
+    s = torch.einsum("bnk,bn->bk", fac["L_G"], u)              # L_Gᵀ u
+    z = cho_solve(fac["L_cap"], s.reshape(-1, 1)).reshape(fac["q"], fac["r"])
+    t2 = torch.einsum("bnk,bk->bn", fac["L_G"], z)             # L_G z (q, n)
+    return W - t2.T @ fac["SinvH"].T
+
+
+def lmc_posterior_mean(Kstars, H, alpha, mean_star):
+    """mean (n*, t) = Σ_b (K*_b (α h_b)) h_bᵀ + m(x*); Kstars (q, n*, n)."""
+    proj = torch.einsum("bmi,ib->mb", Kstars, alpha @ H)       # (n*, q)
+    return proj @ H.T + mean_star
+
+
+def lmc_posterior_variance(Kstars, Kstar_diag, H, Sigma_t, fac,
+                           noise: bool = True, chunk: int = 256):
+    """Posterior variance diagonal (n*, t) of the LMC model (+ observation
+    noise), clipped at 1e-6:
+
+      prior       Σ_b diag(K**_b)[i] H[t,b]² (+ Σt[t,t])
+      correction  diag(Cross Cov⁻¹ Crossᵀ) by the same Woodbury split,
+                  ``chunk`` test points at a time (the chunk's (q, n, c, t)
+                  intermediate is its largest object)."""
+    q, n_star, n = Kstars.shape
+    t = H.shape[0]
+    prior = Kstar_diag.T @ (H * H).T                            # (n*, t)
+    if noise:
+        prior = prior + torch.diagonal(Sigma_t)[None, :]
+    C, L_G, L_cap = fac["C"], fac["L_G"], fac["L_cap"]
+    CH = C[:, None, :] * H[None]                    # CH[b,t,d] = C[b,d] H[t,d]
+    CHH = (CH * H.T[:, :, None]).transpose(1, 2)    # C[b,d] H[t,b] H[t,d]
+
+    def chunk_corr(Kc):                                         # (q, c, n)
+        c = Kc.shape[1]
+        # term1[(i,t)] = Σ_{b,d} C[b,d] H[t,b] H[t,d] Σ_j Kc_b[i,j] Kc_d[i,j]
+        rowdot = torch.einsum("bij,dij->bdi", Kc, Kc)           # (q, q, c)
+        term1 = rowdot.reshape(q * q, c).T @ CHH.reshape(q * q, t)
+        # E[(b,j),(i,t)] = Σ_d C[b,d] K_d[i,j] H[t,d] = Aᵀ D⁻¹ Crossᵀ
+        E = torch.einsum("btd,dij->bjit", CH, Kc)               # (q, n, c, t)
+        Nmat = torch.einsum("bnk,bnit->bkit", L_G, E)           # L_Gᵀ E
+        V = solve_triangular(L_cap, Nmat.reshape(q * L_G.shape[-1], c * t),
+                             lower=True)
+        return term1 - (V * V).sum(0).reshape(c, t)
+
+    corr = torch.cat([chunk_corr(Kstars[:, i:i + chunk])
+                      for i in range(0, n_star, chunk)])
+    return torch.clamp(prior - corr, min=1e-6)

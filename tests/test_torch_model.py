@@ -166,6 +166,4 @@ def test_unported_routes_raise():
         MultitaskGPModel(X, Y, n_tasks=T, model_type="ICM", device="cpu")
     tm = MultitaskGPModel(X, Y, device="cpu", **MODEL_KW)
     with pytest.raises(NotImplementedError):
-        tm.mll(iterative=False)
-    with pytest.raises(NotImplementedError):
         tm.mll(iterative=True, precond_rank=0)

@@ -383,17 +383,6 @@ def test_generate_synthetic_is_the_jax_copy_bit_for_bit(seed):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-@pytest.mark.parametrize("call", [
-    "prediction_cache", "compute_latent_distrib", "latent_prior",
-    "compute_loo", "__call__", "predict"])
-def test_unported_methods_raise(call):
-    _, tm = models(PLMC, perturb=False)
-    args = {"prediction_cache": (), "compute_loo": ()}.get(
-        call, (tm.train_x,))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        getattr(tm, call)(*args)
-
-
 def test_sgpr_and_a_missing_card_raise():
     X, Y = make_data()
     with pytest.raises(NotImplementedError, match="slice 5"):
