@@ -90,6 +90,24 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
      for G2's trained models: mean within 1e-4 of its largest entry (1e-3
      for "lmc_iter"), variance within 1e-3 of the largest prior variance,
      LOO σ² and residuals within 1e-3, each metric within 1e-3.
+  H. path H: the exact ICM (``MultitaskGPModel(model_type="ICM")``, K3
+     only). H1: the experiment driver's ICM (likelihood rank 25,
+     n_latents 25) on the paper's synthetic default, ``fit`` to the plateau
+     (at most 2,000 steps) on the dense route with its eigh's share, then
+     the "icm" cache, ``posterior`` and ``compute_var`` on the 2,500 test
+     points and the metrics, held against the CPU's fp64 metrics on the same
+     leaves (no farther than the CPU's fp32 ones, within 1e-3 where those
+     are). H2: the matrix-free route at n = 16,384, T = 7, q = 4, d = 4,
+     trained as phase 4 (2 chunks of 16 bf16 steps), the device split by
+     labelled ranges, then the "icm_iter" cache timed by part, ``posterior``
+     and ``compute_var`` on 2,500 points; K3 at its (1, n, n) fp32 and bf16
+     and (1, 2,500, n) shapes against its plain version and K6. H3: the
+     dense route at n = 8,192, 4 ``fit`` steps split into K3, potrf, the
+     one-column triangular solve, the backward's eigh and its n³ products,
+     and one "icm" cache. The card against the CPU at n = 2048 (the dense
+     and the matrix-free MLL on the same probes and roots, value rel.
+     ≤ 1e-4 and gradients ≤ 2e-3; both posteriors and ``compute_var``;
+     the LOO at n = 512), with path G's limits.
 
 Every training run sets the launch counts to 0 just before it and reads
 them just after. The last lines are one JSON object with every kernel's
@@ -1547,11 +1565,15 @@ def projected_fit(torch, pl, ck, model, steps, label, totals):
     return median
 
 
-def range_split(torch, step, reps=2):
+def range_split(torch, step, reps=2, names=F_RANGES, kernel_names=()):
     """Profile ``reps`` calls of ``step`` (after one unprofiled): the wall
-    time, the device-busy time (every kernel), each labelled range's device
-    time (from its first kernel's start to its last one's end) and host
-    time, all in ms a call, and the kernels by device time."""
+    time, the device-busy time (every kernel), for each range labelled with
+    one of ``names`` its device span (from its first kernel's start to its
+    last one's end, idle gaps included), host time and the device time of
+    the kernels launched inside it (kernels launched through the kernel
+    library's C interface are not, so each of ``kernel_names`` gets the
+    device time of the kernels whose names contain it, as a third entry),
+    all in ms a call, and the kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -1567,16 +1589,20 @@ def range_split(torch, step, reps=2):
     # annotation spanning its kernels (not a kernel itself)
     kernels = sorted((e for e in avg if e.device_type.name == "CUDA"
                       and getattr(e, "device_time_total", 0) > 0
-                      and e.key not in F_RANGES),
+                      and e.key not in names),
                      key=lambda e: -e.device_time_total)
     busy = sum(e.device_time_total for e in kernels) / 1e3 / reps
-    ranges = {k: [float("nan"), float("nan")] for k in F_RANGES}
+    ranges = {k: [float("nan")] * 3 for k in names}
     for e in avg:
-        if e.key in F_RANGES:
-            on_device = e.device_type.name == "CUDA"
-            ranges[e.key][0 if on_device else 1] = (
-                e.device_time_total if on_device else e.cpu_time_total) \
-                / 1e3 / reps
+        if e.key in names:
+            if e.device_type.name == "CUDA":
+                ranges[e.key][0] = e.device_time_total / 1e3 / reps
+            else:       # the host event: its time, and its kernels' time
+                ranges[e.key][1:] = [e.cpu_time_total / 1e3 / reps,
+                                     e.device_time_total / 1e3 / reps]
+    for k in kernel_names:
+        ranges[k] = [float("nan")] * 2 + [sum(
+            e.device_time_total for e in kernels if k in e.key) / 1e3 / reps]
     top = [(e.key.split("<")[0].split("(")[0][:60],
             e.device_time_total / 1e3 / reps) for e in kernels[:6]]
     return wall, busy, ranges, top
@@ -1657,7 +1683,7 @@ def path_f_phase(torch, pl, ck, dev, totals):
             with projected_probes(torch):
                 wall, busy, ranges, _ = range_split(
                     torch, mll_step(pl, model), reps=3)
-            dev_ms, host_ms = ranges["F QR or orthogonal map"]
+            dev_ms, host_ms = ranges["F QR or orthogonal map"][:2]
             print(f"  {label} profile: MLL forward and backward {wall:.3f} "
                   f"ms (device busy {busy:.3f}); QR or orthogonal map "
                   f"{host_ms:.3f} ms of host time, {dev_ms:.3f} ms of device "
@@ -1775,9 +1801,14 @@ def scale_of(t) -> float:
 
 def prior_var_max(torch, model, x) -> float:
     """The largest prior variance with noise at x: Σ_b k_b(x, x) H[t,b]² +
-    Σ[t,t], for the projected and the LMC model."""
+    Σ[t,t] for the projected and the LMC model, k(x, x) B[t,t] + Σ[t,t]
+    for the ICM."""
     with torch.no_grad():
         kss = model.covar_module(x, diag=True)                  # (q, n*)
+        if getattr(model, "icm", False):
+            B = torch.diagonal(model.task_covar_matrix())
+            St = torch.diagonal(model.likelihood.task_covariance())
+            return float((kss[0][:, None] * B + St).max())
         if hasattr(model, "full_likelihood"):
             H2 = model.lmc_coefficients() ** 2                  # (q, p)
             noise = model.full_likelihood().task_covariance()
@@ -1960,45 +1991,62 @@ def path_g2(torch, pl, ck, fm, dev, totals):
 
 
 @contextlib.contextmanager
-def lmc_iter_probes(torch):
-    """From outside the package: the host time (synchronised) of each part of
-    the "lmc_iter" cache, the PCG's products (its iterations) and its
-    arguments."""
-    from projected_lmc_tpu_torch.ops import iterative as it_ops
-    from projected_lmc_tpu_torch.ops import woodbury as wb_ops
-    parts = {"roots": 0.0, "preconditioner": 0.0, "PCG": 0.0,
-             "spectral bound": 0.0, "factors": 0.0, "products": 0,
-             "pcg_call": None}
-    names = ((it_ops, "nystrom_roots_from_covar", "roots"),
-             (it_ops, "nystrom_precond", "preconditioner"),
-             (it_ops, "batched_pcg", "PCG"),
-             (it_ops, "residual_spectral_bound", "spectral bound"),
-             (wb_ops, "lmc_factors_from_roots", "factors"))
+def cache_probes(torch, names, product):
+    """From outside the package: the host time (synchronised) of each part
+    of a matrix-free cache, ``names`` ((module, function, part) triples;
+    a part called inside another is timed with the outer one), the count
+    of ``product`` ((module, function), the PCG's products, so its
+    iterations) and the PCG's arguments."""
+    parts = {key: 0.0 for _, _, key in names}
+    parts.update(products=0, pcg_call=None)
     saved = [(owner, name, getattr(owner, name)) for owner, name, _ in names]
+    depth = [0]
 
     def timing(fn, key):
         def wrapped(*args, **kwargs):
+            if depth[0]:
+                return fn(*args, **kwargs)
             if key == "PCG":
                 parts["pcg_call"] = (fn, args, kwargs)
-            out, ms = timed(torch, lambda: fn(*args, **kwargs))
+            depth[0] += 1
+            try:
+                out, ms = timed(torch, lambda: fn(*args, **kwargs))
+            finally:
+                depth[0] -= 1
             parts[key] += ms
             return out
         return wrapped
 
-    matvec = it_ops.lmc_matvec
+    owner, name = product
+    matvec = getattr(owner, name)
 
     def counted(*args):
         parts["products"] += 1
         return matvec(*args)
-    for owner, name, key in names:
-        setattr(owner, name, timing(getattr(owner, name), key))
-    it_ops.lmc_matvec = counted
+    for o, n, key in names:
+        setattr(o, n, timing(getattr(o, n), key))
+    setattr(owner, name, counted)
     try:
         yield parts
     finally:
-        it_ops.lmc_matvec = matvec
-        for owner, name, old in saved:
-            setattr(owner, name, old)
+        setattr(owner, name, matvec)
+        for o, n, old in saved:
+            setattr(o, n, old)
+
+
+@contextlib.contextmanager
+def lmc_iter_probes(torch):
+    """The parts of the "lmc_iter" cache (:func:`cache_probes`)."""
+    from projected_lmc_tpu_torch.ops import iterative as it_ops
+    from projected_lmc_tpu_torch.ops import woodbury as wb_ops
+    with cache_probes(torch, (
+            (it_ops, "nystrom_roots_from_covar", "roots"),
+            (it_ops, "nystrom_precond", "preconditioner"),
+            (it_ops, "batched_pcg", "PCG"),
+            (it_ops, "residual_spectral_bound", "spectral bound"),
+            (wb_ops, "lmc_factors_from_roots", "factors")),
+            (it_ops, "lmc_matvec")) as parts:
+        yield parts
 
 
 def lmc_posteriors_held(torch, pl, dev, n, iterative, label):
@@ -2125,6 +2173,516 @@ def path_g_phase(torch, pl, ck, fm, dev, totals):
         print(f"  {label} took {time.perf_counter() - t0:.1f} s")
 
 
+# path H: the exact ICM (``MultitaskGPModel(model_type="ICM")``). H1: the
+# paper's synthetic default, built as the experiment driver builds ICM
+# (projected_lmc_tpu/experiments/driver.py:78-84: a likelihood of rank
+# q_noise_guess = 25, n_latents = 25, Matérn, zero mean), fit to the
+# plateau; H2: the matrix-free route at n = 16,384 (path B's n), T = 7,
+# q = 4, d = 4, trained as phase 4; H3: the dense route at its ceiling,
+# n = ICM_DENSE_N_MAX = 8,192. Card against CPU at F_CHECK_N (the LOO at
+# G_LOO_N).
+N_H2, N_H3, H3_STEPS = 16_384, 8_192, 4
+README_ICM_R2 = 0.921        # README.md: JAX ICM, fully converged (context)
+H_RANGES = ("H K3", "H K3 backward (plain)", "H potrf", "H eigh",
+            "H triangular solve", "H analytic backward", "H CG products",
+            "H M^-1 apply", "H dK GEMM", "H K stream for dB")
+
+
+def icm_model(pl, X, Y, device, fix_diagonal=True):
+    lik = pl.MultitaskGaussianLikelihood(num_tasks=T, rank=0, device=device)
+    return pl.MultitaskGPModel(X, Y, lik, n_tasks=T, n_latents=Q,
+                               model_type="ICM", kernel_type="matern",
+                               mean_type="zero", fix_diagonal=fix_diagonal,
+                               device=device)
+
+
+def driver_icm(pl, X, Y, device):
+    """ICM as the experiment driver builds it (driver.py:78-84)."""
+    import torch
+    p = Y.shape[1]
+    lik = pl.MultitaskGaussianLikelihood(
+        num_tasks=p, rank=F1_Q, device=device,
+        dtype=torch.float64 if X.dtype == np.float64 else torch.float32)
+    return pl.MultitaskGPModel(X, Y, lik, n_tasks=p, n_latents=F1_Q,
+                               model_type="ICM", init_lmc_coeffs=True,
+                               mean_type="zero", kernel_type="matern",
+                               device=device)
+
+
+def icm_noise_matrix(lik):
+    """The driver's estimated task-noise matrix of a rank > 0 likelihood
+    (driver.py:194-203): the factor with the global noise on its diagonal."""
+    H = lik.task_noise_covar_factor.detach().clone()
+    H.diagonal().add_(lik.noise[0].detach())
+    return H
+
+
+@contextlib.contextmanager
+def icm_probes(torch):
+    """From outside the package: count the ladder's factorizations, and
+    label for the profiler K3's forward and plain backward, each
+    factorization, every eigh, the ICM's triangular solves and analytic
+    backward (dense route), and the CG products, M⁻¹ applies, dense dK GEMM
+    and K stream for dB (matrix-free route)."""
+    from torch.profiler import record_function
+    from projected_lmc_tpu_torch import kernels as kern
+    from projected_lmc_tpu_torch.ops import cholesky as chol
+    from projected_lmc_tpu_torch.ops import iterative as it_ops
+    from projected_lmc_tpu_torch.ops import kron
+    counts = {"factorizations": 0}
+
+    def labelled(label, fn, counted=False):
+        def wrapped(*args, **kwargs):
+            counts["factorizations"] += counted
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    nystrom_parts = it_ops._icm_nystrom_parts
+
+    def labelled_parts(*args, **kwargs):
+        R, P, gam, minv, logdet_M = nystrom_parts(*args, **kwargs)
+        return R, P, gam, labelled("H M^-1 apply", minv), logdet_M
+
+    skm, icb = kern._StationaryKernelMatrix, kron._IcmLogProbChol
+    patches = (
+        (chol, "_factor", labelled("H potrf", chol._factor, True)),
+        (skm, "forward", staticmethod(labelled("H K3", skm.forward))),
+        (skm, "backward", staticmethod(labelled("H K3 backward (plain)",
+                                                skm.backward))),
+        (torch.linalg, "eigh", labelled("H eigh", torch.linalg.eigh)),
+        (kron, "solve_triangular", labelled("H triangular solve",
+                                            kron.solve_triangular)),
+        (icb, "backward", staticmethod(labelled("H analytic backward",
+                                                icb.backward))),
+        (it_ops, "icm_matvec", labelled("H CG products", it_ops.icm_matvec)),
+        (it_ops, "_icm_nystrom_parts", labelled_parts),
+        (it_ops, "_icm_pcg_dk", labelled("H dK GEMM", it_ops._icm_pcg_dk)),
+        (it_ops, "_icm_pcg_dtasks", labelled("H K stream for dB",
+                                             it_ops._icm_pcg_dtasks)))
+    saved = [(owner, name, vars(owner)[name]) for owner, name, _ in patches]
+    for owner, name, new in patches:
+        setattr(owner, name, new)
+    try:
+        yield counts
+    finally:
+        for owner, name, old in saved:
+            setattr(owner, name, old)
+
+
+@contextlib.contextmanager
+def icm_iter_probes(torch):
+    """The parts of the "icm_iter" cache (:func:`cache_probes`); the
+    preconditioner's own whitened parts are timed with it."""
+    from projected_lmc_tpu_torch.ops import iterative as it_ops
+    with cache_probes(torch, (
+            (it_ops, "nystrom_roots_from_kernels", "roots"),
+            (it_ops, "_icm_nystrom_parts", "preconditioner"),
+            (it_ops, "batched_pcg", "PCG"),
+            (it_ops, "icm_residual_spectral_bound", "spectral bound"),
+            (it_ops, "icm_whitened_parts", "inflated parts")),
+            (it_ops, "icm_matvec")) as parts:
+        yield parts
+
+
+def timed_fit(torch, pl, model, steps, **kwargs):
+    """``fit`` with the default loss (``model.mll()``) for at most
+    ``steps``, each step's host time taken around a synchronize: (info,
+    step ms)."""
+    stamps = []
+
+    def loss_fn(m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return m.mll()
+    _, info = pl.fit(model, loss_fn, n_iter=steps, lr=1e-2,
+                     device=model.device, **kwargs)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    return info, np.diff(stamps) * 1e3
+
+
+def icm_step(model, **kwargs):
+    def step():
+        model.zero_grad(set_to_none=True)
+        (-model.mll(**kwargs)).backward()
+    return step
+
+
+def icm_metrics(pl, torch, model, x_test, Yt, info, pred_s):
+    """(the 15 metrics, mean, variance) of ``posterior(observed=True)``'s
+    mean and ``compute_var`` on the test points, as the driver computes them
+    for ICM (driver.py:172-177)."""
+    with torch.no_grad():
+        cache = model.precompute_posterior()
+        mean = model.posterior(x_test, cache=cache, observed=True).mean
+        var = model.compute_var(x_test)
+    return pl.compute_metrics(Yt, mean, torch.sqrt(var), info["loss"],
+                              icm_noise_matrix(model.likelihood),
+                              info["n_iter"], info["train_time"], pred_s,
+                              print_metrics=False), mean, var
+
+
+def path_h1(torch, pl, ck, dev, totals):
+    """H1: the driver's ICM on the paper's synthetic default, ``fit`` to the
+    plateau (at most 2,000 steps) on the dense route; the "icm" cache,
+    ``posterior`` and ``compute_var`` on the 2,500 test points and the
+    metrics; the card against the CPU on the trained model."""
+    from projected_lmc_tpu_torch.experiments import generate_synthetic
+    data = generate_synthetic()
+    X, Y, Xt, Yt = data["X"], data["Y"], data["X_test"], data["Y_test"]
+    x_test = torch.as_tensor(Xt, device=dev)
+    model = driver_icm(pl, X, Y, dev)
+    zero_counts(ck)
+    with icm_probes(torch) as probes:
+        info, step_ms = timed_fit(
+            torch, pl, model, G2_MAX_ITER,
+            schedule=pl.lambda_lr_schedule(1e-2, 1e-3))
+    steps = len(info["losses"])
+    if read_counts(ck) != expect(K3=steps) or not np.all(
+            np.isfinite(info["losses"])):
+        raise SystemExit(f"chip_smoke: H1's fit launched {read_counts(ck)}, "
+                         f"not K3 {steps} times, or lost finiteness")
+    totals["K3"] += steps
+    median = float(np.median(step_ms))
+    factorizations = probes["factorizations"] / steps
+    with icm_probes(torch):
+        wall, busy, ranges, top = range_split(torch, icm_step(model), reps=3,
+                                              names=H_RANGES)
+    _, eigh_host, eigh_dev = ranges["H eigh"]
+    print(f"  H1 driver ICM (n={X.shape[0]}, p={Y.shape[1]}, q={F1_Q}, "
+          f"likelihood rank {F1_Q}): {steps} steps in "
+          f"{info['train_time']:.1f} s, loss first {info['losses'][0]:.6f} "
+          f"last {info['loss']:.6f}; median step {median:.3f} ms; K3 once "
+          f"and {factorizations:g} factorizations a step; profiled MLL "
+          f"forward and backward {wall:.3f} ms (device busy {busy:.3f}): "
+          f"eigh {eigh_host:.3f} ms of host time ({eigh_host / wall:.1%}), "
+          f"its kernels {eigh_dev:.3f} ms; potrf {ranges['H potrf'][1]:.3f} "
+          f"ms host, its kernels {ranges['H potrf'][2]:.3f} ms; kernels: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in top))
+    with torch.no_grad():
+        cache, cache_ms = served(torch, ck, "H1 precompute_posterior", 1,
+                                 model.precompute_posterior, totals)
+        post, first_ms = served(
+            torch, ck, "H1 posterior", 1,
+            lambda: model.posterior(x_test, cache=cache, observed=True),
+            totals)
+        post, post_ms = served(
+            torch, ck, "H1 posterior", 1,
+            lambda: model.posterior(x_test, cache=cache, observed=True),
+            totals)
+        var, var_ms = served(torch, ck, "H1 compute_var", 2,
+                             lambda: model.compute_var(x_test), totals)
+    if cache["kind"] != "icm":
+        raise SystemExit("chip_smoke: H1's cache is not the dense 'icm' one")
+    pred_s = (post_ms + var_ms) / 1e3
+    got = pl.compute_metrics(Yt, post.mean, torch.sqrt(var), info["loss"],
+                             icm_noise_matrix(model.likelihood),
+                             info["n_iter"], info["train_time"], pred_s,
+                             print_metrics=False)
+    print(f"  H1 served: icm cache {cache_ms:.3f} ms, posterior "
+          f"({N_TEST} points) {post_ms:.3f} ms (the first {first_ms:.3f}), "
+          f"compute_var {var_ms:.3f} "
+          f"ms; R2 {got['R2']:.4f} (README, JAX ICM fully converged: "
+          f"{README_ICM_R2}), RMSE {got['RMSE']:.4f}, PVA {got['PVA']:.4f}, "
+          f"alpha_CI {got['alpha_CI']:.4f}")
+    if not all(math.isfinite(v) for v in got.values()):
+        raise SystemExit("chip_smoke: H1's metrics are not finite")
+    # The trained model is ill-conditioned for fp32: Σt's smallest
+    # eigenvalue sits near the likelihood's 1e-4 floor, so γ (the whitened
+    # task covariance's eigenvalues) reaches ~1e5 and multiplies K's
+    # eigenvalues below fp32's resolution. Two fp32 computations (cuSOLVER
+    # and MKL, K3 and its plain version) need not agree there, so the card's
+    # metrics are held against the CPU's in float64 on the same leaves: no
+    # farther from them than the CPU's own fp32 metrics are, and within 1e-3
+    # wherever those are.
+    cpu = carried(pl, model, torch.device("cpu"),
+                  lambda w: driver_icm(pl, X, Y, w))
+    cpu64 = carried(pl, model, torch.device("cpu"), lambda w: driver_icm(
+        pl, X.astype(np.float64), Y.astype(np.float64), w))
+    xt = torch.as_tensor(Xt)
+    want, cm, cv = icm_metrics(pl, torch, cpu, xt, Yt, info, pred_s)
+    want64, m64, v64 = icm_metrics(pl, torch, cpu64, xt.double(), Yt, info,
+                                   pred_s)
+    vscale = prior_var_max(torch, cpu64, xt.double())
+    with torch.no_grad():
+        fac = cpu64.precompute_posterior()["fac"]
+        lam, gam = fac["lam"], fac["gam"]
+        ev = torch.linalg.eigvalsh(cpu64.likelihood.task_covariance())
+    below = int((lam.abs() < float(lam.max()) * 2.0 ** -23).sum())
+
+    def gap(a, b, scale):
+        return float((a.cpu().double() - b.double()).abs().max()) / scale
+
+    def rel(a, b):
+        return abs(a - b) / max(1.0, abs(b))
+    mscale = scale_of(m64)
+    print(f"  H1 trained model (fp64 on the CPU): Σt eigenvalues "
+          f"{float(ev[0]):.3e} to {float(ev[-1]):.3e}, γ up to "
+          f"{float(gam.max()):.3e}, {below} of K's {lam.numel()} eigenvalues "
+          f"below its largest × 2^-23, S = λγ + 1 up to "
+          f"{float(fac['S'].max()):.3e}; R2 {want64['R2']:.4f}")
+    print(f"  H1 mean max|Δ|/max|fp64|: card against CPU fp32 "
+          f"{gap(post.mean, cm, mscale):.2e}, CPU fp32 against fp64 "
+          f"{gap(cm, m64, mscale):.2e}, card against fp64 "
+          f"{gap(post.mean, m64, mscale):.2e}; compute_var max|Δ|/max prior "
+          f"variance: card against CPU fp32 {gap(var, cv, vscale):.2e}, CPU "
+          f"fp32 against fp64 {gap(cv, v64, vscale):.2e}, card against fp64 "
+          f"{gap(var, v64, vscale):.2e}")
+    keys = [k for k in want64 if k not in ("train_time", "pred_time")]
+    card_cpu = max(rel(got[k], want[k]) for k in keys)
+    print("  H1 metrics, max|Δ|/max(1, |fp64|) of card / CPU fp32 against "
+          "the CPU's fp64: " + ", ".join(
+              f"{k} {rel(got[k], want64[k]):.1e} / {rel(want[k], want64[k]):.1e}"
+              for k in keys) + f"; card against CPU fp32 {card_cpu:.2e}")
+    bad = [k for k in keys if not rel(got[k], want64[k])
+           <= max(1e-3, rel(want[k], want64[k]))]
+    if bad:
+        raise SystemExit(f"chip_smoke: H1's metrics {bad} are farther from "
+                         f"the fp64 ones than the CPU's fp32 metrics are")
+
+
+def path_h2(torch, pl, ck, dev, totals):
+    """H2: the matrix-free ICM at n = 16,384: K3 at the path's shapes, the
+    step trained as phase 4 (2 chunks of 16) with the device split by
+    labelled ranges, then the "icm_iter" cache timed by part, ``posterior``
+    and ``compute_var`` on 2,500 held-out points."""
+    X, Y = bench_data(N_H2, seed=0)
+    model = icm_model(pl, X, Y, dev)
+    x = model.train_x
+    x_test = torch.as_tensor(bench_data(N_TEST, seed=20)[0], device=dev)
+    ls = model.covar_module.lengthscale.detach()
+    k3_at(torch, ck, dev, x, x, ls)
+    with torch.no_grad():
+        same = torch.equal(model.covar_module(x, out_dtype=torch.bfloat16),
+                           model.covar_module(x).to(torch.bfloat16))
+    print(f"  K3 (1,{N_H2},{N_H2}) with a bf16 output equal to its fp32 "
+          f"result cast once: {same}")
+    if not same:
+        raise SystemExit("chip_smoke: K3's bf16 output is not its fp32 "
+                         "result cast")
+    k3_at(torch, ck, dev, x_test, x, ls)
+    torch.cuda.empty_cache()
+    res = train_run(torch, ck, model, icm_mll, CHUNKS, STEPS_PER_CHUNK)
+    print(f"  H2 matrix-free ICM n={N_H2} T={T} q={Q} d={D}, {CHUNKS}x"
+          f"{STEPS_PER_CHUNK} steps:")
+    report(res, expect(K3=CHUNKS * STEPS_PER_CHUNK + 2 * CHUNKS), totals)
+    with torch.no_grad():
+        roots = model._precond_roots(x, MLL_KW["precond_rank"])
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with icm_probes(torch):
+        wall, busy, ranges, top = range_split(
+            torch, icm_step(model, precond_roots=roots, generator=gen,
+                            **MLL_KW), names=H_RANGES,
+            kernel_names=("full_grid_kernel",))
+    parts = ("H K3", "H CG products", "H M^-1 apply", "H dK GEMM",
+             "H K stream for dB", "H K3 backward (plain)")
+    split = {k: ranges[k][2] for k in parts}
+    split["H K3"] += ranges["full_grid_kernel"][2]      # K3 and its cast
+    print(f"  H2 profile, MLL forward and backward: wall {wall:.3f} ms, "
+          f"device busy {busy:.3f} ms, by the kernels inside each labelled "
+          f"range: " + ", ".join(
+              f"{k[2:]} {split[k]:.3f}" for k in parts)
+          + f", rest {busy - sum(split.values()):.3f} ms")
+    print("  H2 kernels by device time: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in top))
+    del roots
+    torch.cuda.empty_cache()
+    v0 = torch.as_tensor(np.random.default_rng(28).standard_normal((N_H2, 1)),
+                         dtype=torch.float32, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), icm_iter_probes(torch) as cparts:
+        cache, cache_ms = served(
+            torch, ck, "H2 precompute_posterior", 1,
+            lambda: model.precompute_posterior(v0=v0), totals)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    iters = cparts["products"]
+    fn, args, kwargs = cparts["pcg_call"]
+    with torch.no_grad():
+        pwall, pbusy, _, _ = range_split(torch, lambda: fn(*args, **kwargs),
+                                         reps=1)
+    keys = ("roots", "preconditioner", "PCG", "spectral bound",
+            "inflated parts")
+    rest = cache_ms - sum(cparts[k] for k in keys)
+    print(f"  H2 precompute_posterior ({cache['kind']}): {cache_ms:.3f} ms = "
+          + ", ".join(f"{k} {cparts[k]:.3f}" for k in keys)
+          + f", K3's (n, n) matrix and the rest {rest:.3f} ms; PCG {iters} "
+          f"iterations (tol 1e-5, at most 400), {pbusy:.3f} ms of them on "
+          f"the device (profiled, {pwall:.3f} ms wall under the profiler): "
+          f"{(cparts['PCG'] - pbusy) / max(iters, 1):.4f} ms an iteration "
+          f"off the device; peak memory {peak:.2f} GiB")
+    if cache["kind"] != "icm_iter" or not 0 < iters <= 400:
+        raise SystemExit("chip_smoke: H2 did not take the icm_iter route")
+    del fn, args, kwargs, cparts
+    with torch.no_grad():
+        post, post_ms = served(torch, ck, "H2 posterior", 1,
+                               lambda: model.posterior(x_test, cache=cache),
+                               totals)
+        var, var_ms = served(torch, ck, "H2 compute_var", 2,
+                             lambda: model.compute_var(x_test), totals)
+    finite = bool(torch.isfinite(post.mean).all()
+                  and torch.isfinite(post.variance).all()
+                  and (post.variance > 0).all() and torch.isfinite(var).all()
+                  and post.mean.shape == (N_TEST, T))
+    print(f"  H2 posterior ({N_TEST} points) {post_ms:.3f} ms, compute_var "
+          f"(its own cache) {var_ms:.3f} ms; finite and positive: {finite}")
+    if not finite:
+        raise SystemExit("chip_smoke: H2's posterior is not finite")
+
+
+def path_h3(torch, pl, ck, dev, totals):
+    """H3: the dense route at n = 8,192: 4 ``fit`` steps, the step's device
+    time split (K3, potrf, the one-column batched triangular solve, the
+    backward's n×n eigh, the backward's n³ products), one "icm" cache."""
+    X, Y = bench_data(N_H3, seed=0)
+    model = icm_model(pl, X, Y, dev)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(ck)
+    with icm_probes(torch) as probes:
+        info, step_ms = timed_fit(torch, pl, model, H3_STEPS)
+    counts = read_counts(ck)
+    if counts != expect(K3=H3_STEPS) or not np.all(
+            np.isfinite(info["losses"])):
+        raise SystemExit(f"chip_smoke: H3's fit launched {counts}, not K3 "
+                         f"{H3_STEPS} times, or lost finiteness")
+    totals["K3"] += H3_STEPS
+    print(f"  H3 dense ICM n={N_H3} T={T}: losses "
+          f"{np.round(info['losses'], 6).tolist()}; median step "
+          f"{np.median(step_ms):.3f} ms; factorizations "
+          f"{probes['factorizations'] / H3_STEPS:g} a step; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    with icm_probes(torch):
+        wall, busy, ranges, top = range_split(
+            torch, icm_step(model), reps=1, names=H_RANGES,
+            kernel_names=("full_grid_kernel",))
+    dev_ms = {k: v[2] for k, v in ranges.items()}
+    dev_ms["H K3"] += dev_ms["full_grid_kernel"]
+    products = dev_ms["H analytic backward"] - dev_ms["H eigh"]
+    print(f"  H3 profile, MLL forward and backward: wall {wall:.3f} ms, "
+          f"device busy {busy:.3f} ms, by the kernels inside each labelled "
+          f"range: K3 {dev_ms['H K3']:.3f}, potrf "
+          f"{dev_ms['H potrf']:.3f}, triangular solves (the one-column "
+          f"batched one) {dev_ms['H triangular solve']:.3f}, eigh (the "
+          f"backward's {N_H3}x{N_H3}, and the {T}x{T} ones) "
+          f"{dev_ms['H eigh']:.3f} ({ranges['H eigh'][1]:.3f} host), the "
+          f"analytic backward {dev_ms['H analytic backward']:.3f} (less its "
+          f"eigh: the n^3 products MK, MB and the rest, {products:.3f}), "
+          f"K3's plain backward {dev_ms['H K3 backward (plain)']:.3f} ms")
+    print("  H3 kernels by device time: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in top))
+    with torch.no_grad():
+        cache, cache_ms = served(torch, ck, "H3 precompute_posterior", 1,
+                                 model.precompute_posterior, totals)
+    print(f"  H3 icm cache (K3, an {N_H3}x{N_H3} eigh, the solve): "
+          f"{cache_ms:.3f} ms; kind {cache['kind']}")
+    if cache["kind"] != "icm":
+        raise SystemExit("chip_smoke: H3's cache is not the dense 'icm' one")
+
+
+def icm_mll_held(torch, pl, ck, dev):
+    """The dense and the matrix-free MLL, value and gradients, on the card
+    against the CPU (same leaves, moved off the init; same eps, xi and
+    roots; CG to 1e-5). The task diagonal is trained here: with
+    ``fix_diagonal`` the whitened B has a cluster of eigenvalues ~1e-5
+    apart, whose fp32 eigenvectors (the probes' basis) no two LAPACKs
+    share."""
+    n = F_CHECK_N
+    X, Y = bench_data(n, seed=23)
+    make = lambda w: icm_model(pl, X, Y, w, fix_diagonal=False)  # noqa
+    card = moved(torch, make(dev), 24)
+    cpu = carried(pl, card, torch.device("cpu"), make)
+    with torch.no_grad():
+        roots = card._precond_roots(card.train_x, 256)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    eps = torch.randn((8, n, T), generator=gen, device=dev)
+    xi = torch.randn((8, 256, T), generator=gen, device=dev)
+    names = [k for k, p in card.named_parameters() if p.requires_grad]
+    for label, kw in (("dense", dict(iterative=False)),
+                      ("matrix-free", dict(iterative=True, max_cg_iters=100,
+                                           cg_tol=1e-5, precond_rank=256,
+                                           num_probes=8))):
+        out = {}
+        for m in (card, cpu):
+            w = m.device
+            m.zero_grad(set_to_none=True)
+            if kw["iterative"]:
+                kw.update(precond_roots=roots.to(w), eps=eps.to(w),
+                          xi=xi.to(w))
+            zero_counts(ck)
+            ll = m.mll(**kw)
+            ll.backward()
+            if w.type == "cuda" and read_counts(ck) != expect(K3=1):
+                raise SystemExit(f"chip_smoke: the {label} ICM MLL launched "
+                                 f"{read_counts(ck)}, not K3 once")
+            params = dict(m.named_parameters())
+            out["cuda" if m is card else "cpu"] = (float(ll.detach()),
+                           [params[k].grad.cpu().double() for k in names])
+        print(f"  H n={n} {label} MLL, card (K3) against CPU:")
+        compare_grads(out, names)
+
+
+def icm_posteriors_held(torch, pl, dev, n, label):
+    """The ICM posteriors ("icm" and "icm_iter", same leaves and start
+    vector) and ``compute_var`` on the card against the CPU: mean within
+    1e-4 of its largest entry (1e-3 for "icm_iter"), variance within 1e-3
+    of the largest prior variance."""
+    X, Y = bench_data(n, seed=25)
+    xs = torch.as_tensor(bench_data(G_CHECK_TEST, seed=26)[0])
+    v0 = np.random.default_rng(27).standard_normal((n, 1))
+    card = moved(torch, icm_model(pl, X, Y, dev), 29)
+    cpu = carried(pl, card, torch.device("cpu"),
+                  lambda w: icm_model(pl, X, Y, w))
+    scale = prior_var_max(torch, cpu, xs)
+    for iterative in (False, True):
+        out = []
+        for m in (card, cpu):
+            with torch.no_grad():
+                c = m.precompute_posterior(
+                    iterative=iterative, v0=torch.as_tensor(
+                        v0, dtype=torch.float32, device=m.device))
+                p = m.posterior(xs.to(m.device), cache=c)
+                out.append((p.mean, p.variance, c["kind"]))
+        (g, c) = out
+        held(f"{label} {c[2]} mean", g[0], c[0], scale_of(c[0]),
+             1e-3 if iterative else 1e-4)
+        held(f"{label} {c[2]} variance", g[1], c[1], scale, 1e-3)
+    with torch.no_grad():
+        g, c = card.compute_var(xs.to(dev)), cpu.compute_var(xs)
+    held(f"{label} compute_var", g, c, scale, 1e-3)
+
+
+def path_h_checks(torch, pl, ck, dev, totals):
+    """The card against the CPU at n = 2048 (MLL both routes, posteriors,
+    ``compute_var``) and the LOO at n = 512."""
+    icm_mll_held(torch, pl, ck, dev)
+    icm_posteriors_held(torch, pl, dev, F_CHECK_N, f"H n={F_CHECK_N}")
+    Xl, Yl = bench_data(G_LOO_N, seed=30)
+    card = moved(torch, icm_model(pl, Xl, Yl, dev), 31)
+    cpu = carried(pl, card, torch.device("cpu"),
+                  lambda w: icm_model(pl, Xl, Yl, w))
+    with torch.no_grad():
+        g, c = card.compute_loo(), cpu.compute_loo()
+    held(f"H n={G_LOO_N} LOO sigma2", g[0], c[0], scale_of(c[0]), 1e-3)
+    held(f"H n={G_LOO_N} LOO residual", g[1], c[1], scale_of(c[1]), 1e-3)
+
+
+def icm_mll(model, roots, gen):
+    return model.mll(precond_roots=roots, generator=gen, **MLL_KW)
+
+
+def path_h_phase(torch, pl, ck, dev, totals):
+    """Path H: the exact ICM (H1, H2, H3, the card against the CPU), each
+    with its wall time."""
+    t0 = time.perf_counter()
+    for label, part in (("H1", path_h1), ("H2", path_h2), ("H3", path_h3),
+                        ("H checks", path_h_checks)):
+        t1 = time.perf_counter()
+        part(torch, pl, ck, dev, totals)
+        torch.cuda.empty_cache()
+        print(f"  {label} took {time.perf_counter() - t1:.1f} s")
+    print(f"  path H took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2200,6 +2758,11 @@ def main() -> int:
           f"at most {G2_MAX_ITER} steps), G3 the exact-LMC model n={N}; "
           f"{N_TEST} test points")
     path_g_phase(torch, pl, ck, fm, dev, totals)
+    print(f"path H: the exact ICM, H1 the driver's ICM on the paper's "
+          f"synthetic default (fit to the plateau, at most {G2_MAX_ITER} "
+          f"steps), H2 the matrix-free route n={N_H2} T={T} q={Q}, H3 the "
+          f"dense route n={N_H3}; {N_TEST} test points")
+    path_h_phase(torch, pl, ck, dev, totals)
 
     meta = [("K1", "scaled_kernel_stack_sym",
              "projected_lmc_tpu/ops/pallas_kernels.py:278"),

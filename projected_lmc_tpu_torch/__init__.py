@@ -4,17 +4,21 @@ The JAX package beside it is the reference; this package imports neither
 JAX nor ``projected_lmc_tpu``. It ports the exact-LMC training step
 (``models.multitask.MultitaskGPModel`` with the fused iterative MLL, and
 ``training.fit``), the batched exact GP (``models.exact.ExactGPModel``,
-dense or fused iterative MLL, ``mlls.exact_mll``), the int8 stack
+dense or fused iterative MLL, ``mlls.exact_mll``), the exact ICM
+(``MultitaskGPModel(model_type="ICM")``: the Kronecker MLL with its
+analytic backward, or the matrix-free PCG estimator above n = 8192, and its
+posteriors and ``compute_var``), the int8 stack
 (``matvec_int8``) and ``training.fit_two_phase``, and the paper's projected
 LMC (``models.projected.ProjectedGPModel`` trained on
-``mlls.projected_lmc_mll``), and prediction with all three: the exact,
-LMC and projected-LMC posteriors, LOO (``mlls.loo_pseudo_likelihood``) and
+``mlls.projected_lmc_mll``), and prediction with all of them: the exact,
+LMC, ICM and projected-LMC posteriors, LOO (``mlls.loo_pseudo_likelihood``) and
 ``metrics.compute_metrics``, with a hand-written CUDA
 kernel for each TPU kernel of the JAX package (``ops/cuda_kernels.py``,
 sources in ``csrc/``). Entry points default to
 ``device="cuda"``; ``device="cpu"`` runs the kernels' plain PyTorch versions.
 """
 
+from .distributions import KronCov, SumKronRank1Cov
 from .likelihoods import GaussianLikelihood, MultitaskGaussianLikelihood
 from .metrics import compute_metrics
 from .mlls import exact_mll, loo_pseudo_likelihood, projected_lmc_mll
@@ -24,7 +28,8 @@ from .models.projected import ProjectedGPModel
 from .training import fit, fit_two_phase, lambda_lr_schedule
 from .utils.checkpoint import load_jax_state
 
-__all__ = ["ExactGPModel", "GaussianLikelihood", "MultitaskGaussianLikelihood",
-           "MultitaskGPModel", "ProjectedGPModel", "compute_metrics",
+__all__ = ["ExactGPModel", "GaussianLikelihood", "KronCov",
+           "MultitaskGaussianLikelihood", "MultitaskGPModel",
+           "ProjectedGPModel", "SumKronRank1Cov", "compute_metrics",
            "exact_mll", "fit", "fit_two_phase", "lambda_lr_schedule",
            "load_jax_state", "loo_pseudo_likelihood", "projected_lmc_mll"]

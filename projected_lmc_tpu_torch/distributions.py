@@ -1,8 +1,9 @@
 """Multivariate normals with structured covariances (port of
-``projected_lmc_tpu/distributions.py`` without the ICM's ``KronCov``).
+``projected_lmc_tpu/distributions.py``).
 
   * DenseCov          (n·t, n·t) dense
   * BatchIndepCov     (t, n, n) batch-independent tasks (``from_batch_mvn``)
+  * KronCov           K ⊗ B (the ICM prior)
   * SumKronRank1Cov   Σ_b K_b ⊗ h_b h_bᵀ (the LMC prior, the projected LMC's
                       posterior)
 
@@ -16,6 +17,7 @@ import math
 
 import torch
 
+from .ops import kron as kron_ops
 from .ops import woodbury as wb_ops
 from .ops.cholesky import logdet_from_chol, safe_cholesky, solve_triangular
 
@@ -120,6 +122,37 @@ class BatchIndepCov:
         z = solve_triangular(L, delta.T[..., None], lower=True)[..., 0]
         return -0.5 * ((z * z).sum() + logdet_from_chol(L).sum()
                        + self.n * self.t * math.log(2 * math.pi))
+
+
+class KronCov:
+    """K ⊗ B (+ I ⊗ Σt when given): the exact ICM covariance. K (n, n),
+    B (t, t). ``dense()`` forms the (n·t)² matrix: for small n only."""
+
+    def __init__(self, K, B, Sigma_t=None):
+        self.K, self.B, self.Sigma_t = K, B, Sigma_t
+        self.n, self.t = K.shape[-1], B.shape[-1]
+
+    def diag(self):
+        d = torch.diagonal(self.K)[:, None] * torch.diagonal(self.B)[None, :]
+        if self.Sigma_t is not None:
+            d = d + torch.diagonal(self.Sigma_t)[None, :]
+        return d
+
+    def dense(self):
+        out = torch.kron(self.K, self.B)
+        if self.Sigma_t is not None:
+            eye = torch.eye(self.n, dtype=out.dtype, device=out.device)
+            out = out + torch.kron(eye, self.Sigma_t)
+        return out
+
+    def with_noise(self, Sigma_t):
+        return KronCov(self.K, self.B, Sigma_t)
+
+    def log_prob_centered(self, delta):
+        if self.Sigma_t is None:
+            raise ValueError("Kronecker log_prob requires task noise "
+                             "(singular otherwise)")
+        return kron_ops.icm_log_prob(self.K, self.B, self.Sigma_t, delta)
 
 
 class SumKronRank1Cov:

@@ -1,16 +1,26 @@
-"""Exact multitask GP, LMC coregionalization (port of the LMC part of
-``projected_lmc_tpu/models/multitask.py``).
+"""Exact multitask GP, ICM and LMC coregionalization (port of
+``projected_lmc_tpu/models/multitask.py`` without its SGPR branches).
 
-Σ = Σ_b K_b ⊗ h_b h_bᵀ + I ⊗ Σt with one stationary kernel per latent and
-rank-1 task factors h_b (``covar_factor``, SVD-initialized from the labels).
-The marginal likelihood is, up to q·n = ``DENSE_QN_MAX``, the dense Woodbury
-one of ``ops/woodbury.py`` (K3, batched Cholesky), and above it the fused op
-of ``ops/fused_mll.py``: stack build (kernel K1; K8 for an int8 stack, K6
-under ``PLMC_SYM_BUILD=0``), Nyström-preconditioned CG with Lanczos
-quadrature, and a backward through kernel K2 (or K4/K5/K7, the routes of
-``ops/fused_mll``); the preconditioner's landmark blocks are kernel K3.
+ICM: Σ = K ⊗ B + I ⊗ Σt with one stationary kernel and B = F Fᵀ +
+diag(softplus(raw_var)), F the rank-q ``covar_factor`` (T, q). Its MLL is,
+up to n = ``ICM_DENSE_N_MAX``, the Kronecker one of ``ops/kron.py`` (K3, a
+t×t eigh, the batched (t, n, n) Cholesky, an analytic backward), and above
+it the matrix-free PCG estimator (``ops/iterative.icm_pcg_log_prob``: K3's
+(n, n) matrix, one stream a CG product). Its posterior is the joint
+diagonalization ("icm") or, above the ceiling, PCG with a conservative
+Kronecker-factored variance ("icm_iter").
 
-The posterior factorizes once (``precompute_posterior``, a plain dict):
+LMC: Σ = Σ_b K_b ⊗ h_b h_bᵀ + I ⊗ Σt with one stationary kernel per latent
+and rank-1 task factors h_b (``covar_factor``, SVD-initialized from the
+labels). The marginal likelihood is, up to q·n = ``DENSE_QN_MAX``, the
+dense Woodbury one of ``ops/woodbury.py`` (K3, batched Cholesky), and above
+it the fused op of ``ops/fused_mll.py``: stack build (kernel K1; K8 for an
+int8 stack, K6 under ``PLMC_SYM_BUILD=0``), Nyström-preconditioned CG with
+Lanczos quadrature, and a backward through kernel K2 (or K4/K5/K7, the
+routes of ``ops/fused_mll``); the preconditioner's landmark blocks are
+kernel K3.
+
+The LMC posterior factorizes once (``precompute_posterior``, a plain dict):
 the dense Woodbury factors ("lmc"), or above ``DENSE_QN_MAX`` a PCG solve
 on the K3 stack with a conservative variance through Nyström factors
 inflated by the residual's spectral bound ("lmc_iter").
@@ -22,13 +32,15 @@ import numpy as np
 import torch
 
 from ..constraints import softplus
-from ..distributions import MultitaskMultivariateNormal, SumKronRank1Cov
+from ..distributions import (KronCov, MultitaskMultivariateNormal,
+                             SumKronRank1Cov)
 from ..kernels import KERNEL_REGISTRY, ScaleKernel, handle_covar
 from ..likelihoods import MultitaskGaussianLikelihood
 from ..means import MEAN_REGISTRY
 from ..module import Module
 from ..ops import fused_mll
 from ..ops import iterative as it_ops
+from ..ops import kron as kron_ops
 from ..ops import woodbury as wb_ops
 from ..ops.cholesky import cho_solve, safe_cholesky, solve_triangular
 from ..ops.init_ops import init_lmc_coefficients
@@ -55,7 +67,7 @@ def _fused_stationary_spec(cov, dim):
 
 
 class MultitaskGPModel(Module):
-    """Exact LMC multitask GP (projected_lmc.py:438-656), fused iterative MLL.
+    """Exact ICM / LMC multitask GP (projected_lmc.py:438-656).
 
     ``device`` defaults to ``"cuda"``; pass ``device="cpu"`` for the plain
     PyTorch versions of the kernels. Parameters keep the JAX package's raw
@@ -63,6 +75,9 @@ class MultitaskGPModel(Module):
     model's state over."""
 
     DENSE_QN_MAX = 4096
+    # ICM's dense route factors t (n, n) blocks of ONE kernel, so its
+    # matrix-free switchover sits above the LMC's q·n ceiling
+    ICM_DENSE_N_MAX = 8192
 
     def __init__(self, train_x, train_y, likelihood=None, n_tasks=None,
                  n_latents: int = 1, model_type: str = "ICM",
@@ -74,8 +89,6 @@ class MultitaskGPModel(Module):
         super().__init__()
         if model_type not in ("ICM", "LMC"):
             raise ValueError("Wrong specified model type, should be ICM or LMC")
-        if model_type == "ICM":
-            raise NotImplementedError("the ICM model is ported with slice 4")
         if n_inducing_points is not None:
             raise NotImplementedError("the SGPR path (n_inducing_points) is "
                                       "ported with slice 5")
@@ -105,7 +118,8 @@ class MultitaskGPModel(Module):
         self.covar_module = handle_covar(
             _resolve(KERNEL_REGISTRY, kernel_type, "rbf", "kernel"),
             dim=self.dim, decomp=decomp, prior_scales=prior_scales,
-            prior_width=prior_width, outputscales=False, n_funcs=n_latents,
+            prior_width=prior_width, outputscales=False,
+            n_funcs=1 if model_type == "ICM" else n_latents,
             ker_kwargs=ker_kwargs, dtype=dtype, device=dev)
 
         rng = np.random.default_rng(seed)
@@ -118,10 +132,12 @@ class MultitaskGPModel(Module):
             factor = np.asarray(init_lmc_coefficients(yh, n_latents)).T
         else:
             factor = rng.standard_normal((n_tasks, n_latents))
-        # q rank-1 coregionalizations, each with its own kernel copy
-        self.register_raw("covar_factor", factor.T[..., None], dtype, dev)
-        # diagonal of the task covariances; fix_diagonal freezes it at −10
-        shape = (n_latents, n_tasks)
+        # ICM: one (T, q) factor; LMC: q rank-1 coregionalizations, each
+        # with its own kernel copy
+        self.register_raw("covar_factor", factor if model_type == "ICM"
+                          else factor.T[..., None], dtype, dev)
+        # diagonal of the task covariance(s); fix_diagonal freezes it at −10
+        shape = (n_tasks,) if model_type == "ICM" else (n_latents, n_tasks)
         if fix_diagonal:
             self._frozen_params_ = ("raw_var",)
             self.register_raw("raw_var", np.full(shape, -10.0), dtype, dev)
@@ -132,16 +148,21 @@ class MultitaskGPModel(Module):
     def device(self):
         return self.train_x.device
 
+    @property
+    def icm(self) -> bool:
+        return self.model_type == "ICM"
+
     def task_covar_matrix(self):
-        """Per-latent rank-1 B_b = h_b h_bᵀ + diag(softplus(raw_var_b)),
-        (q, T, T)."""
+        """ICM: B = F Fᵀ + diag(softplus(raw_var)), (T, T). LMC: per-latent
+        rank-1 B_b = h_b h_bᵀ + diag(softplus(raw_var_b)), (q, T, T)."""
         F = self.covar_factor
         return F @ F.transpose(-1, -2) + torch.diag_embed(
             softplus(self.raw_var))
 
     def lmc_coefficients(self):
         """(q, T) mixing coefficients, as a numpy array."""
-        return self.covar_factor[..., 0].detach().cpu().numpy()
+        F = self.covar_factor.T if self.icm else self.covar_factor[..., 0]
+        return F.detach().cpu().numpy()
 
     def _mixing(self):
         """H (T, q) and the LMC's task noise Σt + Σ_b diag(softplus(raw_var_b))."""
@@ -155,10 +176,15 @@ class MultitaskGPModel(Module):
 
     def forward(self, x):
         """Prior multitask distribution at x: mean (n, T), covariance
-        Σ_b K_b ⊗ h_b h_bᵀ."""
+        K ⊗ B (ICM) or Σ_b K_b ⊗ h_b h_bᵀ (LMC)."""
         x = _as_inputs(x, self.train_x)
+        mean = self.mean_module(x).T
+        if self.icm:
+            return MultitaskMultivariateNormal(
+                mean, KronCov(self.covar_module(x)[0],
+                              self.task_covar_matrix()))
         return MultitaskMultivariateNormal(
-            self.mean_module(x).T,
+            mean,
             SumKronRank1Cov(self.covar_module(x), self.covar_factor[..., 0].T))
 
     def _lmc_extra_diag(self):
@@ -177,24 +203,38 @@ class MultitaskGPModel(Module):
             matvec_bf16: bool = False, precond_rank: int = 0,
             quad_method: str = "pcg", precond_roots=None,
             matvec_int8: bool = False, eps=None, xi=None, generator=None):
-        """Exact multitask MLL / (n·T), plus hyper-prior terms: the dense
-        Woodbury log-density up to q·n = ``DENSE_QN_MAX`` (or with
-        ``iterative=False``), above it the fused PCG estimator
-        (``precond_rank > 0``, ``quad_method="pcg"``).
+        """Exact multitask MLL / (n·T), plus hyper-prior terms.
 
-        eps (num_probes, n, T) and xi (num_probes, q, rank) are the standard
-        normals of the probes; when not given they are drawn from
-        ``generator`` (a fresh ``torch.Generator`` seeded 0 when None, as the
-        JAX model draws from ``PRNGKey(0)`` without a key).
-        ``precond_roots`` (q, n, rank): caller-supplied, possibly stale,
-        Nyström roots; the estimator is exact for any SPD preconditioner.
-        ``matvec_int8`` (over ``matvec_bf16``): the int8 stack (kernel K8)
-        and int8 × int8 → int32 stack products (``ops/fused_mll``)."""
+        ICM: the Kronecker log-density (``kron.icm_log_prob_chol``) up to
+        n = ``ICM_DENSE_N_MAX`` (or with ``iterative=False``), above it (or
+        with ``iterative=True``) the matrix-free PCG estimator
+        (``iterative.icm_pcg_log_prob``; ``precond_rank`` ≤ 0 becomes
+        min(256, n)). LMC: the dense Woodbury log-density up to q·n =
+        ``DENSE_QN_MAX`` (or with ``iterative=False``), above it the fused
+        PCG estimator (``precond_rank > 0``, ``quad_method="pcg"``).
+
+        eps (num_probes, n, T) and xi are the standard normals of the
+        probes, xi (num_probes, q, rank) for LMC and (num_probes, m, T) for
+        ICM, m the rank of the roots used; when not given they are drawn
+        from ``generator`` (a fresh ``torch.Generator`` seeded 0 when None,
+        as the JAX model draws from ``PRNGKey(0)`` without a key).
+        ``precond_roots``: caller-supplied, possibly stale, Nyström roots,
+        (q, n, rank) for LMC, (k, n, m) or (n, m) for ICM; the estimator is
+        exact for any SPD preconditioner. ``matvec_bf16``: the CG products
+        on K3's matrix cast to bf16, fp32 accumulation. ``matvec_int8``
+        (LMC, over ``matvec_bf16``): the int8 stack (kernel K8) and
+        int8 × int8 → int32 stack products (``ops/fused_mll``)."""
         x = self.train_x if x is None else x
         y = self.train_y if y is None else _canon_targets(
             torch.as_tensor(y, dtype=x.dtype, device=x.device), self.n_tasks)
         n = x.shape[0]
         Ydelta = y.T - self.mean_module(x).T                    # (n, T)
+        if self.icm:
+            ll = self._icm_log_prob(
+                x, Ydelta, iterative, num_probes, max_cg_iters, cg_tol,
+                matvec_bf16, precond_rank, precond_roots, eps, xi, generator)
+            return (ll + self.covar_module.prior_log_prob()) \
+                / (n * self.n_tasks)
         H, St = self._mixing()
         if iterative is None:
             iterative = self.n_latents * n > self.DENSE_QN_MAX
@@ -212,14 +252,9 @@ class MultitaskGPModel(Module):
             raise NotImplementedError("the composed kernel→log-prob route is "
                                       "ported in a later slice")
         kind, ls, os_ = spec
-        if eps is None or xi is None:
-            if generator is None:
-                generator = torch.Generator(device=x.device).manual_seed(0)
-            draw = dict(generator=generator, dtype=Ydelta.dtype,
-                        device=x.device)
-            eps = torch.randn((num_probes, n, self.n_tasks), **draw)
-            xi = torch.randn((num_probes, self.n_latents,
-                              min(precond_rank, n)), **draw)
+        eps, xi = self._draw_probes(n, Ydelta.dtype, x.device, eps, xi,
+                                    generator, num_probes,
+                                    (self.n_latents, min(precond_rank, n)))
         if precond_roots is None:
             with torch.no_grad():
                 precond_roots = self._precond_roots(x, precond_rank)
@@ -229,6 +264,52 @@ class MultitaskGPModel(Module):
             device=x.device)
         return (ll + self.covar_module.prior_log_prob()) / (n * self.n_tasks)
 
+    def _draw_probes(self, n, dtype, device, eps, xi, generator, num_probes,
+                     xi_shape):
+        """(eps, xi): the given ones, or eps (num_probes, n, T) then xi
+        (num_probes, *xi_shape) from ``generator`` (seeded 0 when None)."""
+        if eps is not None and xi is not None:
+            return eps, xi
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        draw = dict(generator=generator, dtype=dtype, device=device)
+        return (torch.randn((num_probes, n, self.n_tasks), **draw),
+                torch.randn((num_probes, *xi_shape), **draw))
+
+    def _icm_log_prob(self, x, Ydelta, iterative, num_probes, max_cg_iters,
+                      cg_tol, matvec_bf16, precond_rank, precond_roots, eps,
+                      xi, generator):
+        """The ICM log-density of :meth:`mll` (without the prior terms)."""
+        n = x.shape[0]
+        B = self.task_covar_matrix()
+        St = self.likelihood.task_covariance()
+        if iterative is None:
+            iterative = n > self.ICM_DENSE_N_MAX
+        if not iterative:
+            return kron_ops.icm_log_prob_chol(self.covar_module(x)[0], B, St,
+                                              Ydelta)
+        # above the dense ceiling the t parallel (n, n) Choleskys are
+        # O(t·n²) memory; the estimator is exact for any SPD preconditioner,
+        # so a default Nyström rank is always safe
+        if precond_rank <= 0:
+            precond_rank = min(256, n)
+        if precond_roots is not None:
+            roots = precond_roots[0] if precond_roots.dim() == 3 \
+                else precond_roots
+        else:
+            with torch.no_grad():
+                roots = self._precond_roots(x, precond_rank)[0]
+        # the probes' rank is the roots' (stale roots may have another)
+        m_rank = int(roots.shape[-1])
+        eps, xi = self._draw_probes(n, Ydelta.dtype, x.device, eps, xi,
+                                    generator, num_probes,
+                                    (m_rank, self.n_tasks))
+        K = self.covar_module(
+            x, out_dtype=torch.bfloat16 if matvec_bf16 else None)[0]
+        return it_ops.icm_pcg_log_prob(K, B, St, Ydelta, eps, xi, roots,
+                                       max_cg_iters, cg_tol, matvec_bf16,
+                                       m_rank)
+
     # -- posterior ---------------------------------------------------------------
     def precompute_posterior(self, iterative: bool = None,
                              max_cg_iters: int = 400, cg_tol: float = 1e-5,
@@ -236,13 +317,24 @@ class MultitaskGPModel(Module):
                              generator=None):
         """Factorize the training system once, a dict for :meth:`posterior`.
 
-        Up to q·n = ``DENSE_QN_MAX`` (or with ``iterative=False``) the dense
-        Woodbury factors ("lmc"). Above it ("lmc_iter"): the mean from a
-        tight PCG solve on the materialized (q, n, n) stack (kernel K3),
+        LMC: up to q·n = ``DENSE_QN_MAX`` (or with ``iterative=False``) the
+        dense Woodbury factors ("lmc"). Above it ("lmc_iter"): the mean from
+        a tight PCG solve on the materialized (q, n, n) stack (kernel K3),
         Nyström-preconditioned at ``precond_rank``, and a conservative
         variance through M_up = Σ_b Q_b ⊗ h_bh_bᵀ + I ⊗ (Σt + c·I) ⪰ Σ,
         c the residual's λmax from power iteration started at ``v0``
-        (n, T), or at a draw from ``generator``."""
+        (n, T), or at a draw from ``generator``.
+
+        ICM: up to n = ``ICM_DENSE_N_MAX`` (or with ``iterative=False``) the
+        joint-diagonalization factors and α ("icm"). Above it ("icm_iter"):
+        the mean from PCG with the one-K-stream ICM product, preconditioned
+        by rank-m Nyström roots of K3's (n, n) matrix, and a conservative
+        variance through M_up = Q ⊗ B + I ⊗ (Σt + c·I), c = λmax(K − Q) ·
+        λmax(B) from power iteration started at ``v0`` (n, 1), or at a draw
+        from ``generator``."""
+        if self.icm:
+            return self._icm_posterior_cache(iterative, max_cg_iters, cg_tol,
+                                             precond_rank, v0, generator)
         x = self.train_x
         n = x.shape[0]
         Ydelta = self._train_delta()
@@ -266,27 +358,80 @@ class MultitaskGPModel(Module):
         fac_up = wb_ops.lmc_factors_from_roots(roots, H, St + c * eye)
         return dict(kind="lmc_iter", alpha=alpha, H=H, Sigma_t=St, fac=fac_up)
 
+    def _icm_posterior_cache(self, iterative, max_cg_iters, cg_tol,
+                             precond_rank, v0, generator):
+        x = self.train_x
+        n = x.shape[0]
+        Ydelta = self._train_delta()
+        K = self.covar_module(x)[0]
+        B = self.task_covar_matrix()
+        St = self.likelihood.task_covariance()
+        if iterative is None:
+            iterative = n > self.ICM_DENSE_N_MAX
+        if not iterative:
+            fac = kron_ops.icm_eig_factors(K, B, St)
+            alpha = kron_ops.icm_solve(Ydelta, fac)
+            return dict(kind="icm", fac=fac, alpha=alpha, B=B, Sigma_t=St)
+        m_rank = min(precond_rank if precond_rank > 0 else 256, n)
+        roots = it_ops.nystrom_roots_from_kernels(K[None], m_rank)[0]
+        minv = it_ops._icm_nystrom_parts(K, B, St, m_rank, roots=roots)[3]
+        Md = torch.clamp(torch.outer(torch.diagonal(K), torch.diagonal(B))
+                         + torch.diagonal(St)[None, :], min=1e-10)
+        alpha = it_ops.batched_pcg(
+            lambda V: it_ops.icm_matvec(K, B, St, V), Ydelta[None], Md,
+            max_iters=max_cg_iters, tol=cg_tol, minv=minv)[0]
+        c = it_ops.icm_residual_spectral_bound(K, roots, B, v0=v0,
+                                               generator=generator)
+        eye = torch.eye(self.n_tasks, dtype=St.dtype, device=St.device)
+        parts = it_ops.icm_whitened_parts(None, B, St + c * eye, m_rank,
+                                          roots=roots)
+        return dict(kind="icm_iter", alpha=alpha, B=B, Sigma_t=St,
+                    **{k: parts[k] for k in ("R", "gam", "P_inv", "C_inv")})
+
     def posterior(self, x_star, cache=None, observed: bool = True):
         """Posterior mean and variance diagonal (n*, T) at x_star, with the
         observation noise when ``observed``. The (q, n*, n) cross-covariance
-        is kernel K3 on the card; the prior and noise use the true Σt, the
-        "lmc_iter" correction the inflated factors."""
+        ((1, n*, n) for ICM) is kernel K3 on the card; the prior and noise
+        use the true Σt, the "lmc_iter" and "icm_iter" corrections the
+        inflated factors."""
         if cache is None:
             cache = self.precompute_posterior()
         x_star = _as_inputs(x_star, self.train_x)
         Kstars = self.covar_module(x_star, self.train_x)        # (q, n*, n)
+        kss = self.covar_module(x_star, diag=True)              # (q, n*)
+        mean_star = self.mean_module(x_star).T
+        if cache["kind"] in ("icm", "icm_iter"):
+            B, St = cache["B"], cache["Sigma_t"]
+            mean = kron_ops.icm_posterior_mean(Kstars[0], B, cache["alpha"],
+                                               mean_star)
+            if cache["kind"] == "icm":
+                var = kron_ops.icm_posterior_variance(
+                    kss[0], Kstars[0], B, cache["fac"],
+                    noise_diag=torch.diagonal(St) if observed else None)
+            else:
+                var = it_ops.icm_nystrom_posterior_variance(
+                    Kstars[0], kss[0], B, St, cache, noise=observed)
+            return _MeanVarMT(mean, var)
         mean = wb_ops.lmc_posterior_mean(Kstars, cache["H"], cache["alpha"],
-                                         self.mean_module(x_star).T)
+                                         mean_star)
         var = wb_ops.lmc_posterior_variance(
-            Kstars, self.covar_module(x_star, diag=True), cache["H"],
-            cache["Sigma_t"], cache["fac"], noise=observed)
+            Kstars, kss, cache["H"], cache["Sigma_t"], cache["fac"],
+            noise=observed)
         return _MeanVarMT(mean, var)
 
     def compute_var(self, x_star):
-        """The ICM's memory-safe posterior variance; not defined for LMC."""
-        raise ValueError("This method is only available for ICM models")
+        """The ICM's posterior variance with noise (projected_lmc.py:591-640,
+        chunked over test points); not defined for LMC."""
+        if not self.icm:
+            raise ValueError("This method is only available for ICM models")
+        return self.posterior(x_star, observed=True).variance
 
     def _dense_cov(self):
+        """The (n·T, n·T) training covariance with its noise."""
+        if self.icm:
+            return KronCov(self.covar_module(self.train_x)[0],
+                           self.task_covar_matrix(),
+                           self.likelihood.task_covariance()).dense()
         H, St = self._mixing()
         return SumKronRank1Cov(self.covar_module(self.train_x), H, St).dense()
 
@@ -308,6 +453,22 @@ class MultitaskGPModel(Module):
         """Condition number of the dense (n·T, n·T) training covariance with
         its noise."""
         return torch.linalg.cond(self._dense_cov())
+
+    def lscales(self, unpacked: bool = True):
+        """Learned lengthscales, (n_latents, dims), as a numpy array (the
+        ICM's one kernel repeated for each latent; a list of one when not
+        ``unpacked``)."""
+        scales = np.squeeze(self.covar_module.lengthscale.detach().cpu()
+                            .numpy(), axis=-2)
+        if self.icm:
+            scales = np.repeat(scales, self.n_latents, axis=0)
+        return scales if unpacked else [scales]
+
+    def outputscale(self, unpacked: bool = False):
+        """Outputscales, (n_latents, 1): ones, as the kernels carry none
+        (squeezed when ``unpacked``)."""
+        res = np.ones((self.n_latents, 1))
+        return res.squeeze() if unpacked else res
 
 
 class _MeanVarMT:

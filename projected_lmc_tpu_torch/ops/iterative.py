@@ -1,6 +1,8 @@
 """Matrix-free exact-LMC pieces of the fused MLL: the stack product, the
 Nyström preconditioner, PCG with its Lanczos tridiagonals and the
-tridiagonal log-quadrature (port of the main-path subset of
+tridiagonal log-quadrature; the matrix-free LMC posterior's pieces; and the
+matrix-free exact ICM: its product, preconditioner, PCG estimator and
+posterior variance (port of the ported slices' subset of
 ``projected_lmc_tpu/ops/iterative.py``).
 
 Σ = Σ_b K_b ⊗ h_b h_bᵀ + I_n ⊗ Σt is applied through the materialized
@@ -412,3 +414,222 @@ def residual_spectral_bound(Ks, roots, H, n_iters: int = 12, v0=None,
     w = resid_mv(v)
     return torch.clamp((v * w).sum() / torch.clamp((v * v).sum(), min=1e-30),
                        min=0.0)
+
+
+# -- the matrix-free exact ICM (Σ = K ⊗ B + I ⊗ Σt) ---------------------------
+# The large-n route the dense joint diagonalization (ops/kron.py) cannot
+# reach: ICM shares ONE data kernel across tasks, so a product streams a
+# single (n, n) matrix whatever the task count, and the Nyström
+# preconditioner factors per task eigenvalue.
+
+def _kernel_product(K, V):
+    """K @ V[r] for V (n, t) or (r, n, t). With a bf16 K, the bf16 product
+    with an fp32 result (:func:`_bf16_stack_bmm` with one latent, the
+    right-hand sides side by side), never rounded to bf16 (JAX's
+    ``preferred_element_type=float32``)."""
+    if K.dtype != torch.bfloat16:
+        return K @ V
+    single = V.dim() == 2
+    Vr = V[None] if single else V                       # (r, n, t)
+    r, n, t = Vr.shape
+    W = Vr.permute(1, 0, 2).reshape(1, n, r * t)
+    out = _bf16_stack_bmm(K[None], W)[0].reshape(n, r, t).permute(1, 0, 2)
+    return out[0] if single else out
+
+
+def icm_matvec(K, B, St, V):
+    """(K ⊗ B + I ⊗ Σt) · vec(V) in matrix form, K V B + V Σt, for V
+    (..., n, t): one (n, n) stream a call (half of it with K pre-cast to
+    bf16, the product fp32)."""
+    return _kernel_product(K, V).to(V.dtype) @ B + V @ St
+
+
+def _eigh_fixed_signs(A):
+    """``torch.linalg.eigh`` with each eigenvector's largest-magnitude entry
+    made positive. An eigenvector's sign is the LAPACK's choice (MKL,
+    cuSOLVER and the JAX package's LAPACK differ); the ICM probes are drawn
+    in this eigenbasis, so fixing it makes the estimator the same on every
+    device (its distribution is the same under any sign)."""
+    w, V = torch.linalg.eigh(A)
+    top = torch.gather(V, -2, V.abs().argmax(-2, keepdim=True))
+    return w, V * torch.where(top < 0, -1.0, 1.0).to(V.dtype)
+
+
+def icm_whitened_parts(K, B, St, rank: int, roots=None):
+    """Factors of M = Q ⊗ B + I ⊗ Σt, Q = R Rᵀ (rank-m Nyström root of K).
+    With B̃ = Lt⁻¹ B Lt⁻ᵀ = Vb Γ Vbᵀ and P = Lt Vb,
+
+        M = (I ⊗ P) · blockdiag_j(γ_j Q + I_n) · (I ⊗ Pᵀ).
+
+    Returns dict(R, gam, P, P_inv, C_inv (t, m, m), logdet_M); Vb's signs
+    are fixed (:func:`_eigh_fixed_signs`). ``K`` may be None when ``roots``
+    (n, m) are given."""
+    R = nystrom_roots_from_kernels(K[None], rank)[0] if roots is None \
+        else roots
+    n, m = R.shape
+    t = St.shape[-1]
+    Lt = cholesky_nan(St)
+    Lt_inv = torch.linalg.solve_triangular(
+        Lt, torch.eye(t, dtype=St.dtype, device=St.device), upper=False)
+    Btil = Lt_inv @ B @ Lt_inv.T
+    gam, Vb = _eigh_fixed_signs(0.5 * (Btil + Btil.T))
+    gam = torch.clamp(gam, min=0.0)                         # B ⪰ 0
+    P = Lt @ Vb
+    P_inv = Vb.T @ Lt_inv
+    eye_m = torch.eye(m, dtype=R.dtype, device=R.device)
+    C = eye_m[None] + gam[:, None, None] * (R.T @ R)[None]  # (t, m, m)
+    L_C = cholesky_nan(C)
+    C_inv = torch.cholesky_solve(eye_m.expand_as(C), L_C)
+    logdet_M = (2.0 * n * torch.log(torch.diagonal(Lt)).sum()
+                + 2.0 * torch.log(torch.diagonal(L_C, dim1=-2,
+                                                 dim2=-1)).sum())
+    return dict(R=R, gam=gam, P=P, P_inv=P_inv, C_inv=C_inv,
+                logdet_M=logdet_M)
+
+
+def _icm_nystrom_parts(K, B, St, rank: int, roots=None):
+    """(R, P, gam, the apply M⁻¹, logdet M) for M = Q ⊗ B + I ⊗ Σt: t
+    independent rank-m Woodbury solves in the whitened eigenbasis."""
+    parts = icm_whitened_parts(K, B, St, rank, roots=roots)
+    R, gam, P, P_inv, C_inv = (parts[k] for k in ("R", "gam", "P", "P_inv",
+                                                  "C_inv"))
+
+    def minv(V):                                            # (..., n, t)
+        W2 = V @ P_inv.T                                    # eigenbasis
+        RtW = torch.einsum("nm,...nj->...mj", R, W2)
+        S = torch.einsum("jmk,...kj->...mj", C_inv, RtW)
+        corr = torch.einsum("nm,...mj->...nj", R, S * gam)
+        return (W2 - corr) @ P_inv
+
+    return R, P, gam, minv, parts["logdet_M"]
+
+
+def icm_nystrom_posterior_variance(K_star, kss, B, Sigma_t, parts,
+                                   noise: bool = True):
+    """Conservative ICM posterior variance diagonal (n*, t) through
+    M_up = Q⊗B + I⊗St_up (``parts`` = :func:`icm_whitened_parts` of M_up,
+    built with an inflated St_up ⪰ Σt, so the correction under-shoots):
+
+        corr[c] = Σ_j s_cj · g_j g_jᵀ,      g_j = B P⁻ᵀ e_j,
+        s_cj = ‖k_c‖² − γ_j u_c C_j⁻¹ u_cᵀ,  u = K_* R.
+
+    The prior and the noise use the true Σt."""
+    R, gam, P_inv, C_inv = (parts[k] for k in ("R", "gam", "P_inv", "C_inv"))
+    u = K_star @ R                                          # (n*, m)
+    kk2 = (K_star * K_star).sum(-1)                         # (n*,)
+    quad = torch.einsum("cm,jmk,ck->cj", u, C_inv, u)       # (n*, t)
+    s = torch.clamp(kk2[:, None] - gam[None, :] * quad, min=0.0)
+    G2 = B @ P_inv.T                                        # columns g_j
+    corr = s @ (G2 * G2).T
+    prior = kss[:, None] * torch.diagonal(B)[None, :]
+    var = torch.clamp(prior - corr, min=1e-12)
+    if noise:
+        var = var + torch.diagonal(Sigma_t)[None, :]
+    return var
+
+
+class _IcmPcgLogProb(torch.autograd.Function):
+    """The JAX package's ``icm_pcg_log_prob`` with its custom VJP: one
+    batched PCG pass in the forward; the backward's Hutchinson estimate of
+    dll/dΣ = ½(ααᵀ − Σ⁻¹), Σ⁻¹ ≈ (1/2s) Σ_i (w_i z̃_iᵀ + z̃_i w_iᵀ), with
+    dK formed densely and K streamed once for dB. The probes and the roots
+    get no gradient (JAX's stop_gradient and zero cotangents)."""
+
+    @staticmethod
+    def forward(ctx, K, B, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
+                matvec_bf16, precond_rank):
+        n, t = Ydelta.shape
+        R, P, gam, minv, logdet_M = _icm_nystrom_parts(
+            K, B, St, precond_rank, roots=roots)
+        u = eps + torch.einsum("nm,smj->snj", R,
+                               xi * torch.sqrt(gam)[None, None, :])
+        z = u @ P.T
+        Kmv = K.to(torch.bfloat16) if matvec_bf16 else K
+        Brhs = torch.cat([Ydelta[None], z], 0)              # (1+s, n, t)
+        X, alphas, betas, active, rz0 = pcg_with_tridiag(
+            lambda V: icm_matvec(Kmv, B, St, V), Brhs, minv, max_cg_iters,
+            cg_tol)
+        alpha, W = X[0], X[1:]
+        quad = (Ydelta * alpha).sum()
+        logquad = _tridiag_logquad(alphas[:, 1:], betas[:, 1:],
+                                   active[:, 1:])
+        logdet = logdet_M + (rz0[1:] * logquad).mean()
+        ctx.save_for_backward(K, B, alpha, W, minv(z))
+        return -0.5 * (quad + logdet + n * t * math.log(2 * math.pi))
+
+    @staticmethod
+    def backward(ctx, g):
+        K, B, alpha, W, Zt = ctx.saved_tensors
+        dK = _icm_pcg_dk(alpha, B, W, Zt, g).to(K.dtype)
+        dB, dSt = _icm_pcg_dtasks(K, alpha, W, Zt, g)
+        return (dK, dB.to(B.dtype), dSt, -g * alpha, None, None, None, None,
+                None, None, None)
+
+
+def _icm_pcg_dk(alpha, B, W, Zt, g):
+    """The estimator's dK, dense (n, n), as one GEMM:
+    g·[½ (αB)αᵀ − ¼/s Σ_i ((w_iB) z̃_iᵀ + (z̃_iB) w_iᵀ)] (never reads K)."""
+    s = max(W.shape[0], 1)
+    n = alpha.shape[0]
+    flat = lambda A: A.permute(1, 0, 2).reshape(n, -1)      # noqa: E731
+    left = torch.cat([0.5 * (alpha @ B), (-0.25 / s) * flat(W @ B),
+                      (-0.25 / s) * flat(Zt @ B)], 1)
+    right = torch.cat([alpha, flat(Zt), flat(W)], 1)
+    return g * (left @ right.T)
+
+
+def _icm_pcg_dtasks(K, alpha, W, Zt, g):
+    """The estimator's (dB, dΣt), K streamed once (one product with the
+    1 + 2s right-hand sides α, w_i, z̃_i)."""
+    s = max(W.shape[0], 1)
+    KR = _kernel_product(K, torch.cat([alpha[None], W, Zt], 0)).to(
+        alpha.dtype)
+    Ka, KW, KZ = KR[0], KR[1:1 + s], KR[1 + s:]
+    dB = (0.5 * alpha.T @ Ka
+          - (0.25 / s) * (torch.einsum("snt,snu->tu", W, KZ)
+                          + torch.einsum("snt,snu->tu", Zt, KW)))
+    wz = torch.einsum("snt,snu->tu", W, Zt)
+    return (g * 0.5 * (dB + dB.T),
+            g * 0.5 * (alpha.T @ alpha - 0.5 * (wz + wz.T) / s))
+
+
+def icm_pcg_log_prob(K, B, St, Ydelta, eps, xi, roots=None,
+                     max_cg_iters: int = 32, cg_tol: float = 1e-2,
+                     matvec_bf16: bool = False, precond_rank: int = 256):
+    """log N(vec(Y); 0, K ⊗ B + I ⊗ Σt) from ONE batched PCG pass:
+    K (n, n) data kernel (bf16 for a bf16 matvec), B (t, t), Σt (t, t),
+    Ydelta (n, t); eps (s, n, t) and xi (s, m, t) standard normals, m the
+    roots' rank (``precond_rank`` when ``roots`` is None). Probes
+    z = (eps + R·(ξ·√γ))·Pᵀ have covariance exactly M; logdet Σ = logdet M
+    + Lanczos quadrature of the preconditioned tridiagonals."""
+    if roots is not None:
+        roots = roots.detach()
+    return _IcmPcgLogProb.apply(K, B, St, Ydelta, eps, xi, roots,
+                                int(max_cg_iters), float(cg_tol),
+                                bool(matvec_bf16), int(precond_rank))
+
+
+def icm_residual_spectral_bound(K, roots, B, n_iters: int = 12, v0=None,
+                                generator=None):
+    """λmax bound of the ICM Nyström residual (K − R Rᵀ) ⊗ B, which
+    factorizes as λmax(K − R Rᵀ) · λmax(B): power iteration on the n×n
+    residual alone (one K stream an iteration), started at ``v0`` (n, 1) or
+    a standard normal draw from ``generator``, times the exact t×t
+    eigenvalue; each factor clamped at 0."""
+    n = K.shape[-1]
+
+    def resid_mv(v):
+        return K @ v - roots @ (roots.T @ v)
+
+    if v0 is None:
+        v0 = torch.randn((n, 1), generator=generator, dtype=K.dtype,
+                         device=K.device)
+    v = v0 / torch.sqrt((v0 * v0).sum())
+    for _ in range(n_iters):
+        w = resid_mv(v)
+        v = w / torch.clamp(torch.sqrt((w * w).sum()), min=1e-30)
+    w = resid_mv(v)
+    lam_K = torch.clamp((v * w).sum() / torch.clamp((v * v).sum(), min=1e-30),
+                        min=0.0)
+    lam_B = torch.clamp(torch.linalg.eigvalsh(0.5 * (B + B.T))[-1], min=0.0)
+    return lam_K * lam_B

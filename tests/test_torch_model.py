@@ -163,7 +163,8 @@ def test_model_without_device_raises_without_cuda(monkeypatch):
 def test_unported_routes_raise():
     X, Y = data()
     with pytest.raises(NotImplementedError):
-        MultitaskGPModel(X, Y, n_tasks=T, model_type="ICM", device="cpu")
+        MultitaskGPModel(X, Y, n_tasks=T, model_type="ICM",
+                         n_inducing_points=8, device="cpu")
     tm = MultitaskGPModel(X, Y, device="cpu", **MODEL_KW)
     with pytest.raises(NotImplementedError):
         tm.mll(iterative=True, precond_rank=0)

@@ -402,8 +402,9 @@ UNPORTED = {
         X, Y, n_inducing_points=8, device="cpu", **LMC_KW)),
     "sgpr-projected": ("slice 5", lambda X, Y: ProjectedGPModel(
         X, Y, T, Q, n_inducing_points=8, device="cpu")),
-    "icm": ("slice 4", lambda X, Y: MultitaskGPModel(
-        X, Y, n_tasks=T, model_type="ICM", device="cpu")),
+    "icm": ("slice 5", lambda X, Y: MultitaskGPModel(
+        X, Y, n_tasks=T, model_type="ICM", n_inducing_points=8,
+        device="cpu")),
     "slq": ("slice 6", lambda X, Y: MultitaskGPModel(
         X, Y, device="cpu", **LMC_KW).mll(iterative=True, precond_rank=0)),
 }
