@@ -108,6 +108,24 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
      and the matrix-free MLL on the same probes and roots, value rel.
      ≤ 1e-4 and gradients ≤ 2e-3; both posteriors and ``compute_var``;
      the LOO at n = 512), with path G's limits.
+  I. path I: variational LMC and SGPR (K3 only). I1: the driver's var
+     model (likelihood rank 25, q = 25, m = 333) on the paper's synthetic
+     default, ``fit`` on the ELBO to the plateau (at most 2,000 steps),
+     ``model(x, observed=True)`` on the 2,500 test points and the metrics,
+     then ``sgpr_em()`` from the same init and its metrics. I2: the ELBO at
+     ``bench_var_elbo``'s shapes (n = 4,449, d = 21, T = q = 7, m = 500),
+     16 AdamW steps, then 64 ``fit_svgp_minibatch`` steps (batch 256) at
+     n = 44,484. I3: projected SGPR at ``bench_predict_p50``'s shapes
+     (n = 44,480, 4,449 test points), 16 ``fit`` steps, the cache, 8 warm
+     ``predict`` calls and a cold one. I4: LMC, ICM and ``ExactGPModel``
+     SGPR on the headline's data (m = 500), 16 steps, the "sgpr" cache and
+     ``posterior`` on 2,500 points each. Steps split by labelled profiler
+     ranges; K3 at each new shape against its plain version and bitwise K6;
+     the card against the CPU at n = 2048, m = 256 (the ELBO for each
+     strategy and distribution, each SGPR MLL, value rel. ≤ 1e-4 and
+     gradients ≤ 2e-3, the inducing points' included; the posteriors with
+     path G's limits or, where the CPU's own fp32 result drifts that far,
+     against its fp64 one; the E/M steps' float64 algebra within 1e-8).
 
 Every training run sets the launch counts to 0 just before it and reads
 them just after. The last lines are one JSON object with every kernel's
@@ -2285,16 +2303,17 @@ def icm_iter_probes(torch):
         yield parts
 
 
-def timed_fit(torch, pl, model, steps, **kwargs):
-    """``fit`` with the default loss (``model.mll()``) for at most
+def timed_fit(torch, pl, model, steps, loss=None, **kwargs):
+    """``fit`` with ``loss`` (the default ``model.mll()``) for at most
     ``steps``, each step's host time taken around a synchronize: (info,
     step ms)."""
     stamps = []
+    loss = loss or (lambda m: m.mll())
 
     def loss_fn(m):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
-        return m.mll()
+        return loss(m)
     _, info = pl.fit(model, loss_fn, n_iter=steps, lr=1e-2,
                      device=model.device, **kwargs)
     torch.cuda.synchronize()
@@ -2683,6 +2702,562 @@ def path_h_phase(torch, pl, ck, dev, totals):
     print(f"  path H took {time.perf_counter() - t0:.1f} s")
 
 
+# -- path I: variational LMC and SGPR -------------------------------------------
+
+I_RANGES = ("I K3", "I K3 backward (plain)", "I potrf", "I triangular solve",
+            "I cho_solve")
+README_VAR_R2 = 0.909       # README.md: JAX var, fully converged (context)
+I_D, I_M, I_STEPS = 21, 500, 16          # SARCOS's features, bench.py's m
+I2_N, I2_FULL_N, I2_MB_STEPS, I2_BATCH = 4_449, 44_484, 64, 256
+I3_N, I3_TEST = 44_480, 4_449
+I_CHECK_M = 256
+
+
+@contextlib.contextmanager
+def sgpr_probes(torch):
+    """From outside the package: count the ladder's factorizations, and
+    label for the profiler K3's forward and plain backward, each
+    factorization, the triangular solves and the ``cho_solve`` calls of the
+    variational, SGPR and Woodbury code."""
+    from torch.profiler import record_function
+    from projected_lmc_tpu_torch import kernels as kern
+    from projected_lmc_tpu_torch.models import exact, multitask, variational
+    from projected_lmc_tpu_torch.ops import cholesky as chol
+    from projected_lmc_tpu_torch.ops import woodbury
+    counts = {"factorizations": 0}
+
+    def labelled(label, fn, counted=False):
+        def wrapped(*args, **kwargs):
+            counts["factorizations"] += counted
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    skm = kern._StationaryKernelMatrix
+    patches = [(chol, "_factor", labelled("I potrf", chol._factor, True)),
+               (skm, "forward", staticmethod(labelled("I K3", skm.forward))),
+               (skm, "backward", staticmethod(labelled(
+                   "I K3 backward (plain)", skm.backward)))]
+    for mod in (exact, multitask, variational, woodbury):
+        patches.append((mod, "solve_triangular", labelled(
+            "I triangular solve", mod.solve_triangular)))
+        if hasattr(mod, "cho_solve"):
+            patches.append((mod, "cho_solve", labelled("I cho_solve",
+                                                       mod.cho_solve)))
+    saved = [(owner, name, vars(owner)[name]) for owner, name, _ in patches]
+    for owner, name, new in patches:
+        setattr(owner, name, new)
+    try:
+        yield counts
+    finally:
+        for owner, name, old in saved:
+            setattr(owner, name, old)
+
+
+def driver_var(pl, X, Y, device):
+    """The variational model as the experiment driver builds it
+    (driver.py:85-92): likelihood rank 25, n_latents 25, zero mean, Matérn,
+    the SVD init, train_ind_ratio 1.5 (m = 333 at n = 500)."""
+    import torch
+    p = Y.shape[1]
+    dt = torch.float64 if X.dtype == np.float64 else torch.float32
+    lik = pl.MultitaskGaussianLikelihood(num_tasks=p, rank=F1_Q, dtype=dt,
+                                         device=device)
+    return pl.VariationalMultitaskGPModel(
+        X, n_latents=F1_Q, n_tasks=p, train_y=Y, init_lmc_coeffs=True,
+        mean_type="zero", kernel_type="matern", train_ind_ratio=1.5, seed=0,
+        likelihood=lik, device=device)
+
+
+def loss_step(model, loss):
+    def step():
+        model.zero_grad(set_to_none=True)
+        (-loss(model)).backward()
+    return step
+
+
+def split_line(label, wall, busy, ranges, top):
+    """One line of a profiled step: wall and device-busy time, each labelled
+    range's device time, the largest kernels."""
+    parts = ", ".join(f"{k[2:]} {v[2]:.3f}" for k, v in ranges.items()
+                      if math.isfinite(v[2]))
+    print(f"  {label}: profiled step {wall:.3f} ms, device busy {busy:.3f} "
+          f"ms ({busy / wall:.0%}); device ms by range: {parts}; kernels: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in top))
+
+
+def sgpr_fit(torch, pl, ck, model, steps, label, totals, loss=None,
+             factorizations=2, **kwargs):
+    """``steps`` of ``fit`` on ``loss`` (the model's MLL): K3 twice a step
+    (K(z, z) and K(x, z)) and no other kernel, at least ``factorizations``
+    a step (more where the jitter ladder climbs), finite losses; the median
+    step, then one step profiled by labelled ranges. Returns (info, median
+    ms)."""
+    loss = loss or (lambda m: m.mll())
+    zero_counts(ck)
+    with sgpr_probes(torch) as probes:
+        info, step_ms = timed_fit(torch, pl, model, steps, loss=loss,
+                                  **kwargs)
+    n = len(info["losses"])
+    if read_counts(ck) != expect(K3=2 * n) or not np.all(
+            np.isfinite(info["losses"])):
+        raise SystemExit(f"chip_smoke: {label}'s fit launched "
+                         f"{read_counts(ck)}, not K3 {2 * n} times, or lost "
+                         f"finiteness")
+    if probes["factorizations"] < factorizations * n:
+        raise SystemExit(f"chip_smoke: {label} factorized "
+                         f"{probes['factorizations']} times in {n} steps, "
+                         f"fewer than {factorizations} a step")
+    totals["K3"] += 2 * n
+    median = float(np.median(step_ms))
+    print(f"  {label}: {n} steps in {info['train_time']:.2f} s, loss first "
+          f"{info['losses'][0]:.6f} last {info['losses'][-1]:.6f}; median "
+          f"step {median:.3f} ms (range {float(np.min(step_ms)):.3f}–"
+          f"{float(np.max(step_ms)):.3f}); K3 twice and "
+          f"{probes['factorizations'] / n:g} factorizations a step")
+    with sgpr_probes(torch):
+        split_line(label, *range_split(torch, loss_step(model, loss),
+                                       reps=3, names=I_RANGES))
+    return info, median
+
+
+def var_metrics(pl, torch, model, x_test, Yt, info, pred_s):
+    """The 15 metrics of ``model(x_test, observed=True)``, as the driver
+    computes them for "var" (driver.py:185-188)."""
+    with torch.no_grad():
+        pred = model(x_test, observed=True)
+    return pl.compute_metrics(Yt, pred.mean, pred.stddev, info["loss"],
+                              icm_noise_matrix(model.likelihood),
+                              info["n_iter"], info["train_time"], pred_s,
+                              print_metrics=False)
+
+
+def k3_shapes(torch, ck, dev, pairs, ls):
+    """K3 against its plain version and bitwise K6 at each (x1, x2)."""
+    for x1, x2 in pairs:
+        k3_at(torch, ck, dev, x1, x2, ls)
+
+
+def path_i1(torch, pl, ck, dev, totals):
+    """I1: the driver's "var" model on the paper's synthetic default
+    (n = 500, p = 100, q = 25, d = 1, m = 333), ``fit`` on the ELBO to the
+    plateau (at most 2,000 steps); ``model(x_test, observed=True)`` on the
+    2,500 test points and the metrics; then ``sgpr_em()`` from the same
+    initial model (the driver's ``var_fit="em"``) and its metrics. K3 at
+    the path's shapes against its plain version."""
+    from projected_lmc_tpu_torch.experiments import generate_synthetic
+    data = generate_synthetic()
+    X, Y, Xt, Yt = data["X"], data["Y"], data["X_test"], data["Y_test"]
+    x_test = torch.as_tensor(Xt, device=dev)
+    model = driver_var(pl, X, Y, dev)
+    z = model.inducing_points.detach()
+    print(f"  I1 driver var: n={X.shape[0]}, p={Y.shape[1]}, q={F1_Q}, "
+          f"m={z.shape[0]}, likelihood rank {F1_Q}")
+    k3_shapes(torch, ck, dev, ((model.train_x, z), (z, z), (x_test, z)),
+              model.covar_module.lengthscale.detach())
+    info, _ = sgpr_fit(torch, pl, ck, model, G2_MAX_ITER, "I1 fit (ELBO)",
+                       totals, loss=lambda m: m.elbo(),
+                       schedule=pl.lambda_lr_schedule(1e-2, 1e-3))
+    with torch.no_grad():
+        _, first_ms = served(torch, ck, "I1 forward", 2,
+                             lambda: model(x_test, observed=True), totals)
+        _, pred_ms = served(torch, ck, "I1 forward", 2,
+                            lambda: model(x_test, observed=True), totals)
+    got = var_metrics(pl, torch, model, x_test, Yt, info, pred_ms / 1e3)
+    print(f"  I1 served: forward ({len(Xt)} points, observed) {pred_ms:.3f} "
+          f"ms (the first {first_ms:.3f}); R2 {got['R2']:.4f} (README, JAX "
+          f"var fully converged: {README_VAR_R2}), RMSE {got['RMSE']:.4f}, "
+          f"PVA {got['PVA']:.4f}, alpha_CI {got['alpha_CI']:.4f}")
+    em = driver_var(pl, X, Y, dev)
+    with torch.no_grad():
+        _, em_ms = served(torch, ck, "I1 sgpr_em", 15, em.sgpr_em, totals)
+        em_loss, _ = served(torch, ck, "I1 ELBO", 2,
+                            lambda: float(-em.elbo()), totals)
+    em_info = dict(n_iter=0, train_time=em_ms / 1e3, loss=em_loss)
+    got_em = var_metrics(pl, torch, em, x_test, Yt, em_info, pred_ms / 1e3)
+    print(f"  I1 sgpr_em (3 E- and M-steps, float64 on the card): "
+          f"{em_ms:.3f} ms, -ELBO {em_loss:.6f}; R2 {got_em['R2']:.4f}, "
+          f"RMSE {got_em['RMSE']:.4f}, PVA {got_em['PVA']:.4f}, alpha_CI "
+          f"{got_em['alpha_CI']:.4f}")
+    for name, g in (("fit", got), ("sgpr_em", got_em)):
+        if not all(math.isfinite(v) for v in g.values()):
+            raise SystemExit(f"chip_smoke: I1's {name} metrics are not "
+                             f"finite")
+
+
+def var_model(pl, X, Y, m, device, **kwargs):
+    """``bench_var_elbo``'s variational model (bench.py:434): q = T, the SVD
+    init, Matérn, m inducing points."""
+    return pl.VariationalMultitaskGPModel(
+        X, n_latents=Y.shape[1], n_tasks=Y.shape[1], train_y=Y,
+        init_lmc_coeffs=True, kernel_type="matern",
+        train_ind_ratio=X.shape[0] / m, seed=0, device=device, **kwargs)
+
+
+def path_i2(torch, pl, ck, dev, totals):
+    """I2: the SVGP ELBO at ``bench_var_elbo``'s shapes (n = 4,449, d = 21,
+    T = q = 7, m = 500): 16 full-batch ELBO + AdamW(1e-2, weight decay
+    1e-4) steps with peak memory and the device split; then 64
+    ``fit_svgp_minibatch`` steps (batch 256) at SARCOS's full n = 44,484."""
+    X, Y = bench_data(I2_N, seed=0, d=I_D)
+    model = var_model(pl, X, Y, I_M, dev)
+    if model.inducing_points.shape[0] != I_M:
+        raise SystemExit("chip_smoke: I2's model has not 500 inducing points")
+    torch.cuda.reset_peak_memory_stats()
+    sgpr_fit(torch, pl, ck, model, I_STEPS, f"I2 ELBO n={I2_N} d={I_D} "
+             f"q={T} m={I_M}", totals, loss=lambda m: m.elbo(),
+             schedule=lambda i: 1e-2, weight_decay=1e-4)
+    print(f"  I2 peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB")
+    del model
+    torch.cuda.empty_cache()
+    X, Y = bench_data(I2_FULL_N, seed=0, d=I_D)
+    model = var_model(pl, X, Y, I_M, dev)
+    zero_counts(ck)
+    torch.cuda.synchronize()
+    _, info = pl.fit_svgp_minibatch(model, batch_size=I2_BATCH,
+                                    n_iter=I2_MB_STEPS, lr=1e-2, device=dev)
+    torch.cuda.synchronize()
+    n = len(info["losses"])
+    if read_counts(ck) != expect(K3=2 * n) or not np.all(
+            np.isfinite(info["losses"])):
+        raise SystemExit(f"chip_smoke: I2's minibatch fit launched "
+                         f"{read_counts(ck)}, not K3 {2 * n} times, or lost "
+                         f"finiteness")
+    totals["K3"] += 2 * n
+    print(f"  I2 fit_svgp_minibatch n={I2_FULL_N} batch {I2_BATCH}: {n} "
+          f"steps in {info['train_time']:.3f} s "
+          f"({info['train_time'] * 1e3 / n:.3f} ms a step), loss first "
+          f"{info['losses'][0]:.6f} last {info['losses'][-1]:.6f}")
+    with sgpr_probes(torch):
+        idx = torch.randint(I2_FULL_N, (I2_BATCH,), device=dev)
+        split_line("I2 minibatch step", *range_split(
+            torch, loss_step(model, lambda m: m.elbo(
+                x=m.train_x[idx], y=m.train_y[idx], num_data=I2_FULL_N)),
+            reps=3, names=I_RANGES))
+
+
+def path_i3(torch, pl, ck, dev, totals):
+    """I3: projected SGPR at ``bench_predict_p50``'s shapes (n = 44,480,
+    d = 21, T = q = 7, m = 500; its BDN, scalar and diagonal B̃, the
+    driver's PLMC_fast configuration): 16 ``fit`` steps
+    on ``projected_lmc_mll`` split by labelled ranges, then the serving path
+    of the SARCOS full-scale row: ``prediction_cache`` once, 8 warm
+    ``predict`` calls on 4,449 points and a cold one. K3 at the path's
+    shapes against its plain version."""
+    rng = np.random.default_rng(1)
+    X = rng.standard_normal((I3_N, I_D)).astype(np.float32)
+    Y = rng.standard_normal((I3_N, T)).astype(np.float32)
+    Xt = rng.standard_normal((I3_TEST, I_D)).astype(np.float32)
+    x_test = torch.as_tensor(Xt, device=dev)
+    model = pl.ProjectedGPModel(X, Y, T, T, init_lmc_coeffs=True,
+                                kernel_type="matern", n_inducing_points=I_M,
+                                device=dev, **PROJ_CONFIGS["PLMC_fast"])
+    z = model.inducing_points.detach()
+    k3_shapes(torch, ck, dev, ((model.train_x, z), (x_test, z)),
+              model.covar_module.lengthscale.detach())
+    torch.cuda.reset_peak_memory_stats()
+    sgpr_fit(torch, pl, ck, model, I_STEPS, f"I3 projected SGPR n={I3_N} "
+             f"d={I_D} q={T} m={I_M}", totals, loss=pl.projected_lmc_mll,
+             schedule=pl.lambda_lr_schedule(1e-2, 1e-3))
+    fit_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        cache, cache_ms = served(torch, ck, "I3 prediction_cache", 2,
+                                 model.prediction_cache, totals)
+        warm = []
+        for _ in range(G_PREDICTS):
+            (mean, var), ms = served(
+                torch, ck, "I3 predict", 2,
+                lambda: model.predict(x_test, observed=True, cache=cache),
+                totals)
+            warm.append(ms)
+        _, cold_ms = served(torch, ck, "I3 cold predict", 4,
+                            lambda: model.predict(x_test, observed=True),
+                            totals)
+        with sgpr_probes(torch):
+            wall, busy, ranges, top = range_split(
+                torch, lambda: model.prediction_cache(), reps=3,
+                names=I_RANGES)
+    if cache["kind"] != "sgpr" or not (torch.isfinite(mean).all()
+                                       and (var > 0).all()):
+        raise SystemExit("chip_smoke: I3's cache is not 'sgpr' or its "
+                         "prediction is not finite and positive")
+    print(f"  I3 served: prediction_cache {cache_ms:.3f} ms, predict "
+          f"({I3_TEST} points) first {warm[0]:.3f} median "
+          f"{float(np.median(warm)):.3f} ms (range {min(warm):.3f}–"
+          f"{max(warm):.3f}), cold {cold_ms:.3f} ms; peak memory fit "
+          f"{fit_peak:.2f} GiB, serving "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    split_line("I3 prediction_cache", wall, busy, ranges, top)
+
+
+def sgpr_models(pl, X, Y, device, m):
+    """Path I4's three SGPR models on the headline's data: LMC
+    (``fix_diagonal``), ICM and ``ExactGPModel`` over the T tasks."""
+    import torch
+    dt = torch.float64 if X.dtype == np.float64 else torch.float32
+
+    def lik():
+        return pl.MultitaskGaussianLikelihood(num_tasks=T, rank=0, dtype=dt,
+                                              device=device)
+    kw = dict(n_tasks=T, n_latents=Q, kernel_type="matern", mean_type="zero",
+              n_inducing_points=m, device=device)
+    return {"LMC": pl.MultitaskGPModel(X, Y, lik(), model_type="LMC",
+                                       fix_diagonal=True, **kw),
+            "ICM": pl.MultitaskGPModel(X, Y, lik(), model_type="ICM", **kw),
+            "exact": pl.ExactGPModel(
+                X, Y, pl.GaussianLikelihood(batch_shape=T, dtype=dt,
+                                            device=device),
+                n_tasks=T, kernel_type="matern", mean_type="zero",
+                n_inducing_points=m, device=device)}
+
+
+# ladder calls of an SGPR MLL: L_zz and the capacitance (exact); L_zz, Σt
+# twice (ICM: its B's factor too) and the capacitance (LMC, ICM)
+SGPR_FACTORIZATIONS = {"LMC": 4, "ICM": 5, "exact": 2}
+
+
+def sgpr_posterior(model, x, cache):
+    """The posterior's mean and variance diagonal at x from ``cache``."""
+    if hasattr(model, "icm"):
+        return model.posterior(x, cache=cache, observed=True)
+    return model.posterior(x, cache=cache, full_cov=False)
+
+
+def path_i4(torch, pl, ck, dev, totals):
+    """I4: the multitask and exact SGPR routes on the headline's data
+    (n = 10⁴, T = 7, q = 4, d = 4, m = 500): 16 ``fit`` steps each, the
+    "sgpr" cache and ``posterior`` on 2,500 points."""
+    X, Y = bench_data(N, seed=0)
+    x_test = torch.as_tensor(bench_data(N_TEST, seed=20)[0], device=dev)
+    for name, model in sgpr_models(pl, X, Y, dev, I_M).items():
+        sgpr_fit(torch, pl, ck, model, I_STEPS, f"I4 {name} SGPR n={N} "
+                 f"m={I_M}", totals,
+                 factorizations=SGPR_FACTORIZATIONS[name])
+        with torch.no_grad():
+            cache, cache_ms = served(torch, ck, f"I4 {name} cache", 2,
+                                     model.precompute_posterior, totals)
+            post, post_ms = served(
+                torch, ck, f"I4 {name} posterior", 2,
+                lambda: sgpr_posterior(model, x_test, cache), totals)
+        if cache["kind"] != "sgpr" or not torch.isfinite(post.mean).all():
+            raise SystemExit(f"chip_smoke: I4 {name}'s cache is not "
+                             f"'sgpr' or its posterior is not finite")
+        print(f"  I4 {name} served: sgpr cache {cache_ms:.3f} ms, posterior "
+              f"({N_TEST} points) {post_ms:.3f} ms")
+
+
+def moved_var(torch, model, seed):
+    """Every trainable leaf moved by a seeded uniform(−0.3, 0.3), the
+    variational factor's by ±0.05: at the standard init (m = 0, S at the
+    prior) the ELBO is stationary in every interpolant-only parameter, so
+    fp32 gradients there are rounding noise."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.requires_grad:
+                w = 0.05 if name.startswith("var_chol") else 0.3
+                p.add_(torch.as_tensor(rng.uniform(-w, w, tuple(p.shape)),
+                                       dtype=p.dtype, device=p.device))
+    return model
+
+
+def grads_of(model, loss):
+    """(value, [gradient of each trainable leaf]) on the host in float64."""
+    model.zero_grad(set_to_none=True)
+    v = loss(model)
+    v.backward()
+    return float(v.detach()), [p.grad.detach().cpu().double()
+                               for p in model.parameters() if p.requires_grad]
+
+
+def held_against_cpu(torch, pl, ck, label, make, loss, dev, k3):
+    """``loss``'s value and gradients on the card (K3 ``k3`` times) against
+    the CPU model carrying the card model's (moved) leaves; the CPU's fp32
+    gradients against its fp64 ones printed beside. Returns the three
+    models (card, CPU, CPU in float64)."""
+    card = moved_var(torch, make(dev, np.float32), 41)
+    names = [k for k, p in card.named_parameters() if p.requires_grad]
+    zero_counts(ck)
+    out = {"cuda": grads_of(card, loss)}
+    if read_counts(ck) != expect(K3=k3):
+        raise SystemExit(f"chip_smoke: {label} launched {read_counts(ck)}, "
+                         f"not K3 {k3} times")
+    cpu = carried(pl, card, torch.device("cpu"),
+                  lambda w: make(w, np.float32))
+    cpu64 = carried(pl, card, torch.device("cpu"),
+                    lambda w: make(w, np.float64))
+    out["cpu"] = grads_of(cpu, loss)
+    v64, g64 = grads_of(cpu64, loss)
+    print(f"  {label}: CPU fp32 against fp64, value rel "
+          f"{abs(out['cpu'][0] - v64) / abs(v64):.1e}, max|Δ|/max|fp64| "
+          + ", ".join(f"{k.split('.')[-1]} "
+                      f"{float((a - b).abs().max() / b.abs().max()):.1e}"
+                      for k, a, b in zip(names, out["cpu"][1], g64)))
+    print(f"  {label}, card (K3) against CPU:")
+    compare_grads(out, names)
+    return card, cpu, cpu64
+
+
+def held_to_fp64(name, card, cpu, cpu64, scale, tol):
+    """The card against the CPU on the same leaves, max|Δ| / ``scale`` ≤
+    ``tol``; or, where the CPU's own fp32 result is that unstable, the card
+    no farther from the CPU's float64 result than twice the CPU's fp32 one
+    is (two fp32 roundings of an ill-conditioned solve need not agree)."""
+    def gap(a, b):
+        return float((a.detach().cpu().double() - b.detach().cpu().double())
+                     .abs().max()) / scale
+    g, g64, c64 = gap(card, cpu), gap(card, cpu64), gap(cpu, cpu64)
+    print(f"  {name}: max|Δ| / {scale:.4g}: card against CPU {g:.2e} "
+          f"(tolerance {tol:.0e}), card against CPU fp64 {g64:.2e}, CPU "
+          f"fp32 against fp64 {c64:.2e}")
+    if not (math.isfinite(g) and (g <= tol or g64 <= 2 * c64)):
+        raise SystemExit(f"chip_smoke: {name} disagrees between the card and "
+                         f"the CPU")
+
+
+def mean_var_held(label, card, cpu, cpu64, scale):
+    """Mean within 1e-4 of its largest entry, variance within 1e-3 of the
+    largest prior variance (:func:`held_to_fp64`)."""
+    held_to_fp64(f"{label} mean", card[0], cpu[0], cpu64[0],
+                 scale_of(cpu64[0]), 1e-4)
+    held_to_fp64(f"{label} variance", card[1], cpu[1], cpu64[1], scale, 1e-3)
+
+
+def task_prior_var_max(kss, W2, noise) -> float:
+    """max over (x, t) of Σ_b kss_b(x) W2[b, t] + noise[t]."""
+    return float((kss.T @ W2 + noise).max())
+
+
+def e_step_inputs(torch, model):
+    """The float64 inputs of ``sgpr_optimal_q`` and of the M-step, taken
+    from ``model`` as its E- and M-steps take them."""
+    f64 = torch.float64
+    with torch.no_grad():
+        H = model.lmc_coeffs.to(f64)
+        z = model.inducing_points
+        mean_l, var_l = model.compute_latent_distrib(model.train_x)
+        return dict(
+            Kzz=model.covar_module(z).to(f64),
+            Kzx=model.covar_module(z, model.train_x).to(f64),
+            Lzz=model._kernel_factors().to(f64),
+            L_t=torch.linalg.pinv(H.T) @ model.train_y.to(f64).T,
+            Y=model.train_y.to(f64), mean=mean_l.to(f64).T @ H, H=H,
+            var_l=var_l.to(f64),
+            noise=float(torch.diagonal(
+                model.likelihood.task_covariance().to(f64)).mean()))
+
+
+def em_algebra_held(torch, card):
+    """The E- and M-steps' float64 algebra (``sgpr_optimal_q``,
+    ``optimal_task_noise``, ``ppca_task_noise``) on the card against the
+    CPU on the same float64 inputs, within 1e-8 of the largest entry (the
+    fp32 kernel matrices they start from are held above)."""
+    from projected_lmc_tpu_torch.models import variational as var_mod
+    inp = e_step_inputs(torch, card)
+    out = []
+    for where in (card.device, torch.device("cpu")):
+        a = {k: v.to(where) if torch.is_tensor(v) else v
+             for k, v in inp.items()}
+        with torch.no_grad():
+            m_u, S_chol = var_mod.sgpr_optimal_q(
+                a["Kzz"], a["Kzx"], a["Lzz"], a["L_t"], a["noise"], 1e-6,
+                card.whitened)
+            S = var_mod.optimal_task_noise(a["Y"], a["mean"], a["var_l"],
+                                           a["H"])
+            F, sigma2 = var_mod.ppca_task_noise(S, 3, 1e-4)
+        out.append((m_u, S_chol @ S_chol.transpose(-1, -2), S, F @ F.T,
+                    sigma2))
+    (g, c) = out
+    for name, a, b in zip(("E-step mean", "E-step S", "M-step target",
+                           "M-step F Fᵀ"), g, c):
+        held(f"I {name} (float64)", a, b, scale_of(b), 1e-8)
+    if not abs(g[4] - c[4]) <= 1e-8 * abs(c[4]):
+        raise SystemExit("chip_smoke: the M-step's σ² disagrees")
+
+
+def path_i_checks(torch, pl, ck, dev, totals):
+    """The card against the CPU at n = 2048, m = 256: the ELBO (whitened and
+    unwhitened; Cholesky, mean-field and delta) and each SGPR MLL (exact,
+    LMC, ICM, projected), value rel. ≤ 1e-4 and gradients ≤ 2e-3, the
+    inducing points' included; the posteriors (mean 1e-4 of its largest
+    entry, variance 1e-3 of the largest prior variance, or where the CPU's
+    own fp32 result is that far from its fp64 one, held against the fp64
+    one: :func:`held_to_fp64`); the E/M steps' float64 algebra within
+    1e-8."""
+    n = F_CHECK_N
+    X, Y = bench_data(n, seed=40)
+    xs = torch.as_tensor(bench_data(G_CHECK_TEST, seed=41)[0])
+    for strat in ("whitened", "unwhitened"):
+        for distrib in ("cholesky", "mean_field", "delta"):
+            def make(w, dt, strat=strat, distrib=distrib):
+                return var_model(pl, X.astype(dt), Y.astype(dt), I_CHECK_M,
+                                 w, var_strat=strat, distrib=distrib)
+            # unwhitened, the KL factors K(z, z) again: K3 three times
+            card, cpu, cpu64 = held_against_cpu(
+                torch, pl, ck, f"I n={n} m={I_CHECK_M} ELBO {strat} "
+                f"{distrib}", make, lambda m: m.elbo(), dev,
+                2 if strat == "whitened" else 3)
+            with torch.no_grad():
+                g, c, c64 = (m(x, observed=True) for m, x in (
+                    (card, xs.to(dev)), (cpu, xs), (cpu64, xs.double())))
+                scale = task_prior_var_max(
+                    cpu64.covar_module(xs.double(), diag=True),
+                    cpu64.lmc_coeffs ** 2,
+                    torch.diagonal(cpu64.likelihood.task_covariance()))
+            mean_var_held(f"I {strat} {distrib} forward",
+                          *((p.mean, p.variance) for p in (g, c, c64)),
+                          scale)
+            if strat == "whitened" and distrib == "cholesky":
+                em_algebra_held(torch, card)
+    for name in ("exact", "LMC", "ICM"):
+        def make(w, dt, name=name):
+            return sgpr_models(pl, X.astype(dt), Y.astype(dt), w,
+                               I_CHECK_M)[name]
+        models = held_against_cpu(
+            torch, pl, ck, f"I n={n} m={I_CHECK_M} {name} SGPR MLL", make,
+            lambda m: m.mll(), dev, 2)
+        with torch.no_grad():
+            posts = [sgpr_posterior(m, x, m.precompute_posterior())
+                     for m, x in zip(models, (xs.to(dev), xs, xs.double()))]
+            cpu64 = models[2]
+            if name == "exact":
+                scale = float((cpu64.covar_module(xs.double(), diag=True)
+                               + cpu64.likelihood.noise).max())
+            else:
+                scale = prior_var_max(torch, cpu64, xs.double())
+        mean_var_held(f"I {name} sgpr posterior",
+                      *((p.mean, p.variance) for p in posts), scale)
+
+    def make(w, dt):
+        return pl.ProjectedGPModel(
+            X.astype(dt), Y.astype(dt), T, Q, init_lmc_coeffs=True,
+            kernel_type="matern", n_inducing_points=I_CHECK_M, device=w,
+            **PROJ_CONFIGS["PLMC"])
+    models = held_against_cpu(
+        torch, pl, ck, f"I n={n} m={I_CHECK_M} projected SGPR MLL", make,
+        pl.projected_lmc_mll, dev, 2)
+    with torch.no_grad():
+        preds = [m.predict(x, cache=m.prediction_cache())
+                 for m, x in zip(models, (xs.to(dev), xs, xs.double()))]
+        scale = prior_var_max(torch, models[2], xs.double())
+    mean_var_held("I projected sgpr predict", *preds, scale)
+
+
+def path_i_phase(torch, pl, ck, dev, totals):
+    """Path I: variational LMC and SGPR (I1, I2, I3, I4, the card against
+    the CPU), each with its wall time."""
+    t0 = time.perf_counter()
+    for label, part in (("I1", path_i1), ("I2", path_i2), ("I3", path_i3),
+                        ("I4", path_i4), ("I checks", path_i_checks)):
+        t1 = time.perf_counter()
+        part(torch, pl, ck, dev, totals)
+        torch.cuda.empty_cache()
+        print(f"  {label} took {time.perf_counter() - t1:.1f} s")
+    print(f"  path I took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2763,6 +3338,14 @@ def main() -> int:
           f"steps), H2 the matrix-free route n={N_H2} T={T} q={Q}, H3 the "
           f"dense route n={N_H3}; {N_TEST} test points")
     path_h_phase(torch, pl, ck, dev, totals)
+    print(f"path I: variational LMC and SGPR, I1 the driver's var model on "
+          f"the paper's synthetic default (fit to the plateau, at most "
+          f"{G2_MAX_ITER} steps, and sgpr_em), I2 the SVGP ELBO n={I2_N} "
+          f"d={I_D} m={I_M} ({I_STEPS} steps) and {I2_MB_STEPS} minibatch "
+          f"steps at n={I2_FULL_N}, I3 projected SGPR n={I3_N} "
+          f"({I_STEPS} steps, {I3_TEST} test points), I4 LMC, ICM and exact "
+          f"SGPR n={N} ({I_STEPS} steps each)")
+    path_i_phase(torch, pl, ck, dev, totals)
 
     meta = [("K1", "scaled_kernel_stack_sym",
              "projected_lmc_tpu/ops/pallas_kernels.py:278"),

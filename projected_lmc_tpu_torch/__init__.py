@@ -12,7 +12,11 @@ posteriors and ``compute_var``), the int8 stack
 LMC (``models.projected.ProjectedGPModel`` trained on
 ``mlls.projected_lmc_mll``), and prediction with all of them: the exact,
 LMC, ICM and projected-LMC posteriors, LOO (``mlls.loo_pseudo_likelihood``) and
-``metrics.compute_metrics``, with a hand-written CUDA
+``metrics.compute_metrics``, and the variational and SGPR models: the SVGP
+``models.variational.VariationalMultitaskGPModel`` (its ELBO, the
+closed-form SGPR E/M steps, ``training.fit_svgp_minibatch``) and the
+Titsias SGPR route of the exact, LMC/ICM and projected models
+(``n_inducing_points``), with a hand-written CUDA
 kernel for each TPU kernel of the JAX package (``ops/cuda_kernels.py``,
 sources in ``csrc/``). Entry points default to
 ``device="cuda"``; ``device="cpu"`` runs the kernels' plain PyTorch versions.
@@ -25,11 +29,14 @@ from .mlls import exact_mll, loo_pseudo_likelihood, projected_lmc_mll
 from .models.exact import ExactGPModel
 from .models.multitask import MultitaskGPModel
 from .models.projected import ProjectedGPModel
-from .training import fit, fit_two_phase, lambda_lr_schedule
+from .models.variational import VariationalMultitaskGPModel
+from .training import (fit, fit_svgp_minibatch, fit_two_phase,
+                       lambda_lr_schedule)
 from .utils.checkpoint import load_jax_state
 
 __all__ = ["ExactGPModel", "GaussianLikelihood", "KronCov",
            "MultitaskGaussianLikelihood", "MultitaskGPModel",
-           "ProjectedGPModel", "SumKronRank1Cov", "compute_metrics",
-           "exact_mll", "fit", "fit_two_phase", "lambda_lr_schedule",
+           "ProjectedGPModel", "SumKronRank1Cov",
+           "VariationalMultitaskGPModel", "compute_metrics", "exact_mll",
+           "fit", "fit_svgp_minibatch", "fit_two_phase", "lambda_lr_schedule",
            "load_jax_state", "loo_pseudo_likelihood", "projected_lmc_mll"]

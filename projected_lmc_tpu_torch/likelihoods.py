@@ -32,6 +32,15 @@ class GaussianLikelihood(Module):
     def noise(self):
         return self.constraint.forward(self.raw_noise)
 
+    def set_noise(self, value):
+        """Set the noise to ``value`` (broadcast to (batch, 1)) in place;
+        returns the likelihood."""
+        with torch.no_grad():
+            self.raw_noise.copy_(self.constraint.inverse(torch.as_tensor(
+                value, dtype=self.raw_noise.dtype,
+                device=self.raw_noise.device).expand_as(self.raw_noise)))
+        return self
+
     def add_to_covar(self, K):
         """K (batch, n, n) → K + noise_b · I for each batch element."""
         n = K.shape[-1]
@@ -40,6 +49,9 @@ class GaussianLikelihood(Module):
 
 
 class MultitaskGaussianLikelihood(Module):
+    """Multitask noise Σt = F Fᵀ (rank > 0) or diag(task_noises) (rank 0),
+    plus σ²_global I, (T, T)."""
+
     def __init__(self, num_tasks: int, rank: int = 0,
                  has_global_noise: bool = True, has_task_noise: bool = True,
                  noise_constraint=None, seed: int = 0, dtype=torch.float32,
@@ -63,9 +75,26 @@ class MultitaskGaussianLikelihood(Module):
                 self.register_raw("raw_task_noises",
                                   torch.zeros((self.num_tasks,)), dtype, dev)
 
+    def _ref(self):
+        """A parameter, for the likelihood's dtype and device."""
+        return next(self.parameters())
+
     @property
     def noise(self):
+        """The global noise σ², (1,); zeros without a global noise."""
+        if not self.has_global_noise:
+            ref = self._ref()
+            return torch.zeros((1,), dtype=ref.dtype, device=ref.device)
         return self.constraint.forward(self.raw_noise)
+
+    def set_noise(self, value):
+        """Set the global noise σ² to ``value`` in place; returns the
+        likelihood."""
+        with torch.no_grad():
+            self.raw_noise.copy_(self.constraint.inverse(torch.as_tensor(
+                value, dtype=self.raw_noise.dtype,
+                device=self.raw_noise.device).expand(1)))
+        return self
 
     @property
     def task_noises(self):
@@ -77,7 +106,7 @@ class MultitaskGaussianLikelihood(Module):
     def task_covariance(self):
         """Dense (T, T) noise covariance Σt."""
         p = self.num_tasks
-        ref = next(self.parameters())
+        ref = self._ref()
         sigma = torch.zeros((p, p), dtype=ref.dtype, device=ref.device)
         if self.has_task_noise:
             if self.rank > 0:

@@ -1,8 +1,10 @@
-"""Models of the port: the exact GP, the exact LMC multitask GP and the
-projected LMC."""
+"""Models of the port: the exact GP, the exact LMC/ICM multitask GP, the
+projected LMC and the variational LMC."""
 
 from .exact import ExactGPModel
 from .multitask import MultitaskGPModel
 from .projected import ProjectedGPModel
+from .variational import VariationalMultitaskGPModel
 
-__all__ = ["ExactGPModel", "MultitaskGPModel", "ProjectedGPModel"]
+__all__ = ["ExactGPModel", "MultitaskGPModel", "ProjectedGPModel",
+           "VariationalMultitaskGPModel"]

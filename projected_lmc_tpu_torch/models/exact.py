@@ -7,8 +7,15 @@ the fused iterative MLL of ``ops/fused_mll.py``: the batch IS the LMC
 Σ_b K_b ⊗ e_b e_bᵀ + I ⊗ diag(σ²) with identity mixing. The posterior
 factorizes the training system once (``precompute_posterior``, a plain
 dict) for any number of ``posterior`` calls; ``compute_loo`` gives the exact
-leave-one-out residuals. The SGPR path (``n_inducing_points``) is a later
-slice; ``lscales``/``outputscale`` read the learned hyperparameters.
+leave-one-out residuals; ``lscales``/``outputscale`` read the learned
+hyperparameters.
+
+With ``n_inducing_points`` the model takes the Titsias SGPR route: m
+trainable inducing points z, the low-rank roots R = K_xz L_zz⁻ᵀ (kernel K3
+for K(z, z) and K(x, z) on the card), an MLL that is the Titsias bound with
+its −tr(K − Q)/2σ² term, and posteriors through the (m, m) capacitance
+R ᵀR + σ²I, whose variance adds the gap k(x*, x*) − diag(R* R*ᵀ)
+(``sgpr_titsias_var``).
 """
 
 from __future__ import annotations
@@ -72,11 +79,31 @@ def _resolve(registry, spec, default, what):
     return registry[spec]
 
 
+def inducing_factor(covar_module, z):
+    """L_zz, the lower factor of K_zz + 1e-6 I, (k, m, m) (K3 on the
+    card)."""
+    Kzz = covar_module(z)
+    return safe_cholesky(Kzz + 1e-6 * torch.eye(
+        Kzz.shape[-1], dtype=Kzz.dtype, device=Kzz.device))
+
+
+def nystrom_roots(covar_module, z, x):
+    """R = K_xz L_zz⁻ᵀ, (k, n, m): the Nyström factors of gpytorch's
+    InducingPointKernel at inducing points z, one set per kernel of the
+    batch; K(z, z) and K(x, z) are kernel K3 on the card."""
+    Lzz = inducing_factor(covar_module, z)
+    return solve_triangular(Lzz, covar_module(x, z).transpose(-1, -2),
+                            lower=True).transpose(-1, -2)
+
+
 class ExactGPModel(Module):
     """Exact GP (projected_lmc.py:264-436); batch dimension = independent
     tasks. ``device`` defaults to ``"cuda"``; ``device="cpu"`` runs the
     kernels' plain versions. Parameters keep the JAX package's raw leaves
-    and names (``utils.checkpoint.load_jax_state``)."""
+    and names (``utils.checkpoint.load_jax_state``). ``n_inducing_points``
+    selects the SGPR route, its inducing points drawn from
+    ``default_rng(seed)``; ``sgpr_titsias_var=False`` drops the variance's
+    low-rank gap (the reference's subset-of-regressors variance)."""
 
     # dense batched-Cholesky ceiling of the auto-routing: T·n² elements
     ITER_TN2_MAX = 2 ** 30
@@ -85,11 +112,8 @@ class ExactGPModel(Module):
                  prior_scales=None, prior_width=None, mean_type="constant",
                  decomp=None, outputscales: bool = False, kernel_type="rbf",
                  ker_kwargs=None, n_inducing_points=None, seed: int = 0,
-                 device="cuda", **kwargs):
+                 sgpr_titsias_var: bool = True, device="cuda", **kwargs):
         super().__init__()
-        if n_inducing_points is not None:
-            raise NotImplementedError("the SGPR path (n_inducing_points) is "
-                                      "ported with slice 5")
         dev = resolve_device(device)
         x = torch.as_tensor(np.asarray(train_x), device=dev)
         if x.dim() == 1:
@@ -110,10 +134,21 @@ class ExactGPModel(Module):
             dim=self.dim, decomp=decomp, prior_scales=prior_scales,
             prior_width=prior_width, outputscales=outputscales,
             n_funcs=n_tasks, ker_kwargs=ker_kwargs, dtype=dtype, device=dev)
+        if n_inducing_points is not None:
+            rng = np.random.default_rng(seed)
+            self.register_raw("inducing_points", rng.standard_normal(
+                (int(n_inducing_points), self.dim)), dtype, dev)
+        else:
+            self.inducing_points = None
+        self.sgpr_titsias_var = bool(sgpr_titsias_var)
 
     @property
     def device(self):
         return self.train_x.device
+
+    @property
+    def sgpr(self) -> bool:
+        return self.inducing_points is not None
 
     def _targets(self, targets, orientation):
         if targets is None:
@@ -124,8 +159,13 @@ class ExactGPModel(Module):
 
     def prior(self, x) -> MultivariateNormal:
         """Prior p(f(x)): batched MVN with mean (T, n), covariance
-        (T, n, n)."""
+        (T, n, n); on the SGPR route the Nyström Q = K_xz K_zz⁻¹ K_zx, as
+        gpytorch's InducingPointKernel."""
         x = _as_inputs(x, self.train_x)
+        if self.sgpr:
+            R = self._low_rank_root(x)
+            return MultivariateNormal(self.mean_module(x),
+                                      R @ R.transpose(-1, -2))
         return MultivariateNormal(self.mean_module(x), self.covar_module(x))
 
     def forward(self, x):
@@ -141,15 +181,44 @@ class ExactGPModel(Module):
         """K + σ²I at the training inputs, (T, n, n)."""
         return self.likelihood.add_to_covar(self.covar_module(self.train_x))
 
+    def _low_rank_root(self, x):
+        """R = K_xz L_zz⁻ᵀ, (T, n, m)."""
+        return nystrom_roots(self.covar_module, self.inducing_points, x)
+
+    def _sgpr_capacitance(self, R):
+        """The lower factor of RᵀR + σ²I, (T, m, m)."""
+        s2 = self.likelihood.noise[..., 0][:, None, None]
+        eye = torch.eye(R.shape[-1], dtype=R.dtype, device=R.device)
+        return safe_cholesky(R.transpose(-1, -2) @ R + s2 * eye)
+
+    def _sgpr_log_prob(self, x, delta):
+        """Titsias bound per task: log N(y; m, Q + σ²I) − tr(K − Q)/(2σ²),
+        (T,)."""
+        n = x.shape[0]
+        R = self._low_rank_root(x)                               # (T, n, m)
+        m = R.shape[-1]
+        Lc = self._sgpr_capacitance(R)
+        Rty = R.transpose(-1, -2) @ delta[..., None]
+        w = solve_triangular(Lc, Rty, lower=True)[..., 0]
+        s2 = self.likelihood.noise[..., 0]                       # (T,)
+        quad = ((delta * delta).sum(-1) - (w * w).sum(-1)) / s2
+        logdet = (n - m) * torch.log(s2) + logdet_from_chol(Lc)
+        gap = self.covar_module(x, diag=True) - (R * R).sum(-1)
+        trace_term = torch.clamp(gap, min=0.0).sum(-1) / (2 * s2)
+        return -0.5 * (quad + logdet + n * math.log(2 * math.pi)) - trace_term
+
     def log_marginal(self, y=None, x=None, orientation: str = "auto"):
         """Per-task log N(y_t; m_t, K_t + σ_t² I), shape (T,), by a batched
-        Cholesky."""
+        Cholesky; on the SGPR route the Titsias bound with its
+        −tr(K − Q)/2σ² term."""
         x = self.train_x if x is None else x
         y = self.train_y if y is None else _canon_targets(
             torch.as_tensor(y, dtype=x.dtype, device=x.device), self.n_funcs,
             orientation)
         n = x.shape[0]
         delta = y - self.mean_module(x)
+        if self.sgpr:
+            return self._sgpr_log_prob(x, delta)
         L = safe_cholesky(self.likelihood.add_to_covar(self.covar_module(x)))
         z = solve_triangular(L, delta[..., None], lower=True)[..., 0]
         return -0.5 * ((z * z).sum(-1) + logdet_from_chol(L)
@@ -168,11 +237,21 @@ class ExactGPModel(Module):
         (num_probes, T, rank) are its standard normals; when not given they
         are drawn from ``generator`` (a fresh one seeded 0 when None, as the
         JAX model draws from ``PRNGKey(0)`` without a key). The roots are
-        rebuilt at every call. ``precond_rank <= 0`` means min(256, n)."""
+        rebuilt at every call. ``precond_rank <= 0`` means min(256, n).
+        On the SGPR route the MLL is the Titsias bound, never iterative:
+        ``iterative=True`` raises."""
         x_ = self.train_x if x is None else x
         n = x_.shape[0]
+        if iterative and self.sgpr:
+            raise ValueError(
+                "iterative=True is not available on an SGPR model: the "
+                "Titsias bound is already matrix-free in n (its dense work "
+                "is m×m), and the CG/probe kwargs would be silently "
+                "ignored. Drop iterative/num_probes/max_cg_iters/... or "
+                "build the model without n_inducing_points.")
         if iterative is None:
-            iterative = self.n_funcs * n * n > self.ITER_TN2_MAX
+            iterative = (not self.sgpr
+                         and self.n_funcs * n * n > self.ITER_TN2_MAX)
             if iterative:
                 warnings.warn(
                     "ExactGPModel.mll: T·n² exceeds the dense-Cholesky "
@@ -239,10 +318,18 @@ class ExactGPModel(Module):
     # -- posterior -------------------------------------------------------------
     def precompute_posterior(self, targets=None, orientation: str = "auto"):
         """Factorize the training system once: dict(kind="exact", L, alpha)
-        for :meth:`posterior`. ``targets`` re-targets the model (the
+        for :meth:`posterior`, or on the SGPR route dict(kind="sgpr", Lc,
+        beta, noise) with Lc the capacitance's factor and β = (RᵀR +
+        σ²I)⁻¹Rᵀ(y − m), (T, m). ``targets`` re-targets the model (the
         projected data of ``ProjectedGPModel``)."""
         delta = self._targets(targets, orientation) \
             - self.mean_module(self.train_x)
+        if self.sgpr:
+            R = self._low_rank_root(self.train_x)
+            Lc = self._sgpr_capacitance(R)
+            beta = cho_solve(Lc, R.transpose(-1, -2) @ delta[..., None])
+            return dict(kind="sgpr", Lc=Lc, beta=beta[..., 0],
+                        noise=self.likelihood.noise)
         L = safe_cholesky(self._train_covar())
         alpha = cho_solve(L, delta[..., None])[..., 0]          # (T, n)
         return dict(kind="exact", L=L, alpha=alpha)
@@ -251,10 +338,13 @@ class ExactGPModel(Module):
                   targets=None) -> MultivariateNormal:
         """Latent posterior p(f* | data), a batched MVN (T, n*): dense
         covariance with ``full_cov``, else its diagonal, clipped at 1e-12.
-        The (T, n, n*) cross-covariance is kernel K3 on the card."""
+        The (T, n, n*) cross-covariance is kernel K3 on the card; on the
+        SGPR route the (T, n*, m) K(x*, z) is."""
         if cache is None:
             cache = self.precompute_posterior(targets)
         x_star = _as_inputs(x_star, self.train_x)
+        if cache["kind"] == "sgpr":
+            return self._sgpr_posterior(x_star, cache, full_cov)
         Ks = self.covar_module(self.train_x, x_star)            # (T, n, n*)
         mean = self.mean_module(x_star) + torch.einsum(
             "tns,tn->ts", Ks, cache["alpha"])
@@ -264,6 +354,28 @@ class ExactGPModel(Module):
             return MultivariateNormal(mean, covar)
         var = self.covar_module(x_star, diag=True) - (Vs * Vs).sum(-2)
         return _DiagMVN(mean, torch.clamp(var, min=1e-12))
+
+    def _sgpr_posterior(self, x_star, cache, full_cov):
+        """Titsias predictive: mean m(x*) + R*β, covariance σ²R* cap⁻¹ R*ᵀ
+        plus the low-rank gap kss − diag(R* R*ᵀ), clipped at 0 like the
+        bound's trace term (without it, ``sgpr_titsias_var=False``, the
+        variance is the subset-of-regressors one, which collapses to 0 far
+        from the inducing points)."""
+        Rs = self._low_rank_root(x_star)                         # (T, n*, m)
+        mean = self.mean_module(x_star) + (Rs @ cache["beta"][..., None])[
+            ..., 0]
+        V = solve_triangular(cache["Lc"], Rs.transpose(-1, -2), lower=True)
+        if self.sgpr_titsias_var:
+            gap = torch.clamp(self.covar_module(x_star, diag=True)
+                              - (Rs * Rs).sum(-1), min=0.0)
+        else:
+            gap = torch.zeros(Rs.shape[:-1], dtype=Rs.dtype, device=Rs.device)
+        s2 = cache["noise"][..., 0]
+        if full_cov:
+            return MultivariateNormal(
+                mean, s2[:, None, None] * (V.transpose(-1, -2) @ V)
+                + torch.diag_embed(gap))
+        return _DiagMVN(mean, s2[:, None] * (V * V).sum(-2) + gap)
 
     def compute_loo(self, targets=None, complex_mean: bool = False,
                     orientation: str = "auto"):

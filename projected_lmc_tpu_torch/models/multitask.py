@@ -1,5 +1,5 @@
 """Exact multitask GP, ICM and LMC coregionalization (port of
-``projected_lmc_tpu/models/multitask.py`` without its SGPR branches).
+``projected_lmc_tpu/models/multitask.py``).
 
 ICM: Σ = K ⊗ B + I ⊗ Σt with one stationary kernel and B = F Fᵀ +
 diag(softplus(raw_var)), F the rank-q ``covar_factor`` (T, q). Its MLL is,
@@ -24,6 +24,12 @@ The LMC posterior factorizes once (``precompute_posterior``, a plain dict):
 the dense Woodbury factors ("lmc"), or above ``DENSE_QN_MAX`` a PCG solve
 on the K3 stack with a conservative variance through Nyström factors
 inflated by the residual's spectral bound ("lmc_iter").
+
+SGPR (``n_inducing_points``, both types): Nyström roots R_b = K_xz L_zz⁻ᵀ
+(K3 for K(z, z) and K(x, z)) in the low-rank Woodbury MLL with the
+Titsias trace term; the ICM is an LMC of T pseudo-latents, the columns of
+chol(B), sharing one root set. Its cache ("sgpr") is the (q·m)²
+capacitance, its posterior ``woodbury.lmc_sgpr_posterior``.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from ..ops import woodbury as wb_ops
 from ..ops.cholesky import cho_solve, safe_cholesky, solve_triangular
 from ..ops.init_ops import init_lmc_coefficients
 from ..utils.device import resolve_device
-from .exact import _as_inputs, _canon_targets, _resolve
+from .exact import _as_inputs, _canon_targets, _resolve, nystrom_roots
 
 
 def _fused_stationary_spec(cov, dim):
@@ -84,14 +90,11 @@ class MultitaskGPModel(Module):
                  init_lmc_coeffs: bool = True, fix_diagonal: bool = False,
                  mean_type="constant", kernel_type="rbf", decomp=None,
                  prior_scales=None, prior_width=None, ker_kwargs=None,
-                 n_inducing_points=None, seed: int = 0, device="cuda",
-                 **kwargs):
+                 n_inducing_points=None, seed: int = 0,
+                 sgpr_titsias_var: bool = True, device="cuda", **kwargs):
         super().__init__()
         if model_type not in ("ICM", "LMC"):
             raise ValueError("Wrong specified model type, should be ICM or LMC")
-        if n_inducing_points is not None:
-            raise NotImplementedError("the SGPR path (n_inducing_points) is "
-                                      "ported with slice 5")
         dev = resolve_device(device)
         x_host = np.asarray(train_x)
         y_host = np.asarray(train_y, x_host.dtype)
@@ -143,6 +146,14 @@ class MultitaskGPModel(Module):
             self.register_raw("raw_var", np.full(shape, -10.0), dtype, dev)
         else:
             self.register_raw("raw_var", rng.standard_normal(shape), dtype, dev)
+        # SGPR: the inducing points come from the same rng, after the draws
+        # above
+        if n_inducing_points is not None:
+            self.register_raw("inducing_points", rng.standard_normal(
+                (int(n_inducing_points), self.dim)), dtype, dev)
+        else:
+            self.inducing_points = None
+        self.sgpr_titsias_var = bool(sgpr_titsias_var)
 
     @property
     def device(self):
@@ -151,6 +162,38 @@ class MultitaskGPModel(Module):
     @property
     def icm(self) -> bool:
         return self.model_type == "ICM"
+
+    @property
+    def sgpr(self) -> bool:
+        return self.inducing_points is not None
+
+    def _nystrom_roots(self, x):
+        """R_b = K_xz L_zz⁻ᵀ, (n_kernels, n, m)."""
+        return nystrom_roots(self.covar_module, self.inducing_points, x)
+
+    def _sgpr_structure(self, x):
+        """(roots, H, Σt, titsias) of the low-rank Woodbury MLL.
+
+        ICM: Q ⊗ B = Σ_b Q ⊗ s_b s_bᵀ with s_b the columns of chol(B +
+        1e-10·I), so T pseudo-latents share one root set, and the Titsias
+        term −½ Σᵢ (Kᵢᵢ − Qᵢᵢ)·tr(Σt⁻¹B). LMC: the latents' roots with
+        H (T, q), the task noise with the per-latent diagonals, and the
+        term per latent with h_bᵀ Σt⁻¹ h_b — the multitask analog of
+        gpytorch's InducingPointKernelAddedLossTerm."""
+        roots = self._nystrom_roots(x)                          # (k, n, m)
+        gap = self.covar_module(x, diag=True) - (roots * roots).sum(-1)
+        traces = torch.clamp(gap, min=0.0).sum(-1)              # (k,)
+        St = self.likelihood.task_covariance()
+        if self.icm:
+            B = self.task_covar_matrix()
+            eye = torch.eye(self.n_tasks, dtype=B.dtype, device=B.device)
+            S_B = safe_cholesky(B + 1e-10 * eye)
+            V = solve_triangular(safe_cholesky(St), S_B, lower=True)
+            return (roots[0].expand((self.n_tasks,) + roots.shape[1:]), S_B,
+                    St, -0.5 * traces[0] * (V * V).sum())
+        H, St_eff = self._mixing()
+        V = solve_triangular(safe_cholesky(St_eff), H, lower=True)  # (T, q)
+        return roots, H, St_eff, -0.5 * (traces * (V * V).sum(0)).sum()
 
     def task_covar_matrix(self):
         """ICM: B = F Fᵀ + diag(softplus(raw_var)), (T, T). LMC: per-latent
@@ -205,7 +248,9 @@ class MultitaskGPModel(Module):
             matvec_int8: bool = False, eps=None, xi=None, generator=None):
         """Exact multitask MLL / (n·T), plus hyper-prior terms.
 
-        ICM: the Kronecker log-density (``kron.icm_log_prob_chol``) up to
+        SGPR (both types; the routing kwargs are ignored): the low-rank
+        Woodbury log-density of :meth:`_sgpr_structure` plus its Titsias
+        term. ICM: the Kronecker log-density (``kron.icm_log_prob_chol``) up to
         n = ``ICM_DENSE_N_MAX`` (or with ``iterative=False``), above it (or
         with ``iterative=True``) the matrix-free PCG estimator
         (``iterative.icm_pcg_log_prob``; ``precond_rank`` ≤ 0 becomes
@@ -229,6 +274,12 @@ class MultitaskGPModel(Module):
             torch.as_tensor(y, dtype=x.dtype, device=x.device), self.n_tasks)
         n = x.shape[0]
         Ydelta = y.T - self.mean_module(x).T                    # (n, T)
+        if self.sgpr:
+            roots, H, St, titsias = self._sgpr_structure(x)
+            fac = wb_ops.lmc_factors_from_roots(roots, H, St)
+            ll = wb_ops.lmc_log_prob(None, H, St, Ydelta, fac=fac) + titsias
+            return (ll + self.covar_module.prior_log_prob()) \
+                / (n * self.n_tasks)
         if self.icm:
             ll = self._icm_log_prob(
                 x, Ydelta, iterative, num_probes, max_cg_iters, cg_tol,
@@ -331,7 +382,16 @@ class MultitaskGPModel(Module):
         by rank-m Nyström roots of K3's (n, n) matrix, and a conservative
         variance through M_up = Q ⊗ B + I ⊗ (Σt + c·I), c = λmax(K − Q) ·
         λmax(B) from power iteration started at ``v0`` (n, 1), or at a draw
-        from ``generator``."""
+        from ``generator``.
+
+        SGPR (both types): the Woodbury factors of the low-rank roots and α
+        ("sgpr")."""
+        if self.sgpr:
+            roots, H, St, _ = self._sgpr_structure(self.train_x)
+            fac = wb_ops.lmc_factors_from_roots(roots, H, St)
+            return dict(kind="sgpr", fac=fac,
+                        alpha=wb_ops.lmc_solve(self._train_delta(), fac),
+                        H=H, Sigma_t=St)
         if self.icm:
             return self._icm_posterior_cache(iterative, max_cg_iters, cg_tol,
                                              precond_rank, v0, generator)
@@ -393,10 +453,14 @@ class MultitaskGPModel(Module):
         observation noise when ``observed``. The (q, n*, n) cross-covariance
         ((1, n*, n) for ICM) is kernel K3 on the card; the prior and noise
         use the true Σt, the "lmc_iter" and "icm_iter" corrections the
-        inflated factors."""
+        inflated factors. "sgpr": the test points' Nyström roots (K3's
+        (q, n*, m)) through ``woodbury.lmc_sgpr_posterior``, with the
+        low-rank gap when ``sgpr_titsias_var``."""
         if cache is None:
             cache = self.precompute_posterior()
         x_star = _as_inputs(x_star, self.train_x)
+        if cache["kind"] == "sgpr":
+            return self._sgpr_posterior(x_star, cache, observed)
         Kstars = self.covar_module(x_star, self.train_x)        # (q, n*, n)
         kss = self.covar_module(x_star, diag=True)              # (q, n*)
         mean_star = self.mean_module(x_star).T
@@ -419,6 +483,19 @@ class MultitaskGPModel(Module):
             noise=observed)
         return _MeanVarMT(mean, var)
 
+    def _sgpr_posterior(self, x_star, cache, observed):
+        roots = self._nystrom_roots(x_star)                     # (k, n*, m)
+        kss = self.covar_module(x_star, diag=True) \
+            if self.sgpr_titsias_var else None                  # (k, n*)
+        if self.icm:
+            roots = roots[0].expand((self.n_tasks,) + roots.shape[1:])
+            if kss is not None:
+                kss = kss[0].expand(self.n_tasks, kss.shape[-1])
+        mean, var = wb_ops.lmc_sgpr_posterior(
+            roots, cache["fac"], cache["alpha"],
+            self.mean_module(x_star).T, noise=observed, kss_star=kss)
+        return _MeanVarMT(mean, var)
+
     def compute_var(self, x_star):
         """The ICM's posterior variance with noise (projected_lmc.py:591-640,
         chunked over test points); not defined for LMC."""
@@ -436,10 +513,15 @@ class MultitaskGPModel(Module):
         return SumKronRank1Cov(self.covar_module(self.train_x), H, St).dense()
 
     def compute_loo(self):
-        """Multitask LOO on the dense (n·T)² system: (σ², y − μ), both
-        (n, T), detached."""
+        """Multitask LOO on the dense (n·T)² system (on the SGPR route the
+        Nyström one): (σ², y − μ), both (n, T), detached."""
         n = self.train_x.shape[0]
-        dense = self._dense_cov()
+        if self.sgpr:
+            roots, H, St, _ = self._sgpr_structure(self.train_x)
+            dense = SumKronRank1Cov(roots @ roots.transpose(-1, -2), H,
+                                    St).dense()
+        else:
+            dense = self._dense_cov()
         L = safe_cholesky(dense)
         eye = torch.eye(dense.shape[-1], dtype=dense.dtype,
                         device=dense.device)

@@ -1,5 +1,5 @@
 """Projected LMC, the paper's model (port of
-``projected_lmc_tpu/models/projected.py`` without the SGPR path).
+``projected_lmc_tpu/models/projected.py``).
 
 q batch-independent exact latent GPs on the projected data
 T(Y) = R⁻¹QᵀYᵀ, coupled by the mixing matrix H = QR: the p-coupled LMC
@@ -21,8 +21,10 @@ discarded-noise factor.
 Prediction re-targets the latent exact GP to the projected data:
 ``prediction_cache`` factorizes the (q, n, n) training system once (K3 and
 one batched Cholesky), and each ``predict`` then costs the (q, n, n*)
-cross-covariance (K3) and one triangular solve. The SGPR path
-(``n_inducing_points``) is ported with slice 5 and raises here.
+cross-covariance (K3) and one triangular solve. With
+``n_inducing_points`` the latent GPs take ``ExactGPModel``'s Titsias SGPR
+route (K3 builds K(z, z) and K(x, z)), and ``projected_lmc_mll``,
+``prediction_cache``, ``predict`` and ``compute_loo`` run on it unchanged.
 """
 
 from __future__ import annotations
@@ -227,9 +229,6 @@ class ProjectedGPModel(ExactGPModel):
                  eps: float = 1e-3, kernel_type="rbf", decomp=None,
                  ker_kwargs=None, n_inducing_points=None, seed: int = 0,
                  device="cuda", **kwargs):
-        if n_inducing_points is not None:
-            raise NotImplementedError("the SGPR path (n_inducing_points) is "
-                                      "ported with slice 5")
         dev = resolve_device(device)
         x_host = np.array(train_x)
         if x_host.ndim == 1:
@@ -252,7 +251,8 @@ class ProjectedGPModel(ExactGPModel):
         super().__init__(x_host, np.zeros((q, n_data), x_host.dtype),
                          proj_likelihood, n_tasks=q, mean_type="zero",
                          outputscales=outputscales, kernel_type=kernel_type,
-                         decomp=decomp, ker_kwargs=ker_kwargs, seed=seed,
+                         decomp=decomp, ker_kwargs=ker_kwargs,
+                         n_inducing_points=n_inducing_points, seed=seed,
                          device=dev, **kwargs)
         self.register_buffer("train_y_tasks", torch.as_tensor(y_host,
                                                               device=dev))

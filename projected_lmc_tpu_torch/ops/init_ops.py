@@ -1,6 +1,8 @@
-"""Host-side initialization of the LMC mixing matrix from the labels (port of
-``projected_lmc_tpu/ops/init_ops.py``: ``randomized_svd`` and
-``init_lmc_coefficients``). Runs once at model construction, in numpy."""
+"""Host-side initialization (port of ``projected_lmc_tpu/ops/init_ops.py``):
+the LMC mixing matrix from the labels (``randomized_svd``,
+``init_lmc_coefficients``) and the quasi-Monte Carlo samples that place the
+variational model's inducing points (``latin_hypercube``, ``sobol``). Runs
+once at model construction, in numpy."""
 
 from __future__ import annotations
 
@@ -35,3 +37,27 @@ def init_lmc_coefficients(train_y, n_latents: int, QR_form: bool = False):
     if QR_form:
         return U, S
     return (U * S / np.sqrt(n_data - 1)).T
+
+
+def latin_hypercube(n: int, dim: int, seed: int = 0):
+    """Scrambled Latin hypercube sample in [0, 1)^dim,
+    ``scipy.stats.qmc.LatinHypercube(d=dim, seed=seed)``; a numpy one
+    from ``default_rng(seed)`` where scipy is not installed."""
+    try:
+        from scipy.stats import qmc
+        return qmc.LatinHypercube(d=dim, seed=seed).random(n=n)
+    except Exception:
+        rng = np.random.default_rng(seed)
+        return (rng.permuted(np.tile(np.arange(n), (dim, 1)), axis=1).T
+                + rng.random((n, dim))) / n
+
+
+def sobol(n: int, dim: int, seed: int = 0):
+    """Scrambled Sobol' sample in [0, 1)^dim,
+    ``scipy.stats.qmc.Sobol(d=dim, seed=seed, scramble=True)``; uniform
+    draws from ``default_rng(seed)`` where scipy is not installed."""
+    try:
+        from scipy.stats import qmc
+        return qmc.Sobol(d=dim, seed=seed, scramble=True).random(n=n)
+    except Exception:
+        return np.random.default_rng(seed).random((n, dim))

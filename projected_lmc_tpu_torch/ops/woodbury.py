@@ -1,5 +1,5 @@
 """Exact LMC marginal likelihood and posterior by the matrix-determinant
-lemma (port of ``projected_lmc_tpu/ops/woodbury.py``, dense part).
+lemma (port of ``projected_lmc_tpu/ops/woodbury.py``).
 
 With f = (H ⊗ I) u the LMC covariance is
 
@@ -10,7 +10,8 @@ roots) the capacitance Cap = I_{qr} + L_Gᵀ (C ⊗ I) L_G, C = Hᵀ Σt⁻¹ H 
 gives logdet Cov = n·logdet Σt + logdet Cap and Woodbury solves. Every step
 is a batched Cholesky, a triangular solve or a large product (true fp32 on
 the card, see ``utils.device``). The posterior variance runs over test
-points a chunk at a time, in a Python loop.
+points a chunk at a time, in a Python loop; with low-rank (SGPR) roots,
+``lmc_sgpr_posterior`` gives it through the capacitance alone.
 """
 
 from __future__ import annotations
@@ -74,6 +75,45 @@ def lmc_solve(Ydelta, fac):
     z = cho_solve(fac["L_cap"], s.reshape(-1, 1)).reshape(fac["q"], fac["r"])
     t2 = torch.einsum("bnk,bk->bn", fac["L_G"], z)             # L_G z (q, n)
     return W - t2.T @ fac["SinvH"].T
+
+
+def lmc_sgpr_posterior(roots_star, fac, alpha, mean_star, noise: bool = True,
+                       chunk: int = 512, kss_star=None):
+    """Posterior (mean, variance diagonal), both (n*, t), of the low-rank
+    (Nyström) LMC/ICM model from its Woodbury factors ``fac`` (roots
+    (q, n, m)) and α (n, t) = Σ⁻¹ vec(Y).
+
+    With Σ = U Uᵀ + I ⊗ Σt, U = [R_b ⊗ h_b], and U* = [R*_b ⊗ h_b] at the
+    test points (``roots_star`` (q, n*, m)), Uᵀ Σ⁻¹ U = I − Cap⁻¹, so the
+    posterior covariance is U* Cap⁻¹ U*ᵀ: one triangular solve against the
+    (q·m)² capacitance factor for each chunk of ``chunk`` test points (a
+    Python loop), and no (n, n*) cross-covariance. Mean U*(Uᵀα) + m(x*).
+    ``kss_star`` (q, n*) adds the low-rank gap Σ_b clip(kss_b −
+    diag(R*_b R*_bᵀ), 0)·H[t,b]², so that the variance reverts to the prior
+    away from the inducing points; ``noise`` adds diag(Σt). Clipped at
+    1e-12."""
+    H, L_G, L_cap = fac["H"], fac["L_G"], fac["L_cap"]
+    q, n_star, r = roots_star.shape
+    t = H.shape[0]
+    u = torch.einsum("bnk,nb->bk", L_G, alpha @ H)              # R_bᵀ(αh_b)
+    mean = torch.einsum("bik,bk->ib", roots_star, u) @ H.T + mean_star
+
+    def chunk_var(Rc):                                          # (q, c, m)
+        c = Rc.shape[1]
+        W = torch.einsum("bik,tb->bkit", Rc, H).reshape(q * r, c * t)
+        V = solve_triangular(L_cap, W, lower=True)
+        return (V * V).sum(0).reshape(c, t)
+
+    var = torch.cat([chunk_var(roots_star[:, i:i + chunk])
+                     for i in range(0, n_star, chunk)])
+    if kss_star is not None:
+        gap = torch.clamp(kss_star - (roots_star * roots_star).sum(-1),
+                          min=0.0)                              # (q, n*)
+        var = var + gap.T @ (H * H).T
+    if noise:
+        Rt = fac["Rt"]
+        var = var + torch.diagonal(Rt @ Rt.T)[None, :]
+    return mean, torch.clamp(var, min=1e-12)
 
 
 def lmc_posterior_mean(Kstars, H, alpha, mean_star):

@@ -1,5 +1,6 @@
-"""Training loop with plateau early stopping (port of ``training.fit`` and
-``training.fit_two_phase`` from ``projected_lmc_tpu/training.py``).
+"""Training loop with plateau early stopping (port of ``training.fit``,
+``training.fit_two_phase`` and ``training.fit_svgp_minibatch`` from
+``projected_lmc_tpu/training.py``).
 
 The reference's loop (experiments.py:256-284): AdamW, LambdaLR linear decay
 lr_max → lr_min over 10k iterations, and plateau stopping — |1 − loss /
@@ -171,3 +172,38 @@ def fit_two_phase(model, coarse_loss_fn, fine_loss_fn, n_iter: int = 10000,
         phases=[info1, info2],
     )
     return model, info
+
+
+def _draw_batch(generator, n: int, batch_size: int):
+    """``batch_size`` indices drawn uniformly from range(n) with
+    replacement, on the generator's device."""
+    return torch.randint(n, (batch_size,), generator=generator,
+                         device=generator.device)
+
+
+def fit_svgp_minibatch(model, batch_size: int = 256, n_iter: int = 10000,
+                       lr: float = 1e-2, schedule=None,
+                       weight_decay: float = 1e-2, loss_thresh: float = 2.5e-6,
+                       patience: int = 500, criterion: str = "max",
+                       seed: int = 0, print_loss: bool = False,
+                       freq_print: int = 1000, device="cuda"):
+    """Stochastic-variational (minibatch) training of an SVGP model: each
+    step draws ``batch_size`` indices uniformly with replacement (a
+    ``torch.Generator`` on ``device`` seeded with ``seed``) and maximizes
+    ``model.elbo(x=X[idx], y=Y[idx], num_data=n)``, with :func:`fit`'s
+    AdamW, schedule and plateau test. The plateau test of a noisy loss
+    needs the rolling mean, so ``criterion="max"`` becomes "mean", as in
+    the JAX package. Returns (model, info)."""
+    X, Y = model.train_x, model.train_y
+    n = X.shape[0]
+    batch_size = min(batch_size, n)
+
+    def loss_fn(m, generator):
+        idx = _draw_batch(generator, n, batch_size)
+        return m.elbo(x=X[idx], y=Y[idx], num_data=n)
+
+    criterion = "mean" if criterion == "max" else criterion
+    return fit(model, loss_fn, n_iter=n_iter, lr=lr, schedule=schedule,
+               weight_decay=weight_decay, loss_thresh=loss_thresh,
+               patience=patience, criterion=criterion, seed=seed,
+               print_loss=print_loss, freq_print=freq_print, device=device)

@@ -305,6 +305,15 @@ def test_load_jax_state_carries_an_icm_model(fix_diagonal):
 
 
 def test_icm_with_inducing_points_raises_naming_slice_5():
-    X, Y, _ = data()
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        MultitaskGPModel(X, Y, n_inducing_points=8, device="cpu", **ICM_KW)
+    """Slice 5 ported the ICM's SGPR route: with ``n_inducing_points`` the
+    model builds, and its MLL, gradients and "sgpr" posterior match JAX's
+    (``tests/test_torch_sgpr.py`` covers the route in full)."""
+    jm, tm, Xs = icm_models(n_inducing_points=8)
+    jv, jg = jax.jit(jax.value_and_grad(lambda m: m.mll()))(jm)
+    tv = tm.mll()
+    tv.backward()
+    close(tv, jv)
+    assert ".inducing_points" in grads_match(jm, tm, jg)
+    want = jax.jit(lambda m: m.posterior(Xs).variance)(jm)
+    assert tm.precompute_posterior()["kind"] == "sgpr"
+    close(tm.posterior(t64(Xs)).variance, want)

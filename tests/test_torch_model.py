@@ -161,10 +161,16 @@ def test_model_without_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_routes_raise():
+    """The ICM's SGPR route (ported with slice 5) builds and its MLL matches
+    JAX's; the unpreconditioned SLQ route still raises."""
     X, Y = data()
-    with pytest.raises(NotImplementedError):
-        MultitaskGPModel(X, Y, n_tasks=T, model_type="ICM",
-                         n_inducing_points=8, device="cpu")
+    kw = dict(n_tasks=T, model_type="ICM", n_inducing_points=8)
+    jm = JaxModel(X, Y, **kw)
+    icm = MultitaskGPModel(X, Y, device="cpu", **kw)
+    load_jax_state(icm, {k: np.asarray(v) for k, v in _keyed_leaves(jm)})
+    np.testing.assert_allclose(float(icm.mll().detach()),
+                               float(jax.jit(lambda m: m.mll())(jm)),
+                               rtol=1e-10)
     tm = MultitaskGPModel(X, Y, device="cpu", **MODEL_KW)
     with pytest.raises(NotImplementedError):
         tm.mll(iterative=True, precond_rank=0)

@@ -384,9 +384,14 @@ def test_generate_synthetic_is_the_jax_copy_bit_for_bit(seed):
 
 
 def test_sgpr_and_a_missing_card_raise():
+    """The SGPR route (ported with slice 5) builds, and its
+    ``projected_lmc_mll`` matches JAX's; without a card the default device
+    raises."""
     X, Y = make_data()
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ProjectedGPModel(X, Y, 5, 2, n_inducing_points=8, device="cpu")
+    jm, tm = models(PLMC, n_inducing_points=8)
+    assert tm.sgpr and tuple(tm.inducing_points.shape) == (8, 1)
+    np.testing.assert_allclose(float(projected_lmc_mll(tm).detach()),
+                               float(jax.jit(jax_mll)(jm)), rtol=1e-10)
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="cuda"):
