@@ -126,6 +126,29 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
      gradients ≤ 2e-3, the inducing points' included; the posteriors with
      path G's limits or, where the CPU's own fp32 result drifts that far,
      against its fp64 one; the E/M steps' float64 algebra within 1e-8).
+  J. path J: the rest of the model surface (K3 only). J1: the composed
+     route at the headline's width with ``decomp=[[0, 1], [2, 3]]`` (two
+     Scale-wrapped Matérn groups, K3 on each group's sliced inputs), phase
+     4's 2×16 steps beside phase 4's fused step, the device split by
+     labelled ranges, peak memory, then the "lmc_iter" cache and
+     ``posterior`` on 2,500 points. J2: the SLQ route (the LMC's default
+     MLL above q·n = 4,096) on the same data, 8 ``fit`` steps at
+     ``mll()``'s defaults and 8 with ``quad_method="slq"``, rank 256, bf16:
+     CG iterations, the tridiagonal eigh's share, peak memory. J3: the
+     tidal configuration on a seeded tidal-shaped series (the spectral
+     mixture with its periodogram init), the ICM and PLMC ``fit`` to the
+     plateau (≤ 1,000 steps, 16-step chunks) with R², RMSE, PVA and α_CI
+     on the held-out day. J4: ``ExactGPModel`` at n = 2,500 with a linear
+     and a polynomial mean and a spline kernel, 16 ``fit`` steps with
+     ``exponential_schedule``, one 16-step chunk, checkpoints and evals,
+     ``load_model``'s MLL bit for bit, the complex-mean LOO. J5: the blocked
+     bf16 Cholesky at n = 8,192, T = 7, against potrf. K3 at the groups'
+     (4, n, n), (4, n, 256), (4, 256, 256) and J2's stack against its plain
+     version and bitwise K6; the card against the CPU at n = 2048 (the
+     composed MLL with its bf16 and int8 loops, both SLQ settings, the
+     tidal ICM and PLMC, the exact models, ``chol_bf16``; posteriors and the
+     complex-mean LOO), held to the CPU's fp64 result where the CPU's own
+     fp32 result is as far from it.
 
 Every training run sets the launch counts to 0 just before it and reads
 them just after. The last lines are one JSON object with every kernel's
@@ -1307,6 +1330,7 @@ def path_c_phase(torch, pl, ck, dev, totals, bf16_median):
     torch.cuda.reset_peak_memory_stats()
     zero_counts(ck)
     _, info = pl.fit_two_phase(model, timed(INT8_KW), timed(FINE_KW),
+                               scan_steps=1,
                                n_iter=STEPS_C, fine_frac=FINE_FRAC, lr=1e-2,
                                device=dev)
     torch.cuda.synchronize()
@@ -1398,7 +1422,8 @@ def fit_phase(torch, pl, dev):
     def loss_fn(m, generator):
         return m.mll(generator=generator, **MLL_KW)
 
-    _, info = pl.fit(model, loss_fn, n_iter=4, lr=1e-2, device=dev)
+    _, info = pl.fit(model, loss_fn, n_iter=4, lr=1e-2, scan_steps=1,
+                     device=dev)
     print(f"  fit losses {info['losses'].tolist()} in {info['train_time']:.2f} s")
     if len(info["losses"]) != 4 or not np.all(np.isfinite(info["losses"])):
         raise SystemExit("chip_smoke: training.fit gave non-finite losses")
@@ -1559,7 +1584,7 @@ def projected_fit(torch, pl, ck, model, steps, label, totals):
     with projected_probes(torch) as probes:
         _, info = pl.fit(model, loss_fn, n_iter=steps, lr=1e-2,
                          schedule=pl.lambda_lr_schedule(1e-2, 1e-3),
-                         device=model.device)
+                         scan_steps=1, device=model.device)
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
     counts = read_counts(ck)
@@ -1956,7 +1981,7 @@ def path_g2(torch, pl, ck, fm, dev, totals):
         zero_counts(ck)
         _, info = pl.fit(model, pl.projected_lmc_mll, n_iter=G2_MAX_ITER,
                          lr=1e-2, schedule=pl.lambda_lr_schedule(1e-2, 1e-3),
-                         device=dev)
+                         scan_steps=1, device=dev)
         steps = len(info["losses"])         # K3 once a step
         if read_counts(ck) != expect(K3=steps):
             raise SystemExit(f"chip_smoke: {label}'s fit launched "
@@ -2158,7 +2183,7 @@ def path_g3(torch, pl, ck, fm, dev, totals):
     Xd, Yd = bench_data(G_DENSE_N, seed=14)
     dense = make_model(pl, Xd, Yd, dev)
     zero_counts(ck)
-    _, info = pl.fit(dense, n_iter=4, lr=1e-2, device=dev)
+    _, info = pl.fit(dense, n_iter=4, lr=1e-2, scan_steps=1, device=dev)
     losses = info["losses"]
     print(f"  G3 fit with the default loss (the dense Woodbury MLL) at "
           f"n={G_DENSE_N} q={Q}: losses {np.round(losses, 6).tolist()} in "
@@ -2306,7 +2331,9 @@ def icm_iter_probes(torch):
 def timed_fit(torch, pl, model, steps, loss=None, **kwargs):
     """``fit`` with ``loss`` (the default ``model.mll()``) for at most
     ``steps``, each step's host time taken around a synchronize: (info,
-    step ms)."""
+    step ms). One host read of the loss a step (``scan_steps=1``) unless
+    asked otherwise, so that every step taken has its loss."""
+    kwargs.setdefault("scan_steps", 1)
     stamps = []
     loss = loss or (lambda m: m.mll())
 
@@ -2916,7 +2943,8 @@ def path_i2(torch, pl, ck, dev, totals):
     zero_counts(ck)
     torch.cuda.synchronize()
     _, info = pl.fit_svgp_minibatch(model, batch_size=I2_BATCH,
-                                    n_iter=I2_MB_STEPS, lr=1e-2, device=dev)
+                                    n_iter=I2_MB_STEPS, lr=1e-2,
+                                    scan_steps=1, device=dev)
     torch.cuda.synchronize()
     n = len(info["losses"])
     if read_counts(ck) != expect(K3=2 * n) or not np.all(
@@ -3258,6 +3286,773 @@ def path_i_phase(torch, pl, ck, dev, totals):
     print(f"  path I took {time.perf_counter() - t0:.1f} s")
 
 
+# -- path J: the rest of the model surface -------------------------------------
+
+J_RANGES = ("J K3", "J K3 backward (plain)", "J CG products",
+            "J bf16 stack product", "J dense dK", "J Hutchinson backward",
+            "J M^-1 apply", "J potrf", "J eigh", "J SLQ")
+J_DECOMP = [[0, 1], [2, 3]]
+J_STEPS = 8                              # J2's steps per setting
+J_SLQ_KW = dict(quad_method="slq", precond_rank=256, matvec_bf16=True,
+                max_cg_iters=16, cg_tol=2e-2, num_probes=8)
+J3_DAYS, J3_SAMPLE_S, J3_EVERY, J3_MAX_ITER = 14, 300, 4, 1000
+J4_N, J5_N = 2500, 8192
+README_TIDAL_R2 = (0.920, 0.923)        # README.md: real bramblemet (context)
+
+
+@contextlib.contextmanager
+def surface_probes(torch):
+    """From outside the package: count each ``batched_pcg`` call's
+    iterations (its products), and label for the profiler K3's forward and
+    plain backward, the CG products, the bf16 stack products, the
+    estimators' dense dK and their whole Hutchinson backward, the M⁻¹
+    applies, each factorization, the tridiagonal eigh and the SLQ pass."""
+    from torch.profiler import record_function
+    from projected_lmc_tpu_torch import kernels as kern
+    from projected_lmc_tpu_torch.ops import cholesky as chol
+    from projected_lmc_tpu_torch.ops import iterative as it_ops
+    counts = {"cg": []}
+
+    def labelled(label, fn):
+        def wrapped(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    parts = it_ops._nystrom_precond_parts
+
+    def labelled_parts(*args, **kwargs):
+        R, Lt, minv, logdet_M = parts(*args, **kwargs)
+        return R, Lt, labelled("J M^-1 apply", minv), logdet_M
+
+    pcg = it_ops.batched_pcg
+
+    def counted_pcg(matvec, *args, **kwargs):
+        counts["cg"].append(0)
+
+        def mv(V):
+            counts["cg"][-1] += 1
+            return matvec(V)
+        return pcg(mv, *args, **kwargs)
+
+    skm = kern._StationaryKernelMatrix
+    patches = (
+        (skm, "forward", staticmethod(labelled("J K3", skm.forward))),
+        (skm, "backward", staticmethod(labelled("J K3 backward (plain)",
+                                                skm.backward))),
+        (chol, "_factor", labelled("J potrf", chol._factor)),
+        (it_ops, "lmc_matvec", labelled("J CG products", it_ops.lmc_matvec)),
+        (it_ops, "_bf16_stack_bmm", labelled("J bf16 stack product",
+                                             it_ops._bf16_stack_bmm)),
+        (it_ops, "_lmc_dk", labelled("J dense dK", it_ops._lmc_dk)),
+        (it_ops, "_lmc_hutchinson_bwd", labelled(
+            "J Hutchinson backward", it_ops._lmc_hutchinson_bwd)),
+        (it_ops, "_nystrom_precond_parts", labelled_parts),
+        (it_ops, "_tridiag_quadrature", labelled(
+            "J eigh", it_ops._tridiag_quadrature)),
+        (it_ops, "slq_logdet", labelled("J SLQ", it_ops.slq_logdet)),
+        (it_ops, "batched_pcg", counted_pcg))
+    saved = [(owner, name, vars(owner)[name]) for owner, name, _ in patches]
+    for owner, name, new in patches:
+        setattr(owner, name, new)
+    try:
+        yield counts
+    finally:
+        for owner, name, old in saved:
+            setattr(owner, name, old)
+
+
+def surface_model(pl, X, Y, device, **kw):
+    """Phase 4's LMC model (Matérn-2.5, ``fix_diagonal``, zero mean), with
+    ``kw`` (J1: ``decomp``, two Scale-wrapped Matérn groups)."""
+    lik = pl.MultitaskGaussianLikelihood(num_tasks=Y.shape[1], rank=0,
+                                         device=device)
+    return pl.MultitaskGPModel(X, Y, lik, n_tasks=Y.shape[1], n_latents=Q,
+                               model_type="LMC", kernel_type="matern",
+                               mean_type="zero", fix_diagonal=True,
+                               device=device, **kw)
+
+
+def ms_range(ms) -> str:
+    ms = np.asarray(ms)
+    return (f"median {np.median(ms):.3f} ms (range {ms.min():.3f}–"
+            f"{ms.max():.3f})")
+
+
+def device_split(label, torch, step):
+    """One profiled step split by :data:`J_RANGES` (device time of the
+    kernels inside each labelled range, ms; K3's own kernel, launched
+    through the library's C interface, added to "J K3"), with wall and busy
+    time."""
+    with surface_probes(torch):
+        wall, busy, ranges, top = range_split(
+            torch, step, reps=1, names=J_RANGES,
+            kernel_names=("full_grid_kernel",))
+    dev_ms = {k: v[2] for k, v in ranges.items()}
+    dev_ms["J K3"] += dev_ms.pop("full_grid_kernel")
+    parts = ", ".join(f"{k[2:]} {v:.3f}" for k, v in dev_ms.items()
+                      if math.isfinite(v) and k in J_RANGES)
+    print(f"  {label}: profiled step {wall:.3f} ms, device busy {busy:.3f} "
+          f"ms ({busy / wall:.0%}); device ms by labelled range: {parts}; "
+          f"kernels: " + ", ".join(f"{k} {v:.3f}" for k, v in top))
+    return dev_ms
+
+
+def path_j1(torch, pl, ck, dev, totals, median_4=float("nan")):
+    """J1: the composed route at the headline's full width (n = 10⁴, T = 7,
+    q = 4, d = 4) with ``decomp=[[0, 1], [2, 3]]``: two Scale-wrapped
+    Matérn-2.5 groups, each batched over the q latents. Phase 4's step
+    (bf16 CG loop, rank-256 roots once per 16-step chunk), 2 × 16 steps;
+    the device split; then the "lmc_iter" cache and ``posterior`` on 2,500
+    points. K3 at the groups' shapes against its plain version."""
+    X, Y = bench_data(N, seed=0)
+    model = surface_model(pl, X, Y, dev, decomp=J_DECOMP)
+    x = model.train_x
+    idx = torch.as_tensor(np.linspace(0, N - 1, 256).astype(np.int32),
+                          device=dev, dtype=torch.long)
+    for k, g in zip(model.covar_module.kernels, J_DECOMP):
+        ls, xg = k.base_kernel.lengthscale.detach(), x[:, g].contiguous()
+        zg = xg[idx].contiguous()
+        for a, b in ((xg, xg), (xg, zg), (zg, zg)):
+            k3_at(torch, ck, dev, a, b, ls)
+    res = train_run(torch, ck, model, lmc_mll, CHUNKS, STEPS_PER_CHUNK)
+    steps = CHUNKS * STEPS_PER_CHUNK
+    print(f"  J1 composed route n={N} T={T} q={Q} d={D}, "
+          f"decomp={J_DECOMP}, {CHUNKS}x{STEPS_PER_CHUNK} steps (phase 4's "
+          f"fused step on the same data: {median_4:.3f} ms):")
+    # K3 twice a step (one stack per group), and four times a chunk for the
+    # roots (K(z, z) and K(x, z) of each group); no other kernel
+    report(res, expect(K3=2 * steps + 4 * CHUNKS), totals)
+    print(f"  J1 step {ms_range(res['step_ms'])}, "
+          f"{res['median_ms'] / median_4:.2f}x phase 4's fused step; "
+          f"PCG iterations a step: {MLL_KW['max_cg_iters']} (fixed, masked)")
+    with torch.no_grad():
+        roots = model._precond_roots(x, 256)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    device_split("J1 composed step", torch,
+                 loss_step(model, lambda m: lmc_mll(m, roots, gen)))
+    del roots, res
+    torch.cuda.empty_cache()
+    x_test = torch.as_tensor(bench_data(N_TEST, seed=20)[0], device=dev)
+    v0 = torch.as_tensor(np.random.default_rng(19).standard_normal((N, T)),
+                         dtype=torch.float32, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), surface_probes(torch) as counts:
+        cache, cache_ms = served(torch, ck, "J1 precompute_posterior", 6,
+                                 lambda: model.precompute_posterior(v0=v0),
+                                 totals)
+        post, post_ms = served(torch, ck, "J1 posterior", 2,
+                               lambda: model.posterior(x_test, cache=cache),
+                               totals)
+    finite = bool(torch.isfinite(post.mean).all()
+                  and (post.variance > 0).all())
+    print(f"  J1 lmc_iter cache {cache_ms:.3f} ms (PCG {counts['cg'][0]} "
+          f"iterations to 1e-5), posterior ({N_TEST} points) {post_ms:.3f} "
+          f"ms; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB; finite and positive: {finite}")
+    if cache["kind"] != "lmc_iter" or not finite:
+        raise SystemExit("chip_smoke: J1's cache is not lmc_iter or its "
+                         "posterior is not finite")
+
+
+def path_j2(torch, pl, ck, dev, totals):
+    """J2: the SLQ route, the LMC model's own default MLL above q·n = 4,096,
+    on the headline's data with the plain Matérn-2.5 model: 8 ``fit`` steps
+    of ``mll()`` at its defaults (Jacobi CG + SLQ, 10 Rademacher probes,
+    20 Lanczos steps), then 8 of mll(quad_method="slq", precond_rank=256,
+    matvec_bf16=True, max_cg_iters=16, cg_tol=2e-2, num_probes=8): median
+    step, CG iterations, the tridiagonal eigh's share, peak memory. K3 at
+    the stack's shape against its plain version."""
+    X, Y = bench_data(N, seed=0)
+    model = surface_model(pl, X, Y, dev)
+    x = model.train_x
+    k3_at(torch, ck, dev, x, x, model.covar_module.lengthscale.detach())
+    for label, kw in (("defaults", {}), ("slq rank 256 bf16", J_SLQ_KW)):
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(ck)
+        with surface_probes(torch) as counts:
+            info, step_ms = timed_fit(torch, pl, model, J_STEPS,
+                                      loss=lambda m: m.mll(**kw),
+                                      scan_steps=1)
+        n = len(info["losses"])
+        if read_counts(ck) != expect(K3=n) or not np.all(
+                np.isfinite(info["losses"])):
+            raise SystemExit(f"chip_smoke: J2 {label} launched "
+                             f"{read_counts(ck)}, not K3 {n} times, or lost "
+                             f"finiteness")
+        totals["K3"] += n
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        dev_ms = device_split(f"J2 {label}", torch,
+                              loss_step(model, lambda m: m.mll(**kw)))
+        cg = counts["cg"]
+        print(f"  J2 {label}: {n} steps, loss first {info['losses'][0]:.6f} "
+              f"last {info['losses'][-1]:.6f}; step {ms_range(step_ms)}; CG "
+              f"iterations a step {cg} (at most "
+              f"{kw.get('max_cg_iters', 256)}); eigh {dev_ms['J eigh']:.3f} "
+              f"ms of the SLQ pass's {dev_ms['J SLQ']:.3f} ms on the device "
+              f"({dev_ms['J eigh'] / max(dev_ms['J SLQ'], 1e-9):.1%}); peak "
+              f"memory {peak:.2f} GiB")
+
+
+def tidal_series(seed=0):
+    """A tidal-shaped series made from a seed, cut as ``load_tidal`` cuts the
+    bramblemet data (realdata.py:24-73): 14 days of 5-minute samples from
+    2020-06-01, time normalized as the loader does; 4 stations, each an M2
+    (12.42 h) plus an S2 (12.00 h) tide of its own amplitude and phase on a
+    slow quadratic trend, detrended by a degree-2 fit and with N(0, 0.05²)
+    noise; every 4th sample (n = 1,008); the middle day held out (936
+    training points, 72 test points); float32."""
+    rng = np.random.default_rng(seed)
+    t = 1_590_969_600.0 + J3_SAMPLE_S * np.arange(J3_DAYS * 86_400
+                                                 // J3_SAMPLE_S)
+    tn = t / t.max()
+    tn = tn - tn[0]
+    hours = (t - t[0]) / 3600.0
+    cols = [tn]
+    for _ in range(4):
+        a, b = rng.uniform(0.8, 1.6), rng.uniform(0.2, 0.6)
+        y = (a * np.cos(2 * np.pi * hours / 12.42 + rng.uniform(0, 2 * np.pi))
+             + b * np.cos(2 * np.pi * hours / 12.0
+                          + rng.uniform(0, 2 * np.pi))
+             + np.polyval(rng.standard_normal(3), hours / hours.max()))
+        y = y - np.polyval(np.polyfit(tn, y, 2), tn)
+        cols.append(y + 0.05 * rng.standard_normal(len(t)))
+    frame = np.stack(cols, 1).astype(np.float32)[::J3_EVERY]
+    n = len(frame)
+    test = np.arange(n // 2, n // 2 + n // J3_DAYS)
+    X, Y = frame[:, :1], frame[:, 1:]
+    return (np.delete(X, test, 0), np.delete(Y, test, 0), X[test], Y[test])
+
+
+def tidal_models(pl, X, Y, device):
+    """The experiment driver's tidal ICM (likelihood rank 4) and PLMC
+    (``MODEL_CONFIGS["PLMC"]``): q = 4, zero mean, a 5-mixture spectral
+    mixture kernel initialized by ``initialize_from_data_empspect``
+    (driver.py:52-68)."""
+    import torch
+    p = Y.shape[1]
+    dt = torch.float64 if X.dtype == np.float64 else torch.float32
+    sm = dict(kernel_type="spectral_mixture", ker_kwargs={"num_mixtures": 5},
+              mean_type="zero", seed=0, device=device)
+    lik = pl.MultitaskGaussianLikelihood(num_tasks=p, rank=p, dtype=dt,
+                                         device=device)
+    models = {"ICM": pl.MultitaskGPModel(X, Y, lik, n_tasks=p, n_latents=p,
+                                         model_type="ICM",
+                                         init_lmc_coeffs=True, **sm),
+              "PLMC": pl.ProjectedGPModel(X, Y, p, p, init_lmc_coeffs=True,
+                                          **sm, **PROJ_CONFIGS["PLMC"])}
+    for m in models.values():
+        m.covar_module.initialize_from_data_empspect(X, Y, seed=0)
+    return models
+
+
+def tidal_predict(torch, name, model, x):
+    """(mean, variance) on the held-out day, observed, as the driver
+    predicts each model."""
+    with torch.no_grad():
+        if name == "ICM":
+            mean = model.posterior(x, observed=True).mean
+            return mean, model.compute_var(x)
+        return model.predict(x, observed=True)
+
+
+def path_j3(torch, pl, ck, dev, totals):
+    """J3: the tidal configuration (spectral mixture, no K3): the ICM and
+    PLMC, each ``fit`` to the plateau (at most 1,000 steps, the loader's
+    loss_thresh 1e-7), median step, and R², RMSE, PVA and α_CI on the
+    held-out day."""
+    X, Y, Xt, Yt = tidal_series()
+    x_test = torch.as_tensor(Xt, device=dev)
+    models = tidal_models(pl, X, Y, dev)
+    mu = models["ICM"].covar_module.mixture_means.detach()
+    print(f"  J3 tidal-shaped series: n={len(X)} training, {len(Xt)} test "
+          f"points, T={Y.shape[1]}, d=1; initial frequencies (cycles per "
+          f"unit of normalized time) {np.round(mu.flatten().cpu().numpy(), 1)}")
+    for name, model in models.items():
+        loss = pl.projected_lmc_mll if name == "PLMC" else (lambda m: m.mll())
+        zero_counts(ck)
+        info, step_ms = timed_fit(torch, pl, model, J3_MAX_ITER, loss=loss,
+                                  loss_thresh=1e-7, scan_steps=16)
+        if read_counts(ck) != expect() or not np.all(
+                np.isfinite(info["losses"])):
+            raise SystemExit(f"chip_smoke: J3 {name} launched "
+                             f"{read_counts(ck)} or lost finiteness")
+        (mean, var), pred_ms = timed(
+            torch, lambda: tidal_predict(torch, name, model, x_test))
+        noise = icm_noise_matrix(model.likelihood) if name == "ICM" else \
+            model.full_likelihood().task_noise_covar_factor.detach()
+        got = pl.compute_metrics(Yt, mean, torch.sqrt(var), info["loss"],
+                                 noise, info["n_iter"], info["train_time"],
+                                 pred_ms / 1e3, print_metrics=False)
+        print(f"  J3 {name}: {len(info['losses'])} steps (n_iter "
+              f"{info['n_iter']}) in {info['train_time']:.2f} s, step "
+              f"{ms_range(step_ms)}; R2 {got['R2']:.4f} (README, real "
+              f"bramblemet data, JAX: {README_TIDAL_R2}, context only), RMSE "
+              f"{got['RMSE']:.4f}, PVA {got['PVA']:.4f}, alpha_CI "
+              f"{got['alpha_CI']:.4f}")
+        if not all(math.isfinite(v) for v in got.values()):
+            raise SystemExit(f"chip_smoke: J3 {name}'s metrics are not "
+                             f"finite")
+
+
+def exact_surface(pl, X, Y, device, mean_type="constant",
+                  kernel_type="matern"):
+    """J4's ``ExactGPModel`` over T tasks (outputscales)."""
+    import torch
+    dt = torch.float64 if X.dtype == np.float64 else torch.float32
+    return pl.ExactGPModel(
+        X, Y, pl.GaussianLikelihood(batch_shape=Y.shape[1], dtype=dt,
+                                    device=device),
+        n_tasks=Y.shape[1], kernel_type=kernel_type, mean_type=mean_type,
+        outputscales=True, seed=0, device=device)
+
+
+J4_MODELS = {"linear": dict(mean_type="linear"),
+             "polynomial": dict(mean_type="polynomial"),
+             "spline": dict(kernel_type="spline")}
+
+
+def j4_data(n, seed):
+    """Phase 4's features (the spline kernel's on [0, 1], its domain)."""
+    X, Y = bench_data(n, seed=seed)
+    return X, Y, (1.0 / (1.0 + np.exp(-X))).astype(X.dtype)
+
+
+def path_j4(torch, pl, ck, dev, totals):
+    """J4: the surface on ``ExactGPModel`` (n = 2,500, T = 7, d = 4): a
+    linear and a polynomial mean (K3), a spline kernel (no K3); 16 ``fit``
+    steps each with ``exponential_schedule``, ``scan_steps=16``,
+    ``checkpoint_every=8``, ``eval_every=8``; ``compute_loo(complex_mean=
+    True)`` (the polynomial mean has no basis and raises, as in JAX); the
+    spline model's ``posterior``; each checkpoint loaded with
+    ``load_model``, its MLL equal bit for bit to the trained model's."""
+    import tempfile
+    X, Y, Xs = j4_data(J4_N, 0)
+    x_test = torch.as_tensor(bench_data(N_TEST, seed=20)[0], device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kw in J4_MODELS.items():
+            Xm = Xs if name == "spline" else X
+            model = exact_surface(pl, Xm, Y, dev, **kw)
+            k3 = 0 if name == "spline" else 1
+            path = os.path.join(tmp, f"{name}.npz")
+            zero_counts(ck)
+            info, step_ms = timed_fit(
+                torch, pl, model, 16, loss=lambda m: m.mll(),
+                schedule=pl.exponential_schedule(1e-2, 1e-3, 16),
+                scan_steps=16, checkpoint_every=8, checkpoint_path=path,
+                eval_every=8,
+                eval_fn=lambda m, i: float(m.mll().detach()))
+            evals = info.get("evals", [])
+            want = expect(K3=k3 * (16 + len(evals)))
+            if read_counts(ck) != want or len(info["losses"]) != 16 \
+                    or not np.all(np.isfinite(info["losses"])):
+                raise SystemExit(f"chip_smoke: J4 {name}'s fit launched "
+                                 f"{read_counts(ck)}, not {want}, or did not "
+                                 f"take 16 finite steps")
+            totals["K3"] += want["K3"]
+            back = pl.load_model(exact_surface(pl, Xm, Y, dev, **kw), path)
+            with torch.no_grad():
+                (a, b), _ = served(torch, ck, f"J4 {name} load_model MLL",
+                                   2 * k3, lambda: (model.mll(), back.mll()),
+                                   totals)
+            print(f"  J4 {name}: 16 steps in one chunk, loss first "
+                  f"{info['losses'][0]:.6f} last {info['losses'][-1]:.6f}, "
+                  f"step {ms_range(step_ms)}; evals "
+                  f"{[(i, round(v, 6)) for i, v in evals]}; load_model's "
+                  f"MLL equal bit for bit: {bool(torch.equal(a, b))}")
+            if not torch.equal(a, b) or [i for i, _ in evals] != [16]:
+                raise SystemExit(f"chip_smoke: J4 {name}'s checkpoint or "
+                                 f"evals are not the trained model's")
+            with torch.no_grad():
+                if name == "linear":
+                    (s2, r), ms = served(
+                        torch, ck, "J4 complex-mean LOO", 1,
+                        lambda: model.compute_loo(complex_mean=True), totals)
+                    print(f"  J4 linear compute_loo(complex_mean=True): "
+                          f"{ms:.3f} ms, finite "
+                          f"{bool(torch.isfinite(s2).all() and (s2 > 0).all())}")
+                elif name == "polynomial":
+                    try:
+                        model.compute_loo(complex_mean=True)
+                        raise SystemExit("chip_smoke: the polynomial mean's "
+                                         "complex-mean LOO did not raise")
+                    except ValueError:
+                        pass
+                    (s2, r), ms = served(torch, ck, "J4 LOO", 1,
+                                         model.compute_loo, totals)
+                    print(f"  J4 polynomial: compute_loo(complex_mean=True) "
+                          f"raises ValueError (no basis matrix, as in JAX); "
+                          f"compute_loo() {ms:.3f} ms")
+                else:
+                    xs = torch.sigmoid(x_test)
+                    post, ms = served(
+                        torch, ck, "J4 spline posterior", 0,
+                        lambda: model.posterior(xs, full_cov=False), totals)
+                    print(f"  J4 spline posterior ({N_TEST} points): "
+                          f"{ms:.3f} ms, finite "
+                          f"{bool(torch.isfinite(post.mean).all())}")
+
+
+def path_j5(torch, pl, ck, dev, totals):
+    """J5: the blocked Cholesky at H3's shape (n = 8,192, T = 7):
+    ``icm_log_prob_chol(chol_bf16=True)`` and its backward against the
+    default potrf route (the MLL within 1e-4 rel; gradient gaps and times
+    in turns), the
+    factor alone, and ``cholesky_blocked_f32`` against
+    ``torch.linalg.cholesky`` on the same (7, 8192, 8192)."""
+    from projected_lmc_tpu_torch.ops import blocked_cholesky as blk
+    from projected_lmc_tpu_torch.ops import kron
+    X, Y = bench_data(J5_N, seed=0)
+    model = icm_model(pl, X, Y, dev)
+    with torch.no_grad():
+        K = served(torch, ck, "J5 K3", 1,
+                   lambda: model.covar_module(model.train_x)[0], totals)[0]
+        B = model.task_covar_matrix()
+        St = model.likelihood.task_covariance()
+    args = [a.detach().contiguous() for a in (K, B, St, model.train_y.T)]
+
+    def run(bf16):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        ll = kron.icm_log_prob_chol(*leaves, chol_bf16=bf16)
+        ll.backward()
+        return float(ll.detach()), [a.grad for a in leaves]
+
+    times = {False: [], True: []}
+    out = {}
+    for bf16 in (False, True, True, False):
+        out[bf16], ms = timed(torch, lambda: run(bf16))
+        times[bf16].append(ms)
+    (v0, g0), (v1, g1) = out[False], out[True]
+    gaps = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(g1, g0)]
+    print(f"  J5 icm_log_prob_chol n={J5_N} T={T}, forward and backward: "
+          f"potrf route {times[False]} ms, chol_bf16 {times[True]} ms; MLL "
+          f"{v0:.6f} vs {v1:.6f} (rel {abs(v1 - v0) / abs(v0):.2e}); "
+          f"gradient gaps (K, B, St, Y) "
+          + ", ".join(f"{g:.1e}" for g in gaps))
+    # the sound reading is 2.0e-6; a clearly wrong factor moves the logdet
+    if not (math.isfinite(v1) and abs(v1 - v0) <= 1e-4 * abs(v0)):
+        raise SystemExit("chip_smoke: J5's chol_bf16 MLL is off the fp32 "
+                         "route's")
+    del out, g0, g1
+    with torch.no_grad():
+        Rt, gam, _ = kron._whitened_task_eig(B, St)
+        eye = torch.eye(J5_N, device=dev)
+        A = gam[:, None, None] * (K + 1e-8 * eye)[None] + eye[None]
+        del eye
+        ft = {}
+        for name, fn in (("potrf", torch.linalg.cholesky),
+                         ("blocked bf16", blk.cholesky_bf16_blocked),
+                         ("blocked fp32", blk.cholesky_blocked_f32),
+                         ("potrf again", torch.linalg.cholesky)):
+            torch.cuda.synchronize()
+            L, ft[name] = timed(torch, lambda: fn(A))
+            if name == "potrf":
+                L0 = L
+            elif name == "blocked fp32":
+                err = float((L - L0).abs().max() / L0.abs().max())
+            elif name == "blocked bf16":
+                # over the batch: tasks of γ ≈ 0 have no off-diagonal energy
+                off = float(torch.linalg.vector_norm(L @ L.transpose(-1, -2)
+                                                     - A)
+                            / torch.linalg.vector_norm(torch.tril(A, -1))
+                            / math.sqrt(2))
+            del L
+    print(f"  J5 factor alone ({T}, {J5_N}, {J5_N}): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ft.items())
+          + f"; cholesky_blocked_f32 against torch.linalg.cholesky max|ΔL|/"
+          f"max|L| {err:.2e}; blocked bf16 ‖LLᵀ − A‖_F / A's off-diagonal "
+          f"energy {off:.2e} (the stated noise level: about 4e-3)")
+    if not (err <= 1e-3 and off <= 1e-2):
+        raise SystemExit("chip_smoke: J5's blocked factors are off "
+                         "torch.linalg.cholesky's or their noise level")
+
+
+def held_or_fp64(name, card, cpu, cpu64, scale, tol):
+    """:func:`held_to_fp64` for a scalar or a tensor."""
+    t = lambda v: v if hasattr(v, "detach") else np.float64(v)  # noqa: E731
+    import torch
+    held_to_fp64(name, *(torch.as_tensor(t(v)) for v in (card, cpu, cpu64)),
+                 scale, tol)
+
+
+def mll_held(torch, pl, ck, label, make, loss, dev, k3, grad_tol=2e-3):
+    """``loss``'s value and gradients on the card (K3 ``k3`` times) against
+    the CPU model carrying the card model's (moved) leaves, value rel
+    ≤ 1e-4 and each gradient ≤ ``grad_tol`` of its largest entry; where the
+    CPU's own fp32 result is that far from its fp64 one, the card no
+    farther from the fp64 result than twice the CPU's fp32 one is
+    (:func:`held_to_fp64`). Returns the three models."""
+    card = moved(torch, make(dev, np.float32), 43)
+    names = [k for k, p in card.named_parameters() if p.requires_grad]
+    zero_counts(ck)
+    vg, gg = grads_of(card, loss)
+    if read_counts(ck) != expect(K3=k3):
+        raise SystemExit(f"chip_smoke: {label} launched {read_counts(ck)}, "
+                         f"not K3 {k3} times")
+    cpu = carried(pl, card, torch.device("cpu"), lambda w: make(w, np.float32))
+    cpu64 = carried(pl, card, torch.device("cpu"),
+                    lambda w: make(w, np.float64))
+    vc, gc = grads_of(cpu, loss)
+    v64, g64 = grads_of(cpu64, loss)
+    print(f"  {label}, card against CPU:")
+    held_or_fp64(f"{label} value", vg, vc, v64, abs(v64), 1e-4)
+    for k, a, b, c in zip(names, gg, gc, g64):
+        if c.numel():
+            held_or_fp64(f"{label} grad {k}", a, b, c, float(c.abs().max()),
+                         grad_tol)
+    return card, cpu, cpu64
+
+
+@contextlib.contextmanager
+def composed_spied(torch, replay=None):
+    """From outside the package, wrap the composed route's estimator
+    (``ops.iterative.lmc_pcg_log_prob``, which the model calls through its
+    module) for the calls made inside. Without ``replay`` it runs as it is
+    and records the tensors its backward saved (stack, H, α, W, z̃), the
+    cotangent ``g`` it was handed and the cotangents it returned for
+    (stack, H, Σt, Y). With ``replay`` (those four cotangents) it computes
+    nothing and returns them, so the model's gradient is its VJP of
+    exactly these through the rest of the route."""
+    from projected_lmc_tpu_torch.ops import iterative as it_ops
+    orig = it_ops.lmc_pcg_log_prob
+    rec = {}
+
+    class Replay(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *xs):
+            ctx.like = [(x.device, x.dtype) for x in xs]
+            return torch.zeros((), dtype=xs[1].dtype, device=xs[1].device)
+
+        @staticmethod
+        def backward(ctx, g):
+            return tuple(c.to(*like) if c is not None and need else None
+                         for c, like, need in zip(replay, ctx.like,
+                                                  ctx.needs_input_grad))
+
+    def spy(Ks, H, St, Ydelta, *rest):
+        if replay is not None:
+            return Replay.apply(Ks, H, St, Ydelta)
+        ll = orig(Ks, H, St, Ydelta, *rest)
+        rec["saved"] = ll.grad_fn.saved_tensors
+
+        def hook(grad_inputs, grad_outputs):
+            rec["cots"] = [None if c is None else c.detach()
+                           for c in grad_inputs[:4]]
+            rec["g"] = grad_outputs[0].detach()
+        ll.grad_fn.register_hook(hook)
+        return ll
+
+    it_ops.lmc_pcg_log_prob = spy
+    try:
+        yield rec
+    finally:
+        it_ops.lmc_pcg_log_prob = orig
+
+
+def composed_held(torch, pl, ck, label, make, loss, dev, k3, tol):
+    """The composed route's MLL (a bf16 or int8 CG loop) on the card (K3
+    ``k3`` times) against the CPU, held stage by stage on the same inputs.
+
+    End to end the two sides' gradients cannot meet ``tol``: the dense dK
+    is rounded to bf16 (JAX's dtype), which turns last-bit fp32 differences
+    into whole bf16 steps on a few entries of each n² sum, and the estimator
+    cancels most of what it sums; so the CPU's own fp32 gradients miss its
+    fp64 twin's by 0.5–3e-2 of their largest entry (the int8 loop's, which
+    re-quantize the CG directions, by as much). Those gaps are printed, and
+    what is held is:
+
+    * the value, card against the CPU model carrying the card's leaves,
+      rel ≤ 1e-4;
+    * the estimator's backward on the tensors the card's run saved (stack,
+      H, α, W, z̃ and its cotangent g): the card's dH, dΣt, dY within
+      ``tol`` of their largest entry of the CPU's; dK within ``tol``, or
+      within one bf16 step at its largest entry (2⁻⁷) for a bf16 stack,
+      the two roundings of one fp32 value being at most a step apart;
+    * the rest of the route (the covariance module's backward — K3's plain
+      backward per group — the mixing, the noise and the priors) on the
+      card's cotangents: the card's model gradients within ``tol`` of
+      their largest entry of the CPU model's, whose estimator hands back
+      the card's four cotangents (:func:`composed_spied`).
+
+    Each run also reads a 3% fault planted in the card's dK through both
+    checks, and fails unless both see it. Returns the card, CPU and CPU float64 models."""
+    from projected_lmc_tpu_torch.ops import iterative as it_ops
+    card = moved(torch, make(dev, np.float32), 43)
+    names = [k for k, p in card.named_parameters() if p.requires_grad]
+    zero_counts(ck)
+    with composed_spied(torch) as rec:
+        vg, gg = grads_of(card, loss)
+    if read_counts(ck) != expect(K3=k3):
+        raise SystemExit(f"chip_smoke: {label} launched {read_counts(ck)}, "
+                         f"not K3 {k3} times")
+    cpu = carried(pl, card, torch.device("cpu"), lambda w: make(w, np.float32))
+    cpu64 = carried(pl, card, torch.device("cpu"),
+                    lambda w: make(w, np.float64))
+    vc, gc = grads_of(cpu, loss)
+    print(f"  {label}, card against CPU:")
+    held(f"{label} value", torch.as_tensor(vg), torch.as_tensor(vc),
+         abs(vc), 1e-4)
+    print(f"  {label} gradients end to end, max|Δ| / largest entry (printed, "
+          f"not held): "
+          + ", ".join(f"{k} {float((a - b).abs().max()) / scale_of(b):.1e}"
+                      for k, a, b in zip(names, gg, gc) if b.numel()))
+    saved = [t.detach().cpu() for t in rec["saved"]]
+    with torch.no_grad():
+        want = it_ops._lmc_hutchinson_bwd(*saved, rec["g"].cpu())
+    for what, a, b in zip(("dK", "dH", "dSt", "dY"), rec["cots"], want):
+        lim = max(tol, 2.0 ** -7) if b.dtype == torch.bfloat16 else tol
+        held(f"{label} estimator backward {what} ({b.dtype})", a.cpu(), b,
+             scale_of(b.float()), lim)
+    replayed = carried(pl, card, torch.device("cpu"),
+                       lambda w: make(w, np.float32))
+    with composed_spied(torch, replay=rec["cots"]):
+        _, gr = grads_of(replayed, loss)
+    for k, a, b in zip(names, gg, gr):
+        if b.numel():
+            held(f"{label} grad {k} on the card's cotangents", a, b,
+                 scale_of(b), tol)
+    # the checks' power: a 3% fault planted in the card's dK
+    dK = rec["cots"][0].cpu() * 1.03
+    p1 = float((dK.float() - want[0].float()).abs().max()) \
+        / scale_of(want[0].float())
+    with composed_spied(torch, replay=[dK] + rec["cots"][1:]):
+        _, gp = grads_of(replayed, loss)
+    p2 = max(float((a - b).abs().max()) / scale_of(b)
+             for a, b in zip(gg, gp) if b.numel())
+    lim = max(tol, 2.0 ** -7) if dK.dtype == torch.bfloat16 else tol
+    print(f"  {label}: a 3% fault planted in the card's dK reads {p1:.2e} "
+          f"in the estimator's backward (tolerance {lim:.1e}), {p2:.2e} in "
+          f"the gradients (tolerance {tol:.0e})")
+    if not (p1 > lim and p2 > tol):
+        raise SystemExit(f"chip_smoke: {label}'s checks do not see a 3% "
+                         f"fault in dK")
+    return card, cpu, cpu64
+
+
+def path_j_checks(torch, pl, ck, dev, totals):
+    """The card against the CPU at n = 2048 (the same eps, xi and probes,
+    CG to 1e-5): the composed MLL (J1's model; and its int8 loop, held to
+    1e-2), stage by stage (:func:`composed_held`), both SLQ settings, the tidal ICM and PLMC, the spline and mean
+    models, and ``chol_bf16`` (1e-2); posteriors (J1's "lmc_iter", the tidal
+    models', the spline model's) with path G's limits and the complex-mean
+    LOO within 1e-3, each held to the CPU's fp64 result where the CPU's
+    fp32 one is that far from it."""
+    n = F_CHECK_N
+    X, Y = bench_data(n, seed=40)
+    xs = torch.as_tensor(bench_data(G_CHECK_TEST, seed=41)[0])
+    g = torch.Generator().manual_seed(5)
+    eps = torch.randn((8, n, T), generator=g)
+    xi = torch.randn((8, Q, min(256, n)), generator=g)
+    probes = (2 * torch.randint(0, 2, (10, n, T), generator=g) - 1).float()
+    tight = dict(max_cg_iters=200, cg_tol=1e-5)
+
+    def on(t, m):
+        return t.to(m.device, m.train_x.dtype)
+
+    def make_j1(w, dt):
+        return surface_model(pl, X.astype(dt), Y.astype(dt), w,
+                             decomp=J_DECOMP)
+    for label, kw, tol in (("bf16", dict(matvec_bf16=True), 2e-3),
+                           ("int8", dict(matvec_int8=True), 1e-2)):
+        cases = composed_held(torch, pl, ck, f"J n={n} composed MLL {label}",
+                              make_j1, lambda m: m.mll(
+                                  iterative=True, precond_rank=256,
+                                  num_probes=8, eps=on(eps, m), xi=on(xi, m),
+                                  **tight, **kw),
+                              dev, 6, tol)
+    v0 = torch.as_tensor(np.random.default_rng(19).standard_normal((n, T)),
+                         dtype=torch.float32)
+    with torch.no_grad():
+        posts = [m.posterior(xs.to(m.device, m.train_x.dtype),
+                             cache=m.precompute_posterior(v0=on(v0, m)))
+                 for m in cases]
+        scale = prior_var_max(torch, cases[2], xs.double())
+    mean_var_held("J composed lmc_iter posterior",
+                  *((p.mean, p.variance) for p in posts), scale)
+    del cases, posts
+
+    def make_plain(w, dt):
+        return surface_model(pl, X.astype(dt), Y.astype(dt), w)
+    for label, kw in (("defaults", {}), ("slq rank 256", dict(
+            J_SLQ_KW, matvec_bf16=False, num_probes=10))):
+        kw = dict(kw, **tight) if kw else dict(tight, max_cg_iters=512)
+        mll_held(torch, pl, ck, f"J n={n} SLQ {label}", make_plain,
+                 lambda m: m.mll(probes=on(probes, m), **kw), dev, 1)
+
+    Xt_, Yt_, Xh, _ = tidal_series()
+    for name in ("ICM", "PLMC"):
+        def make_tidal(w, dt, name=name):
+            return tidal_models(pl, Xt_.astype(dt), Yt_.astype(dt), w)[name]
+        loss = pl.projected_lmc_mll if name == "PLMC" else (
+            lambda m: m.mll())
+        cases = mll_held(torch, pl, ck, f"J tidal {name} MLL", make_tidal,
+                         loss, dev, 0)
+        with torch.no_grad():
+            preds = [tidal_predict(torch, name, m, torch.as_tensor(
+                Xh, device=m.device, dtype=m.train_x.dtype)) for m in cases]
+        var_scale = float(preds[2][1].max())
+        mean_var_held(f"J tidal {name} prediction", *preds, var_scale)
+
+    Xj, Yj, Xs = j4_data(n, 42)
+    for name, kw in J4_MODELS.items():
+        Xm = Xs if name == "spline" else Xj
+
+        def make_exact(w, dt, kw=kw, Xm=Xm):
+            return exact_surface(pl, Xm.astype(dt), Yj.astype(dt), w, **kw)
+        cases = mll_held(torch, pl, ck, f"J n={n} exact {name} MLL",
+                         make_exact, lambda m: m.mll(), dev,
+                         0 if name == "spline" else 1)
+        with torch.no_grad():
+            if name == "linear":
+                loos = [m.compute_loo(complex_mean=True) for m in cases]
+                for i, what in enumerate(("sigma2", "residual")):
+                    held_to_fp64(f"J complex-mean LOO {what}",
+                                 *(lo[i] for lo in loos),
+                                 scale_of(loos[2][i]), 1e-3)
+            elif name == "spline":
+                xsp = torch.sigmoid(xs)
+                posts = [m.posterior(xsp.to(m.device, m.train_x.dtype),
+                                     full_cov=False) for m in cases]
+                scale = float((cases[2].covar_module(xsp.double(), diag=True)
+                               + cases[2].likelihood.noise).max())
+                mean_var_held("J spline posterior",
+                              *((p.mean, p.variance) for p in posts), scale)
+
+    from projected_lmc_tpu_torch.ops import kron
+    model = icm_model(pl, X, Y, "cpu")
+    with torch.no_grad():
+        base = [model.covar_module(model.train_x)[0],
+                model.task_covar_matrix(), model.likelihood.task_covariance(),
+                model.train_y.T.contiguous()]
+    out = []
+    for where, dt in ((dev, torch.float32), ("cpu", torch.float32),
+                      ("cpu", torch.float64)):
+        leaves = [a.to(where, dt).clone().requires_grad_(True)
+                  for a in base]
+        ll = kron.icm_log_prob_chol(*leaves, chol_bf16=True)
+        ll.backward()
+        out.append((ll.detach(), [a.grad for a in leaves]))
+    held_to_fp64("J chol_bf16 value", *(o[0] for o in out),
+                 float(out[2][0].abs()), 1e-4)
+    for i, k in enumerate(("K", "B", "St", "Y")):
+        held_to_fp64(f"J chol_bf16 grad {k}", *(o[1][i] for o in out),
+                     float(out[2][1][i].abs().max()), 1e-2)
+
+
+def path_j_phase(torch, pl, ck, dev, totals, median_4=float("nan")):
+    """Path J: the rest of the model surface (J1–J5, the card against the
+    CPU), each with its wall time."""
+    t0 = time.perf_counter()
+    for label, part in (("J1", lambda *a: path_j1(*a, median_4=median_4)),
+                        ("J2", path_j2), ("J3", path_j3), ("J4", path_j4),
+                        ("J5", path_j5), ("J checks", path_j_checks)):
+        t1 = time.perf_counter()
+        part(torch, pl, ck, dev, totals)
+        torch.cuda.empty_cache()
+        print(f"  {label} took {time.perf_counter() - t1:.1f} s")
+    print(f"  path J took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3346,6 +4141,12 @@ def main() -> int:
           f"({I_STEPS} steps, {I3_TEST} test points), I4 LMC, ICM and exact "
           f"SGPR n={N} ({I_STEPS} steps each)")
     path_i_phase(torch, pl, ck, dev, totals)
+    print(f"path J: the rest of the model surface, J1 the composed route "
+          f"n={N} decomp={J_DECOMP}, J2 the SLQ route n={N}, J3 the tidal "
+          f"spectral-mixture ICM and PLMC, J4 ExactGPModel's means, spline "
+          f"kernel, schedules, checkpoints and evals n={J4_N}, J5 the blocked "
+          f"Cholesky n={J5_N}")
+    path_j_phase(torch, pl, ck, dev, totals, median_4)
 
     meta = [("K1", "scaled_kernel_stack_sym",
              "projected_lmc_tpu/ops/pallas_kernels.py:278"),

@@ -16,7 +16,12 @@ LMC, ICM and projected-LMC posteriors, LOO (``mlls.loo_pseudo_likelihood``) and
 ``models.variational.VariationalMultitaskGPModel`` (its ELBO, the
 closed-form SGPR E/M steps, ``training.fit_svgp_minibatch``) and the
 Titsias SGPR route of the exact, LMC/ICM and projected models
-(``n_inducing_points``), with a hand-written CUDA
+(``n_inducing_points``), and the rest of the model surface: additive
+(``decomp``), spline and spectral-mixture kernels, linear and polynomial
+means with the universal-kriging LOO, the composed and CG + SLQ MLL routes
+(``ops.iterative``), the blocked bf16 Cholesky, ``fit``'s chunks,
+checkpoints and evals, and ``save_model``/``load_model`` (checkpoints
+interchangeable with the JAX package's); with a hand-written CUDA
 kernel for each TPU kernel of the JAX package (``ops/cuda_kernels.py``,
 sources in ``csrc/``). Entry points default to
 ``device="cuda"``; ``device="cpu"`` runs the kernels' plain PyTorch versions.
@@ -30,13 +35,15 @@ from .models.exact import ExactGPModel
 from .models.multitask import MultitaskGPModel
 from .models.projected import ProjectedGPModel
 from .models.variational import VariationalMultitaskGPModel
-from .training import (fit, fit_svgp_minibatch, fit_two_phase,
-                       lambda_lr_schedule)
-from .utils.checkpoint import load_jax_state
+from .training import (default_scan_steps, exponential_schedule, fit,
+                       fit_svgp_minibatch, fit_two_phase, lambda_lr_schedule)
+from .utils.checkpoint import load_jax_state, load_model, save_model
 
 __all__ = ["ExactGPModel", "GaussianLikelihood", "KronCov",
            "MultitaskGaussianLikelihood", "MultitaskGPModel",
            "ProjectedGPModel", "SumKronRank1Cov",
-           "VariationalMultitaskGPModel", "compute_metrics", "exact_mll",
-           "fit", "fit_svgp_minibatch", "fit_two_phase", "lambda_lr_schedule",
-           "load_jax_state", "loo_pseudo_likelihood", "projected_lmc_mll"]
+           "VariationalMultitaskGPModel", "compute_metrics",
+           "default_scan_steps", "exact_mll", "exponential_schedule", "fit",
+           "fit_svgp_minibatch", "fit_two_phase", "lambda_lr_schedule",
+           "load_jax_state", "load_model", "loo_pseudo_likelihood",
+           "projected_lmc_mll", "save_model"]

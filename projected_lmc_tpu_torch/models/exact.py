@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..distributions import MultivariateNormal, MultitaskMultivariateNormal
-from ..kernels import KERNEL_REGISTRY, handle_covar
+from ..kernels import KERNEL_REGISTRY, AdditiveKernel, handle_covar
 from ..likelihoods import GaussianLikelihood
 from ..means import MEAN_REGISTRY
 from ..module import Module
@@ -63,6 +63,11 @@ def _canon_targets(y, n_tasks, orientation: str = "auto"):
     return y.T
 
 
+def _np(t):
+    """A tensor as a squeezed numpy array."""
+    return np.squeeze(t.detach().cpu().numpy())
+
+
 def _as_inputs(x, ref):
     """``x`` (n, d), or 1-D for one feature, as a tensor in ``ref``'s dtype
     on its device."""
@@ -70,13 +75,11 @@ def _as_inputs(x, ref):
     return x[:, None] if x.dim() == 1 else x
 
 
-def _resolve(registry, spec, default, what):
+def _resolve(registry, spec, default):
+    """The class ``spec`` names in ``registry`` (``default`` for None), or
+    ``spec`` itself when it is not a name."""
     spec = default if spec is None else spec
-    if not isinstance(spec, str):
-        return spec
-    if spec not in registry:
-        raise NotImplementedError(f"{what} {spec!r} is ported in a later slice")
-    return registry[spec]
+    return registry[spec] if isinstance(spec, str) else spec
 
 
 def inducing_factor(covar_module, z):
@@ -126,11 +129,11 @@ class ExactGPModel(Module):
         self.n_tasks = int(n_tasks)
         self.n_funcs = int(n_tasks)
         self.dim = int(x.shape[1])
-        mean_cls = _resolve(MEAN_REGISTRY, mean_type, "constant", "mean")
+        mean_cls = _resolve(MEAN_REGISTRY, mean_type, "constant")
         self.mean_module = mean_cls(input_size=self.dim, batch_shape=n_tasks,
                                     dtype=dtype, seed=seed, device=dev)
         self.covar_module = handle_covar(
-            _resolve(KERNEL_REGISTRY, kernel_type, "rbf", "kernel"),
+            _resolve(KERNEL_REGISTRY, kernel_type, "rbf"),
             dim=self.dim, decomp=decomp, prior_scales=prior_scales,
             prior_width=prior_width, outputscales=outputscales,
             n_funcs=n_tasks, ker_kwargs=ker_kwargs, dtype=dtype, device=dev)
@@ -232,8 +235,10 @@ class ExactGPModel(Module):
         n (gpytorch ExactMarginalLogLikelihood).
 
         Above the dense ceiling (T·n² > ``ITER_TN2_MAX``, with a warning) or
-        with ``iterative=True`` it is the fused Nyström-preconditioned PCG
-        estimator with identity mixing. eps (num_probes, n, T) and xi
+        with ``iterative=True`` it is the Nyström-preconditioned PCG
+        estimator with identity mixing: fused for one stationary kernel over
+        all the features, else on the kernels' materialized stack (the
+        composed route, ``iterative.lmc_pcg_log_prob``). eps (num_probes, n, T) and xi
         (num_probes, T, rank) are its standard normals; when not given they
         are drawn from ``generator`` (a fresh one seeded 0 when None, as the
         JAX model draws from ``PRNGKey(0)`` without a key). The roots are
@@ -265,11 +270,6 @@ class ExactGPModel(Module):
             ll = self.log_marginal(y=y, x=x)
             return (ll.sum() + self.covar_module.prior_log_prob()) / n
         from .multitask import _fused_stationary_spec
-        spec = _fused_stationary_spec(self.covar_module, self.dim)
-        if spec is None:
-            raise NotImplementedError("the composed kernel→log-prob route is "
-                                      "ported in a later slice")
-        kind, ls, os_ = spec
         y_ = self.train_y if y is None else _canon_targets(
             torch.as_tensor(y, dtype=x_.dtype, device=x_.device), self.n_funcs)
         Ydelta = (y_ - self.mean_module(x_)).T                  # (n, T)
@@ -288,22 +288,38 @@ class ExactGPModel(Module):
                         device=x_.device)
             eps = torch.randn((num_probes, n, T), **draw)
             xi = torch.randn((num_probes, T, m_rank), **draw)
-        ll = fused_mll.lmc_pcg_log_prob_stationary(
-            x_, ls, os_, H, St, Ydelta, eps, xi, roots, kind, max_cg_iters,
-            cg_tol, matvec_bf16, m_rank, device=x_.device)
+        spec = _fused_stationary_spec(self.covar_module, self.dim)
+        if spec is None:
+            # the composed route: the task kernels' materialized stack
+            Ks = self.covar_module(
+                x_, out_dtype=torch.bfloat16 if matvec_bf16 else None)
+            ll = it_ops.lmc_pcg_log_prob(Ks, H, St, Ydelta, eps, xi, roots,
+                                         max_cg_iters, cg_tol, matvec_bf16,
+                                         m_rank)
+        else:
+            kind, ls, os_ = spec
+            ll = fused_mll.lmc_pcg_log_prob_stationary(
+                x_, ls, os_, H, St, Ydelta, eps, xi, roots, kind,
+                max_cg_iters, cg_tol, matvec_bf16, m_rank, device=x_.device)
         return (ll + self.covar_module.prior_log_prob()) / n
 
     def lscales(self, unpacked: bool = True):
         """Learned lengthscales, (n_funcs, dims), as a numpy array (a list of
-        one when not ``unpacked``)."""
-        scales = np.squeeze(self.covar_module.lengthscale.detach().cpu()
-                            .numpy())
+        one when not ``unpacked``); for an additive kernel, a list with one
+        array per group."""
+        cm = self.covar_module
+        if isinstance(cm, AdditiveKernel):
+            return [_np(k.lengthscale) for k in cm.kernels]
+        scales = _np(cm.lengthscale)
         return scales if unpacked else [scales]
 
     def outputscale(self, unpacked: bool = False):
-        """Learned outputscales, (n_funcs, 1) (ones without a ScaleKernel),
-        as a numpy array; squeezed when ``unpacked``."""
+        """Learned outputscales, (n_funcs, n_kernels) (ones without a
+        ScaleKernel), as a numpy array; squeezed when ``unpacked`` (an
+        additive kernel's, one column per group, never)."""
         cm = self.covar_module
+        if isinstance(cm, AdditiveKernel):
+            return np.stack([_np(k.outputscale) for k in cm.kernels], axis=1)
         if hasattr(cm, "outputscale"):
             res = cm.outputscale.detach().cpu().numpy()[:, None]
         else:
@@ -382,17 +398,35 @@ class ExactGPModel(Module):
         """Exact LOO variances and residuals by σᵢ² = 1/[K⁻¹]ᵢᵢ, both (n, T).
         Detached when the model has more than one output; a single output
         stays differentiable (``mlls.loo_pseudo_likelihood`` trains through
-        it). ``complex_mean`` needs a mean with a basis matrix, which the
-        ported means lack: it raises ``ValueError``, as the JAX model does for
-        them."""
-        if complex_mean:
-            raise ValueError("A complex mean treatment was required, but the "
-                             "model mean function doesn't allow it!")
-        delta = self._targets(targets, orientation) \
-            - self.mean_module(self.train_x)
+        it).
+
+        ``complex_mean`` applies the universal-kriging correction
+        K⁻ = K⁻¹ − K⁻¹H(HᵀK⁻¹H)⁻¹HᵀK⁻¹ with H the mean's basis matrix
+        (projected_lmc.py:417-430; HᵀK⁻¹H factored with a 1e-6 ridge), and
+        residuals K⁻y·σ² of the targets themselves, as the JAX model; a mean
+        without ``basis_matrix`` raises ``ValueError``."""
+        y = self._targets(targets, orientation)
         L = safe_cholesky(self._train_covar())
-        sigma2 = 1.0 / chol_inverse_diag(L)                     # (T, n)
-        yminusmu = cho_solve(L, delta[..., None])[..., 0] * sigma2
+        if complex_mean:
+            try:
+                H = self.mean_module.basis_matrix(self.train_x)  # (n, k)
+            except AttributeError as e:
+                raise ValueError("A complex mean treatment was required, but "
+                                 "the model mean function doesn't allow "
+                                 "it!") from e
+            eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+            K_inv = cho_solve(L, eye.expand_as(L))               # (T, n, n)
+            KiH = K_inv @ H
+            M = KiH.transpose(-1, -2) @ H
+            Lm = safe_cholesky(M + 1e-6 * torch.eye(
+                M.shape[-1], dtype=M.dtype, device=M.device))
+            K_minus = K_inv - KiH @ cho_solve(Lm, KiH.transpose(-1, -2))
+            sigma2 = 1.0 / torch.diagonal(K_minus, dim1=-2, dim2=-1)
+            yminusmu = (K_minus @ y[..., None])[..., 0] * sigma2
+        else:
+            delta = y - self.mean_module(self.train_x)
+            sigma2 = 1.0 / chol_inverse_diag(L)                  # (T, n)
+            yminusmu = cho_solve(L, delta[..., None])[..., 0] * sigma2
         if self.n_funcs > 1:
             return sigma2.T.detach(), yminusmu.T.detach()
         return sigma2.T, yminusmu.T

@@ -40,7 +40,8 @@ import torch
 from ..constraints import softplus
 from ..distributions import (KronCov, MultitaskMultivariateNormal,
                              SumKronRank1Cov)
-from ..kernels import KERNEL_REGISTRY, ScaleKernel, handle_covar
+from ..kernels import (KERNEL_REGISTRY, AdditiveKernel, ScaleKernel,
+                       handle_covar)
 from ..likelihoods import MultitaskGaussianLikelihood
 from ..means import MEAN_REGISTRY
 from ..module import Module
@@ -51,7 +52,7 @@ from ..ops import woodbury as wb_ops
 from ..ops.cholesky import cho_solve, safe_cholesky, solve_triangular
 from ..ops.init_ops import init_lmc_coefficients
 from ..utils.device import resolve_device
-from .exact import _as_inputs, _canon_targets, _resolve, nystrom_roots
+from .exact import _as_inputs, _canon_targets, _np, _resolve, nystrom_roots
 
 
 def _fused_stationary_spec(cov, dim):
@@ -115,11 +116,11 @@ class MultitaskGPModel(Module):
         self.model_type = model_type
         self.dim = int(x.shape[1])
 
-        mean_cls = _resolve(MEAN_REGISTRY, mean_type, "constant", "mean")
+        mean_cls = _resolve(MEAN_REGISTRY, mean_type, "constant")
         self.mean_module = mean_cls(input_size=self.dim, batch_shape=n_tasks,
-                                    dtype=dtype, device=dev)
+                                    dtype=dtype, seed=seed, device=dev)
         self.covar_module = handle_covar(
-            _resolve(KERNEL_REGISTRY, kernel_type, "rbf", "kernel"),
+            _resolve(KERNEL_REGISTRY, kernel_type, "rbf"),
             dim=self.dim, decomp=decomp, prior_scales=prior_scales,
             prior_width=prior_width, outputscales=False,
             n_funcs=1 if model_type == "ICM" else n_latents,
@@ -242,10 +243,11 @@ class MultitaskGPModel(Module):
                                                jitter)
 
     def mll(self, x=None, y=None, iterative: bool = None, num_probes: int = 10,
-            max_cg_iters: int = 256, cg_tol: float = 1e-2,
+            max_cg_iters: int = 256, cg_tol: float = 1e-2, slq_steps: int = 20,
             matvec_bf16: bool = False, precond_rank: int = 0,
             quad_method: str = "pcg", precond_roots=None,
-            matvec_int8: bool = False, eps=None, xi=None, generator=None):
+            matvec_int8: bool = False, eps=None, xi=None, probes=None,
+            generator=None):
         """Exact multitask MLL / (n·T), plus hyper-prior terms.
 
         SGPR (both types; the routing kwargs are ignored): the low-rank
@@ -255,15 +257,25 @@ class MultitaskGPModel(Module):
         with ``iterative=True``) the matrix-free PCG estimator
         (``iterative.icm_pcg_log_prob``; ``precond_rank`` ≤ 0 becomes
         min(256, n)). LMC: the dense Woodbury log-density up to q·n =
-        ``DENSE_QN_MAX`` (or with ``iterative=False``), above it the fused
-        PCG estimator (``precond_rank > 0``, ``quad_method="pcg"``).
+        ``DENSE_QN_MAX`` (or with ``iterative=False``); above it, with
+        ``precond_rank > 0`` and ``quad_method="pcg"``, the one-pass PCG
+        estimator: fused (``ops/fused_mll``) for one stationary kernel over
+        all the features, else the composed route
+        (``iterative.lmc_pcg_log_prob`` on the covariance module's
+        materialized stack: additive, spline and spectral-mixture kernels,
+        a kernel over a proper subset of the features); otherwise (the
+        default ``precond_rank=0``, or ``quad_method="slq"``) CG + SLQ on
+        Rademacher ``probes`` (``iterative.lmc_iterative_log_prob``,
+        ``slq_steps`` Lanczos steps, Nyström-preconditioned from the stack
+        when ``precond_rank > 0``).
 
         eps (num_probes, n, T) and xi are the standard normals of the
         probes, xi (num_probes, q, rank) for LMC and (num_probes, m, T) for
         ICM, m the rank of the roots used; when not given they are drawn
         from ``generator`` (a fresh ``torch.Generator`` seeded 0 when None,
-        as the JAX model draws from ``PRNGKey(0)`` without a key).
-        ``precond_roots``: caller-supplied, possibly stale, Nyström roots,
+        as the JAX model draws from ``PRNGKey(0)`` without a key); the SLQ
+        route's ``probes`` (num_probes, n, T) likewise
+        (``iterative.draw_probes``). ``precond_roots``: caller-supplied, possibly stale, Nyström roots,
         (q, n, rank) for LMC, (k, n, m) or (n, m) for ICM; the estimator is
         exact for any SPD preconditioner. ``matvec_bf16``: the CG products
         on K3's matrix cast to bf16, fp32 accumulation. ``matvec_int8``
@@ -294,21 +306,36 @@ class MultitaskGPModel(Module):
             return (ll + self.covar_module.prior_log_prob()) \
                 / (n * self.n_tasks)
         if precond_rank <= 0 or quad_method != "pcg":
-            raise NotImplementedError(
-                "the unpreconditioned SLQ route (precond_rank <= 0 or "
-                "quad_method='slq') is ported with slice 6; pass "
-                "precond_rank > 0")
-        spec = _fused_stationary_spec(self.covar_module, self.dim)
-        if spec is None:
-            raise NotImplementedError("the composed kernel→log-prob route is "
-                                      "ported in a later slice")
-        kind, ls, os_ = spec
+            # CG + SLQ on Rademacher probes over the materialized stack, the
+            # preconditioner (precond_rank > 0) from the stack's columns
+            if probes is None:
+                if generator is None:
+                    generator = torch.Generator(device=x.device).manual_seed(0)
+                probes = it_ops.draw_probes(generator, n, self.n_tasks,
+                                            num_probes, Ydelta.dtype)
+            ll = it_ops.lmc_iterative_log_prob(
+                self.covar_module(x), H, St, Ydelta, probes, max_cg_iters,
+                cg_tol, slq_steps, matvec_bf16, precond_rank)
+            return (ll + self.covar_module.prior_log_prob()) \
+                / (n * self.n_tasks)
         eps, xi = self._draw_probes(n, Ydelta.dtype, x.device, eps, xi,
                                     generator, num_probes,
                                     (self.n_latents, min(precond_rank, n)))
         if precond_roots is None:
             with torch.no_grad():
                 precond_roots = self._precond_roots(x, precond_rank)
+        spec = _fused_stationary_spec(self.covar_module, self.dim)
+        if spec is None:
+            # the composed route: any kernel, the (q, n, n) stack
+            # materialized (in bf16 for a bf16 CG loop, its cotangent too)
+            Ks = self.covar_module(
+                x, out_dtype=torch.bfloat16 if matvec_bf16 else None)
+            ll = it_ops.lmc_pcg_log_prob(
+                Ks, H, St, Ydelta, eps, xi, precond_roots, max_cg_iters,
+                cg_tol, matvec_bf16, precond_rank, matvec_int8)
+            return (ll + self.covar_module.prior_log_prob()) \
+                / (n * self.n_tasks)
+        kind, ls, os_ = spec
         ll = fused_mll.lmc_pcg_log_prob_stationary(
             x, ls, os_, H, St, Ydelta, eps, xi, precond_roots, kind,
             max_cg_iters, cg_tol, matvec_bf16, precond_rank, matvec_int8,
@@ -539,17 +566,25 @@ class MultitaskGPModel(Module):
     def lscales(self, unpacked: bool = True):
         """Learned lengthscales, (n_latents, dims), as a numpy array (the
         ICM's one kernel repeated for each latent; a list of one when not
-        ``unpacked``)."""
-        scales = np.squeeze(self.covar_module.lengthscale.detach().cpu()
-                            .numpy(), axis=-2)
+        ``unpacked``); for an additive kernel, a list with one array per
+        group."""
+        cm = self.covar_module
+        if isinstance(cm, AdditiveKernel):
+            return [_np(k.lengthscale) for k in cm.kernels]
+        scales = np.squeeze(cm.lengthscale.detach().cpu().numpy(), axis=-2)
         if self.icm:
             scales = np.repeat(scales, self.n_latents, axis=0)
         return scales if unpacked else [scales]
 
     def outputscale(self, unpacked: bool = False):
         """Outputscales, (n_latents, 1): ones, as the kernels carry none
-        (squeezed when ``unpacked``)."""
-        res = np.ones((self.n_latents, 1))
+        (squeezed when ``unpacked``); an additive kernel's groups' own,
+        (n_kernels, n_groups)."""
+        cm = self.covar_module
+        if isinstance(cm, AdditiveKernel):
+            res = np.stack([_np(k.outputscale) for k in cm.kernels], axis=1)
+        else:
+            res = np.ones((self.n_latents, 1))
         return res.squeeze() if unpacked else res
 
 

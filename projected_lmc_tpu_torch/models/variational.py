@@ -186,11 +186,11 @@ class VariationalMultitaskGPModel(Module):
             self.register_raw("var_chol_diag", torch.ones((q, m)), dtype, dev)
 
         self.covar_module = handle_covar(
-            _resolve(KERNEL_REGISTRY, kernel_type, "rbf", "kernel"),
+            _resolve(KERNEL_REGISTRY, kernel_type, "rbf"),
             dim=self.dim, decomp=decomp, prior_scales=prior_scales,
             prior_width=prior_width, outputscales=outputscales, n_funcs=q,
             ker_kwargs=ker_kwargs, dtype=dtype, device=dev)
-        mean_cls = _resolve(MEAN_REGISTRY, mean_type, "constant", "mean")
+        mean_cls = _resolve(MEAN_REGISTRY, mean_type, "constant")
         self.output_mean_module = mean_cls(
             input_size=self.dim, batch_shape=self.n_tasks, dtype=dtype,
             seed=seed, device=dev)

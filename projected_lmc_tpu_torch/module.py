@@ -11,10 +11,14 @@ frozen leaves with ``trainable_mask``/``partition``. Here a model is a
   * the JAX ``_frozen_params_`` are parameters with ``requires_grad=False``.
 
 So ``"." + name`` over ``named_parameters()`` and ``named_buffers()`` is the
-JAX key path of the same leaf, which is what ``utils.checkpoint`` matches on.
+JAX key path of the same leaf, which is what ``utils.checkpoint`` matches on,
+once the index of a list-held submodule (``kernels.0``, an ``nn.ModuleList``)
+is written as JAX writes a list index (``kernels[0]``).
 """
 
 from __future__ import annotations
+
+import re
 
 import torch
 from torch import nn
@@ -40,9 +44,16 @@ def trainable_parameters(module: nn.Module):
     return [(n, p) for n, p in module.named_parameters() if p.requires_grad]
 
 
+def jax_key(name: str) -> str:
+    """The JAX key path of the leaf torch names ``name``:
+    ``covar_module.kernels.0.raw_outputscale`` →
+    ``.covar_module.kernels[0].raw_outputscale``."""
+    return "." + re.sub(r"\.(\d+)(?=\.|$)", r"[\1]", name)
+
+
 def keyed_state(module: nn.Module) -> dict:
     """{JAX key path: tensor} over every parameter and buffer, e.g.
     ``.covar_module.raw_lengthscale``."""
-    out = {"." + n: p for n, p in module.named_parameters()}
-    out.update({"." + n: b for n, b in module.named_buffers()})
+    out = {jax_key(n): p for n, p in module.named_parameters()}
+    out.update({jax_key(n): b for n, b in module.named_buffers()})
     return out

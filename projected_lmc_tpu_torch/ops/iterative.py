@@ -1,9 +1,12 @@
-"""Matrix-free exact-LMC pieces of the fused MLL: the stack product, the
-Nyström preconditioner, PCG with its Lanczos tridiagonals and the
-tridiagonal log-quadrature; the matrix-free LMC posterior's pieces; and the
-matrix-free exact ICM: its product, preconditioner, PCG estimator and
-posterior variance (port of the ported slices' subset of
-``projected_lmc_tpu/ops/iterative.py``).
+"""Matrix-free exact-LMC marginal likelihoods and their pieces (port of
+``projected_lmc_tpu/ops/iterative.py``): the stack product, the Nyström
+preconditioner, PCG with its Lanczos tridiagonals and the tridiagonal
+log-quadrature; the two estimators over a materialized stack, the
+composed route's one-pass PCG (``lmc_pcg_log_prob``) and CG + SLQ on
+Rademacher probes (``lmc_iterative_log_prob``, the LMC's default MLL above
+the dense ceiling), with their shared Hutchinson backward; the matrix-free
+LMC posterior's pieces; and the matrix-free exact ICM: its product,
+preconditioner, PCG estimator and posterior variance.
 
 Σ = Σ_b K_b ⊗ h_b h_bᵀ + I_n ⊗ Σt is applied through the materialized
 (q, n, n) stack; every contraction here is a plain product that the JAX
@@ -276,13 +279,19 @@ def _tridiag_logquad(alphas, betas, active):
                       torch.sqrt(torch.clamp(betas, min=0.0))
                       / torch.clamp(alphas, min=1e-30),
                       torch.zeros_like(alphas))
-    T = (torch.diag_embed(diag.T) + torch.diag_embed(off[:-1].T, 1)
-         + torch.diag_embed(off[:-1].T, -1))
+    return _tridiag_quadrature(diag.T, off[:-1].T)
+
+
+def _tridiag_quadrature(diag, off):
+    """e₁ᵀ log(T) e₁ for the batched symmetric tridiagonals T of diagonal
+    ``diag`` (r, K) and off-diagonal ``off`` (r, K − 1): one batched eigh on
+    the device. Krylov-converged directions give spurious tiny or negative
+    Ritz values of ~zero weight, floored so that the log stays finite."""
+    T = (torch.diag_embed(diag) + torch.diag_embed(off, 1)
+         + torch.diag_embed(off, -1))
     evals, evecs = torch.linalg.eigh(T)
-    floor = 1e-10 * evals.abs().amax(-1, keepdim=True)
-    evals = torch.maximum(evals, floor)
-    tau2 = evecs[:, 0, :] ** 2
-    return (tau2 * torch.log(evals)).sum(-1)                # (r,)
+    evals = torch.maximum(evals, 1e-10 * evals.abs().amax(-1, keepdim=True))
+    return (evecs[:, 0, :] ** 2 * torch.log(evals)).sum(-1)   # (r,)
 
 
 def _pcg_fwd_impl(Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
@@ -328,6 +337,164 @@ def _pcg_fwd_impl(Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
     logdet = logdet_M + (rz0[1:] * logquad).mean()
     ll = -0.5 * (quad + logdet + n * t * math.log(2 * math.pi))
     return ll, (alpha, W, minv(z))
+
+
+def _lmc_hutchinson_bwd(Ks, H, alpha, W, Z, g):
+    """The estimators' backward (the JAX package's ``_bwd_impl``): the
+    cotangents (dK, dH, dΣt, dY) of ll for Σ = Σ_b K_b ⊗ h_b h_bᵀ + I ⊗ Σt
+    from dll/dΣ = ½(ααᵀ − Σ⁻¹), Σ⁻¹ ≈ (1/2s) Σ_i (w_i z_iᵀ + z_i w_iᵀ),
+    w_i = Σ⁻¹z_i (z_i the probes, or M⁻¹ of them for the PCG estimator).
+
+    dK is dense, (q, n, n) in the stack's dtype (a bf16 stack carries a
+    bf16 cotangent), one batched GEMM of rank 1 + 2s per latent; dH streams
+    the stack once, in one product with the 1 + 2s right-hand sides
+    α h_b, W h_b and Z h_b."""
+    s = max(W.shape[0], 1)
+    Ah, WH, ZH = alpha @ H, W @ H, Z @ H                # (n, q), (s, n, q)
+    dK = _lmc_dk(Ah, WH, ZH, g).to(Ks.dtype)
+    KR = _stack_matmul(Ks, torch.cat([Ah[None], WH, ZH], 0)).to(alpha.dtype)
+    KAh, KWH, KZH = KR[0], KR[1:1 + s], KR[1 + s:]
+    dH_s = 0.5 * (torch.einsum("snt,snb->tb", Z, KWH)
+                  + torch.einsum("snt,snb->tb", W, KZH))
+    dH = g * (alpha.T @ KAh - dH_s / s)
+    wz = torch.einsum("snt,snu->tu", W, Z)
+    dSt = g * 0.5 * (alpha.T @ alpha - (wz + wz.T) / (2 * s))
+    return dK, dH, dSt, -g * alpha
+
+
+def _lmc_dk(Ah, WH, ZH, g):
+    """The estimators' dense dK, (q, n, n):
+    g·[½ (αh_b)(αh_b)ᵀ − ¼/s Σ_i ((W_i h_b)(Z_i h_b)ᵀ + (Z_i h_b)(W_i h_b)ᵀ)]
+    as one batched GEMM of rank 1 + 2s per latent."""
+    s = max(WH.shape[0], 1)
+    lat = lambda A: A.permute(2, 1, 0)                  # noqa: E731 (q, n, s)
+    left = torch.cat([(0.5 * g) * Ah.T[..., None], (-0.25 / s * g) * lat(WH),
+                      (-0.25 / s * g) * lat(ZH)], 2)
+    right = torch.cat([Ah.T[..., None], lat(ZH), lat(WH)], 2)
+    return torch.bmm(left, right.transpose(1, 2))
+
+
+def draw_probes(generator, n, t, num_probes, dtype=torch.float32):
+    """Rademacher probe matrices Z ~ U{±1}, (num_probes, n, t), drawn from
+    ``generator`` on its device."""
+    bits = torch.randint(0, 2, (num_probes, n, t), generator=generator,
+                         device=generator.device)
+    return (2 * bits - 1).to(dtype)
+
+
+def slq_logdet(matvec, Z, num_steps: int = 20):
+    """Stochastic Lanczos quadrature estimate of logdet(Σ) from probes
+    Z (s, n, T): ``num_steps`` Lanczos iterations per probe with full
+    reorthogonalization against the stored basis (s, n, T) per step, then
+    the batched eigh of the (s, m, m) tridiagonals, on the device, and
+    logdet ≈ mean_i ‖z_i‖² · e₁ᵀ log(T_m) e₁."""
+    m = num_steps
+
+    def dot(a, b):
+        return (a * b).sum(dim=(-2, -1))                    # (s,)
+
+    beta0 = torch.sqrt(dot(Z, Z))
+    q = Z / beta0[:, None, None]
+    q_prev = torch.zeros_like(q)
+    beta = torch.zeros_like(beta0)
+    Qbuf = torch.empty((m,) + tuple(Z.shape), dtype=Z.dtype, device=Z.device)
+    alphas, betas = [], []
+    for j in range(m):
+        Qbuf[j] = q
+        w = matvec(q) - beta[:, None, None] * q_prev
+        alpha = dot(w, q)
+        w = w - alpha[:, None, None] * q
+        basis = Qbuf[:j + 1]                                # (j+1, s, n, T)
+        coeffs = torch.einsum("msnt,snt->ms", basis, w)
+        w = w - torch.einsum("ms,msnt->snt", coeffs, basis)
+        beta = torch.sqrt(torch.clamp(dot(w, w), min=1e-30))
+        q_prev, q = q, w / beta[:, None, None]
+        alphas.append(alpha)
+        betas.append(beta)
+    quad = _tridiag_quadrature(torch.stack(alphas, 1),
+                               torch.stack(betas, 1)[:, :-1])
+    return (beta0 ** 2 * quad).mean()
+
+
+class _LmcIterativeLogProb(torch.autograd.Function):
+    """The JAX package's ``lmc_iterative_log_prob``: CG for the quadratic
+    form (Jacobi-, or with ``precond_rank`` > 0 Nyström-preconditioned from
+    the stack), SLQ on the Rademacher probes for the logdet; the backward is
+    :func:`_lmc_hutchinson_bwd` on the saved solves."""
+
+    @staticmethod
+    def forward(ctx, Ks, H, St, Ydelta, probes, max_cg_iters, cg_tol,
+                slq_steps, matvec_bf16, precond_rank):
+        n, t = Ydelta.shape
+        Kmv = Ks.to(torch.bfloat16) if matvec_bf16 else Ks
+        matvec = lambda V: lmc_matvec(Kmv, H, St, V)        # noqa: E731
+        Md = torch.clamp(_jacobi_diag(Ks, H, St), min=1e-10)
+        minv = nystrom_precond(Ks, H, St, precond_rank) \
+            if precond_rank > 0 else None
+        X = batched_pcg(matvec, torch.cat([Ydelta[None], probes], 0), Md,
+                        max_iters=max_cg_iters, tol=cg_tol, minv=minv)
+        alpha, W = X[0], X[1:]
+        logdet = slq_logdet(matvec, probes, num_steps=slq_steps)
+        ctx.save_for_backward(Ks, H, alpha, W, probes)
+        return -0.5 * ((Ydelta * alpha).sum() + logdet
+                       + n * t * math.log(2 * math.pi))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _lmc_hutchinson_bwd(*ctx.saved_tensors, g) + (None,) * 6
+
+
+def lmc_iterative_log_prob(Ks, H, St, Ydelta, probes, max_cg_iters: int = 256,
+                           cg_tol: float = 1e-4, slq_steps: int = 20,
+                           matvec_bf16: bool = False, precond_rank: int = 0):
+    """log N(vec(Y); 0, Σ_b K_b ⊗ h_b h_bᵀ + I ⊗ Σt), matrix-free: Ks
+    (q, n, n), H (T, q), St (T, T), Ydelta (n, T), probes (s, n, T)
+    (:func:`draw_probes`). The value is CG for the quadratic form plus SLQ
+    for the logdet; the gradient is Hutchinson's on the saved CG solves
+    (gpytorch's inv_quad_logdet estimator family); the probes get none."""
+    return _LmcIterativeLogProb.apply(
+        Ks, H, St, Ydelta, probes.detach(), int(max_cg_iters), float(cg_tol),
+        int(slq_steps), bool(matvec_bf16), int(precond_rank))
+
+
+class _LmcPcgLogProb(torch.autograd.Function):
+    """The JAX package's ``lmc_pcg_log_prob`` on a materialized stack (the
+    composed kernel → log-prob route): :func:`_pcg_fwd_impl` forward,
+    :func:`_lmc_hutchinson_bwd` backward with the M-covariant probes
+    z̃ = M⁻¹z. The probes' normals and the roots get no gradient."""
+
+    @staticmethod
+    def forward(ctx, Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
+                matvec_bf16, precond_rank, matvec_int8):
+        ll, (alpha, W, Zt) = _pcg_fwd_impl(
+            Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
+            matvec_bf16, precond_rank, matvec_int8)
+        ctx.save_for_backward(Ks, H, alpha, W, Zt)
+        return ll
+
+    @staticmethod
+    def backward(ctx, g):
+        return _lmc_hutchinson_bwd(*ctx.saved_tensors, g) + (None,) * 8
+
+
+def lmc_pcg_log_prob(Ks, H, St, Ydelta, eps, xi, roots=None,
+                     max_cg_iters: int = 32, cg_tol: float = 1e-2,
+                     matvec_bf16: bool = False, precond_rank: int = 256,
+                     matvec_int8: bool = False):
+    """log N(vec(Y); 0, Σ_b K_b ⊗ h_b h_bᵀ + I ⊗ Σt) from ONE batched PCG
+    pass over the materialized stack Ks (q, n, n) (bf16 for a bf16 CG
+    loop; its cotangent is then bf16 too): probes z = eps·chol(Σt)ᵀ +
+    Σ_b (R_b ξ_b) h_bᵀ ~ N(0, M), M the Nyström preconditioner of the roots
+    (q, n, m) (from the stack when None), and logdet Σ = logdet M + Lanczos
+    quadrature of the CG coefficients. eps (s, n, T), xi (s, q, m).
+    ``matvec_int8`` (over ``matvec_bf16``) runs the CG loop on the stack
+    quantized to int8; the backward reads the unquantized stack."""
+    if roots is not None:
+        roots = roots.detach()
+    return _LmcPcgLogProb.apply(
+        Ks, H, St, Ydelta, eps.detach(), xi.detach(), roots,
+        int(max_cg_iters), float(cg_tol), bool(matvec_bf16),
+        int(precond_rank), bool(matvec_int8))
 
 
 # -- the matrix-free LMC posterior (models.multitask, "lmc_iter") -------------

@@ -1,5 +1,6 @@
-"""Training loop with plateau early stopping (port of ``training.fit``,
-``training.fit_two_phase`` and ``training.fit_svgp_minibatch`` from
+"""Training loop with plateau early stopping (port of ``training.fit`` with
+its chunks, checkpoints and evals, ``training.fit_two_phase``,
+``training.fit_svgp_minibatch`` and the learning-rate schedules from
 ``projected_lmc_tpu/training.py``).
 
 The reference's loop (experiments.py:256-284): AdamW, LambdaLR linear decay
@@ -48,14 +49,35 @@ def lambda_lr_schedule(lr_max: float = 1e-2, lr_min: float = 1e-3,
     return schedule
 
 
+def exponential_schedule(lr: float, lr_min: float, n_iter: int):
+    """ExponentialLR with γ = exp(log(lr_min/lr)/n_iter) (experiments.py:251):
+    the learning rate lr·γ^i at step i (γ^i in float32, as the JAX schedule
+    evaluates it)."""
+    gamma = float(np.exp(np.log(lr_min / lr) / n_iter))
+
+    def schedule(i):
+        return float(np.float32(lr) * np.float32(gamma) ** np.float32(i))
+    return schedule
+
+
+def default_scan_steps(device="cuda") -> int:
+    """Steps whose losses the host reads together: 16 on the card (one sync
+    a chunk instead of one a step), 1 on the CPU (every loss at once, as
+    the tests want)."""
+    return 1 if torch.device(device).type == "cpu" else 16
+
+
 def fit(model, loss_fn: Callable = None, n_iter: int = 10000, lr: float = 1e-2,
         schedule=None, loss_thresh: float = 2.5e-6, patience: int = 500,
         criterion: str = "max", weight_decay: float = 1e-2,
         print_loss: bool = False, freq_print: int = 1000,
-        block_every: int = 1, seed: int = 0, device="cuda"):
+        block_every: int = 1, scan_steps: int = None, seed: int = 0,
+        checkpoint_every: int = 0, checkpoint_path: str = None,
+        eval_every: int = 0, eval_fn: Callable = None, device="cuda"):
     """Train ``model`` in place by maximizing ``loss_fn(model)`` (an MLL; the
     loop minimizes −MLL like the reference). Returns (model, info) with
-    info = dict(n_iter, train_time, losses, loss).
+    info = dict(n_iter, train_time, losses, loss), and ``evals`` when any
+    were taken.
 
     AdamW with ``weight_decay`` (1e-2, torch.optim.AdamW's default as in the
     reference), masked off spectral-mixture ``raw_mixture*`` parameters as in
@@ -64,8 +86,23 @@ def fit(model, loss_fn: Callable = None, n_iter: int = 10000, lr: float = 1e-2,
     ``(model)`` or ``(model, generator)``; the second form receives one
     ``torch.Generator`` on ``device``, seeded with ``seed``, whose state
     advances from step to step (fresh probes each step). The model's
-    parameters must lie on ``device``. ``block_every``: the loss is read on
-    the host (a sync) every that many steps.
+    parameters must lie on ``device``.
+
+    ``scan_steps`` (default :func:`default_scan_steps`): steps run as one
+    chunk whose losses the host reads together at its end. The plateau
+    test sees every loss of the chunk, but a stop lands on the chunk's end
+    (up to ``scan_steps`` − 1 steps past the plateau), as in the JAX loop,
+    whose chunk is one XLA program; a chunk always runs whole, so n_iter
+    rounds up to a multiple of it. With ``scan_steps=1``, ``block_every``:
+    the loss is read (a sync) every that many steps.
+
+    ``checkpoint_every`` > 0 with a ``checkpoint_path`` saves the model
+    (``utils.checkpoint.save_model``, the JAX package's key-path-keyed
+    .npz) every that many steps, and once at the end. ``eval_every`` > 0
+    with an ``eval_fn(model, i)`` records ``(i, eval_fn(model, i))`` in
+    ``info["evals"]`` at the first chunk end at or past each multiple, and
+    at the end. The steps counted are the JAX loop's: steps taken at a
+    chunk's end, the step's index with ``scan_steps=1``.
     """
     params = trainable_parameters(model)
     dev = check_device(device, *[p for _, p in params])
@@ -88,11 +125,28 @@ def fit(model, loss_fn: Callable = None, n_iter: int = 10000, lr: float = 1e-2,
     opt = torch.optim.AdamW(groups, lr=1.0)
     sched = torch.optim.lr_scheduler.LambdaLR(opt, lr_lambda=schedule)
 
+    if scan_steps is None:
+        scan_steps = default_scan_steps(dev)
     losses = []
     plateau_id = 0
     last_loss = 1e-9
     deltas = np.zeros(patience)
     effective_n_iter = n_iter
+    evals = []
+    next_eval = eval_every if eval_every > 0 and eval_fn is not None \
+        else None
+
+    def maybe_checkpoint(i, final=False):
+        nonlocal next_eval
+        if next_eval is not None and (i >= next_eval or final) \
+                and not (evals and evals[-1][0] == i):
+            evals.append((i, eval_fn(model, i)))
+            while next_eval <= i:
+                next_eval += eval_every
+        if checkpoint_path and (final or (
+                checkpoint_every > 0 and i > 0 and i % checkpoint_every == 0)):
+            from .utils.checkpoint import save_model
+            save_model(model, checkpoint_path)
 
     def check_plateau(i, new_loss):
         nonlocal plateau_id, last_loss
@@ -113,24 +167,50 @@ def fit(model, loss_fn: Callable = None, n_iter: int = 10000, lr: float = 1e-2,
         last_loss = new_loss
         return False
 
-    start = time.time()
-    for i in range(n_iter):
+    def step():
         opt.zero_grad(set_to_none=True)
         loss = -(loss_fn(model, generator) if takes_gen else loss_fn(model))
         loss.backward()
         opt.step()
         sched.step()
-        if i % block_every == 0 or i == n_iter - 1:
-            new_loss = float(loss.detach())
-            losses.append(new_loss)
-            if print_loss and i % freq_print == 0:
-                print(f"iter {i}: loss {new_loss:.6f}")
-            if check_plateau(i, new_loss):
-                effective_n_iter = i
+        return loss.detach()
+
+    start = time.time()
+    if scan_steps > 1:
+        i = 0
+        while i < n_iter:
+            chunk = torch.stack([step() for _ in range(scan_steps)])
+            stop = False
+            for j, lv in enumerate(chunk.tolist()):     # one host read
+                losses.append(lv)
+                if print_loss and (i + j) % freq_print == 0:
+                    print(f"iter {i + j}: loss {lv:.6f}")
+                if check_plateau(i + j, lv):
+                    effective_n_iter = i + j
+                    stop = True
+                    break
+            i += scan_steps
+            maybe_checkpoint(i)
+            if stop:
                 break
+    else:
+        for i in range(n_iter):
+            loss = step()
+            maybe_checkpoint(i)
+            if i % block_every == 0 or i == n_iter - 1:
+                new_loss = float(loss)
+                losses.append(new_loss)
+                if print_loss and i % freq_print == 0:
+                    print(f"iter {i}: loss {new_loss:.6f}")
+                if check_plateau(i, new_loss):
+                    effective_n_iter = i
+                    break
     train_time = time.time() - start
+    maybe_checkpoint(effective_n_iter, final=True)
     info = dict(n_iter=effective_n_iter, train_time=train_time,
                 losses=np.asarray(losses), loss=last_loss)
+    if evals:
+        info["evals"] = evals
     return model, info
 
 
@@ -185,8 +265,9 @@ def fit_svgp_minibatch(model, batch_size: int = 256, n_iter: int = 10000,
                        lr: float = 1e-2, schedule=None,
                        weight_decay: float = 1e-2, loss_thresh: float = 2.5e-6,
                        patience: int = 500, criterion: str = "max",
-                       seed: int = 0, print_loss: bool = False,
-                       freq_print: int = 1000, device="cuda"):
+                       seed: int = 0, scan_steps: int = None,
+                       print_loss: bool = False, freq_print: int = 1000,
+                       device="cuda"):
     """Stochastic-variational (minibatch) training of an SVGP model: each
     step draws ``batch_size`` indices uniformly with replacement (a
     ``torch.Generator`` on ``device`` seeded with ``seed``) and maximizes
@@ -206,4 +287,5 @@ def fit_svgp_minibatch(model, batch_size: int = 256, n_iter: int = 10000,
     return fit(model, loss_fn, n_iter=n_iter, lr=lr, schedule=schedule,
                weight_decay=weight_decay, loss_thresh=loss_thresh,
                patience=patience, criterion=criterion, seed=seed,
-               print_loss=print_loss, freq_print=freq_print, device=device)
+               scan_steps=scan_steps, print_loss=print_loss,
+               freq_print=freq_print, device=device)

@@ -1,13 +1,19 @@
-"""Carry a JAX model's state into the port.
+"""Model checkpoints, interchangeable with the JAX package's (port of
+``projected_lmc_tpu/utils/checkpoint.py``).
 
-``projected_lmc_tpu/utils/checkpoint.save_model`` writes every leaf of a
-model under its pytree key path (e.g. ``.covar_module.raw_lengthscale``).
-The port keeps the same raw leaves under the same names, so those arrays —
-a loaded ``.npz`` or a dict of numpy arrays — load straight into a port
-model built with the same constructor arguments.
+``save_model`` writes every leaf of a model to one ``.npz`` under its JAX
+pytree key path (e.g. ``.covar_module.raw_lengthscale``,
+``.covar_module.kernels[0].raw_outputscale``), as the JAX ``save_model``
+does. The port keeps the same raw leaves under the same names, so such
+arrays — a JAX checkpoint, a port checkpoint or a dict of numpy arrays —
+load into a port model built with the same constructor arguments
+(``load_jax_state``, ``load_model``), and a port checkpoint loads into the
+JAX package's ``load_model``.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -37,3 +43,20 @@ def load_jax_state(model, arrays):
                                  f"{arr.shape} vs model {tuple(t.shape)}")
             t.copy_(torch.tensor(arr, dtype=t.dtype))
     return model
+
+
+def save_model(model, path: str):
+    """Save every parameter and buffer of ``model`` to ``path`` (.npz), keyed
+    by its JAX key path."""
+    arrays = {k: t.detach().cpu().numpy() for k, t in keyed_state(model).items()}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **arrays)
+
+
+def load_model(template, path: str):
+    """Load a checkpoint written by :func:`save_model` (or the JAX
+    package's) into ``template``, a model built with the same constructor
+    arguments, in place; loud on a missing or extra name or a shape
+    mismatch. Returns ``template``."""
+    with np.load(path if path.endswith(".npz") else path + ".npz") as data:
+        return load_jax_state(template, data)

@@ -187,19 +187,27 @@ def test_canon_targets_orientation():
 
 
 def test_unported_routes_raise():
-    """The SGPR route (``n_inducing_points``, ported with slice 5) builds
-    and its MLL matches JAX's; a linear mean and the composed route (a
-    kernel over a proper subset of the features) still raise."""
-    X, Y = data()
+    """The routes that raised until their slice was ported now run and
+    match JAX: the SGPR route (``n_inducing_points``, slice 5), a linear
+    mean (its dense MLL and gradients) and the composed route (a kernel
+    over a proper subset of the features, the iterative MLL and its
+    gradients on JAX's probes)."""
     jm, tm = models(n_inducing_points=8)
     assert tm.sgpr and tuple(tm.inducing_points.shape) == (8, D)
     np.testing.assert_allclose(float(tm.mll().detach()),
                                float(jax.jit(lambda m: m.mll())(jm)),
                                rtol=1e-10)
-    lik = GaussianLikelihood(batch_shape=T, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ExactGPModel(X, Y, lik, n_tasks=T, mean_type="linear", device="cpu")
+    jm, tm = models(mean_type="linear")
+    vj, gj = jax.value_and_grad(lambda m: m.mll())(jm)
+    vt = tm.mll()
+    vt.backward()
+    np.testing.assert_allclose(float(vt.detach()), float(vj), rtol=1e-10)
+    assert_grads_match(tm, gj)
     # a kernel over a proper subset of the features: the composed route
-    tm = ExactGPModel(X, Y, lik, n_tasks=T, decomp=[[0]], device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.mll(iterative=True)
+    jm, tm = models(decomp=[[0]])
+    eps, xi = jax_probes()
+    vj, gj = jax.jit(jax.value_and_grad(lambda m: m.mll(**MLL_KW)))(jm)
+    vt = tm.mll(eps=eps, xi=xi, **MLL_KW)
+    vt.backward()
+    np.testing.assert_allclose(float(vt.detach()), float(vj), rtol=1e-9)
+    assert_grads_match(tm, gj)

@@ -302,8 +302,8 @@ class TestPCG:
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port (the projected model, the MLLs, the
-    synthetic data, the prediction modules and the variational model among
-    them), imported in a fresh interpreter, leaves no
+    synthetic data, the prediction modules, the variational model and the
+    blocked Cholesky among them), imported in a fresh interpreter, leaves no
     ``jax`` or ``projected_lmc_tpu`` module behind."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -312,7 +312,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "need = {'models.projected', 'mlls', 'experiments.synthetic',\n"
         "        'ops.woodbury', 'distributions', 'metrics',\n"
-        "        'models.variational'}\n"
+        "        'models.variational', 'ops.blocked_cholesky',\n"
+        "        'utils.checkpoint'}\n"
         "assert all(p.__name__ + '.' + m in sys.modules for m in need)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'projected_lmc_tpu'\n"

@@ -203,11 +203,25 @@ def test_log_prob_chol_mixed_dtypes_return_each_primal_dtype():
         close(a.grad, g, rtol=1e-6)
 
 
-def test_chol_bf16_raises_naming_slice_6():
+def test_chol_bf16_matches_jax():
+    """``chol_bf16`` with blocks of 8 (two blocks at n = 16): the blocked
+    factor's bf16 updates round alike on both sides, so the value is JAX's
+    to 1e-8 (and within 1e-4 of the exact route's); the backward is the
+    exact analytic one, so every gradient is JAX's to 1e-8 of its largest
+    entry."""
     p = problem(seed=6)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tkron.icm_log_prob_chol(*[t64(p[k]) for k in ("K", "B", "St", "Y")],
-                                chol_bf16=True)
+    args = [p[k] for k in ("K", "B", "St", "Y")]
+    vj, gj = jax.jit(jax.value_and_grad(
+        lambda *a: jkron.icm_log_prob_chol(*a, 1e-8, True, 8),
+        argnums=(0, 1, 2, 3)))(*map(jnp.asarray, args))
+    ts = [t64(a).requires_grad_(True) for a in args]
+    vt = tkron.icm_log_prob_chol(*ts, chol_bf16=True, chol_block=8)
+    vt.backward()
+    close(vt, vj, rtol=1e-8)
+    exact = tkron.icm_log_prob_chol(*map(t64, args))
+    close(vt, exact, rtol=1e-4)
+    for a, g, name in zip(ts, gj, ("K", "B", "St", "Y")):
+        close(a.grad, g, rtol=1e-8, what=name)
 
 
 @pytest.mark.parametrize("chunk", [1024, 5])

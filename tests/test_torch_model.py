@@ -161,8 +161,10 @@ def test_model_without_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_routes_raise():
-    """The ICM's SGPR route (ported with slice 5) builds and its MLL matches
-    JAX's; the unpreconditioned SLQ route still raises."""
+    """The routes that raised until their slice was ported now run and
+    match JAX: the ICM's SGPR route (slice 5), and the unpreconditioned
+    CG + SLQ route (``precond_rank=0``), value and gradients on JAX's
+    Rademacher probes with CG run to 1e-12."""
     X, Y = data()
     kw = dict(n_tasks=T, model_type="ICM", n_inducing_points=8)
     jm = JaxModel(X, Y, **kw)
@@ -171,6 +173,19 @@ def test_unported_routes_raise():
     np.testing.assert_allclose(float(icm.mll().detach()),
                                float(jax.jit(lambda m: m.mll())(jm)),
                                rtol=1e-10)
-    tm = MultitaskGPModel(X, Y, device="cpu", **MODEL_KW)
-    with pytest.raises(NotImplementedError):
-        tm.mll(iterative=True, precond_rank=0)
+    jm, tm = carried_models()
+    kw = dict(iterative=True, precond_rank=0, max_cg_iters=200, cg_tol=1e-12,
+              num_probes=S)
+    from projected_lmc_tpu.ops.iterative import draw_probes
+    probes = torch.tensor(np.asarray(draw_probes(jax.random.PRNGKey(0), N, T,
+                                                 S, jnp.float64)))
+    vj, gj = jax.jit(jax.value_and_grad(lambda m: m.mll(**kw)))(jm)
+    vt = tm.mll(probes=probes, **kw)
+    vt.backward()
+    np.testing.assert_allclose(float(vt.detach()), float(vj), rtol=1e-9)
+    jg = dict(_keyed_leaves(gj))
+    for name, p in tm.named_parameters():
+        if p.requires_grad:
+            np.testing.assert_allclose(p.grad.numpy(),
+                                       np.asarray(jg["." + name]), rtol=1e-7,
+                                       atol=1e-9, err_msg=name)

@@ -26,6 +26,7 @@ from projected_lmc_tpu.models.exact import ExactGPModel as JaxExact
 from projected_lmc_tpu.models.multitask import MultitaskGPModel as JaxLMC
 from projected_lmc_tpu.models.projected import ProjectedGPModel as JaxProj
 from projected_lmc_tpu.module import trainable_mask
+from projected_lmc_tpu.ops.iterative import draw_probes as jit_draw_probes
 from projected_lmc_tpu.training import fit as jax_fit
 from projected_lmc_tpu.utils.checkpoint import _keyed_leaves
 from projected_lmc_tpu_torch import (ExactGPModel, GaussianLikelihood,
@@ -432,16 +433,23 @@ def _jax_mll(m):
     return jax_proj_mll(m) if isinstance(m, JaxProj) else m.mll()
 
 
-# slice 5 (SGPR) is ported: each route builds, and its MLL and posterior
-# variance match JAX's; slice 6's unpreconditioned SLQ route still raises
+def _slq_lmc(X, Y, jax_side):
+    cls, kw = (JaxLMC, {}) if jax_side else (MultitaskGPModel,
+                                             dict(device="cpu"))
+    return cls(X, Y, **LMC_KW, **kw)
+
+
+# slices 5 (SGPR) and 6 (the unpreconditioned SLQ route) are ported: each
+# route builds, and its MLL and posterior variance match JAX's
 UNPORTED = {
     "sgpr-exact": ("slice 5", _sgpr_exact),
     "sgpr-lmc": ("slice 5", _sgpr_multitask(**LMC_KW)),
     "sgpr-projected": ("slice 5", _sgpr_projected),
     "icm": ("slice 5", _sgpr_multitask(n_tasks=T, model_type="ICM")),
-    "slq": ("slice 6", lambda X, Y: MultitaskGPModel(
-        X, Y, device="cpu", **LMC_KW).mll(iterative=True, precond_rank=0)),
+    "slq": ("slice 6", _slq_lmc),
 }
+SLQ_KW = dict(iterative=True, precond_rank=0, max_cg_iters=200, cg_tol=1e-12,
+              num_probes=4)
 
 
 def _variance(m, x):
@@ -454,9 +462,14 @@ def _variance(m, x):
 def test_unported_routes_name_their_slice(route):
     X, Y, Xs = data()
     slice_, make = UNPORTED[route]
-    if slice_ != "slice 5":
-        with pytest.raises(NotImplementedError, match=slice_):
-            make(X, Y)
+    if slice_ == "slice 6":
+        jm, tm = _sgpr_models(make, X, Y)
+        probes = t64(jit_draw_probes(jax.random.PRNGKey(0), N, T, 4,
+                                     jnp.float64))
+        want = jax.jit(lambda m: (m.mll(**SLQ_KW), _variance(m, Xs)))(jm)
+        with torch.no_grad():
+            close(tm.mll(probes=probes, **SLQ_KW), want[0], rtol=1e-9)
+            close(_variance(tm, t64(Xs)), want[1])
         return
     jm, tm = _sgpr_models(make, X, Y)
     assert tm.sgpr
