@@ -149,6 +149,28 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
      tidal ICM and PLMC, the exact models, ``chol_bf16``; posteriors and the
      complex-mean LOO), held to the CPU's fp64 result where the CPU's own
      fp32 result is as far from it.
+  K. path K: the experiments around the models (K3 only). K1: the paper's
+     study at full width, the port's ``experiments.driver.run_study`` at
+     ``DEFAULT_PARAMS`` (n = 500, p = 100, q = 25, 2,500 test points) with
+     the five models (ICM, var, PLMC, oilmm, PLMC_fast), 2 runs of at most
+     128 steps a model, non-converged-run rejection, into a temporary
+     directory: the landmark and final CSVs (5 model and 5 ``_conv`` rows,
+     every metric finite), each model's train_time, t_per_iter, R², RMSE,
+     PVA and α_CI; each trained model of the last run through
+     ``predict_and_metrics`` on the card against the CPU on the same leaves
+     and 500 test points (path G's limits; the ICM and the var model held
+     to the CPU's fp64 result as H1 and path I are); K3 at the study's
+     shapes against its plain version and bitwise K6. K2: ``training.fit_ensemble`` on 8 seeds of the
+     paper's default PLMC (``build_models(seed=s)``), 128 steps in 16-step
+     chunks, beside each seed's sequential ``fit`` on the card (32 steps;
+     the losses within 1e-6, bitwise equality reported), with the launches
+     a batch step. K3: ``realdata.load_tidal`` on a seeded bramblemet-format
+     fixture (four ``.csv.gz`` stations, one clock 2 minutes late) →
+     ``build_models`` (spectral mixture, 5 mixtures, likelihood rank 0) →
+     ``train_and_eval(var_fit="warm_start")``, R², RMSE, PVA per model;
+     ``load_ship`` and ``load_sarcos`` on small seeded files. K4: per-batch
+     3-D kernel inputs on the card against the CPU (1e-6), ``profile_trace``
+     writing a trace of a K3 launch, ``ensure_cuda()``.
 
 Every training run sets the launch counts to 0 just before it and reads
 them just after. The last lines are one JSON object with every kernel's
@@ -160,6 +182,7 @@ JAX.
 from __future__ import annotations
 
 import contextlib
+import csv
 import json
 import math
 import os
@@ -2239,25 +2262,19 @@ def icm_model(pl, X, Y, device, fix_diagonal=True):
                                device=device)
 
 
-def driver_icm(pl, X, Y, device):
-    """ICM as the experiment driver builds it (driver.py:78-84)."""
-    import torch
-    p = Y.shape[1]
-    lik = pl.MultitaskGaussianLikelihood(
-        num_tasks=p, rank=F1_Q, device=device,
-        dtype=torch.float64 if X.dtype == np.float64 else torch.float32)
-    return pl.MultitaskGPModel(X, Y, lik, n_tasks=p, n_latents=F1_Q,
-                               model_type="ICM", init_lmc_coeffs=True,
-                               mean_type="zero", kernel_type="matern",
-                               device=device)
+def driver_model(name, X, Y, device, q=F1_Q, **kwargs):
+    """The model ``name`` as the port's experiment driver builds it
+    (``experiments.driver.build_models`` with q latents and a rank-q task
+    noise: H1's ICM and I1's var model at q = 25)."""
+    from projected_lmc_tpu_torch.experiments.driver import build_models
+    return build_models(X, Y, q, q, [name], device=device, **kwargs)[name]
 
 
-def icm_noise_matrix(lik):
-    """The driver's estimated task-noise matrix of a rank > 0 likelihood
-    (driver.py:194-203): the factor with the global noise on its diagonal."""
-    H = lik.task_noise_covar_factor.detach().clone()
-    H.diagonal().add_(lik.noise[0].detach())
-    return H
+def noise_matrix(lik):
+    """The driver's estimated task-noise matrix
+    (``experiments.driver._noise_matrix``)."""
+    from projected_lmc_tpu_torch.experiments.driver import _noise_matrix
+    return _noise_matrix(lik)
 
 
 @contextlib.contextmanager
@@ -2364,7 +2381,7 @@ def icm_metrics(pl, torch, model, x_test, Yt, info, pred_s):
         mean = model.posterior(x_test, cache=cache, observed=True).mean
         var = model.compute_var(x_test)
     return pl.compute_metrics(Yt, mean, torch.sqrt(var), info["loss"],
-                              icm_noise_matrix(model.likelihood),
+                              noise_matrix(model.likelihood),
                               info["n_iter"], info["train_time"], pred_s,
                               print_metrics=False), mean, var
 
@@ -2378,7 +2395,7 @@ def path_h1(torch, pl, ck, dev, totals):
     data = generate_synthetic()
     X, Y, Xt, Yt = data["X"], data["Y"], data["X_test"], data["Y_test"]
     x_test = torch.as_tensor(Xt, device=dev)
-    model = driver_icm(pl, X, Y, dev)
+    model = driver_model("ICM", X, Y, dev)
     zero_counts(ck)
     with icm_probes(torch) as probes:
         info, step_ms = timed_fit(
@@ -2423,7 +2440,7 @@ def path_h1(torch, pl, ck, dev, totals):
         raise SystemExit("chip_smoke: H1's cache is not the dense 'icm' one")
     pred_s = (post_ms + var_ms) / 1e3
     got = pl.compute_metrics(Yt, post.mean, torch.sqrt(var), info["loss"],
-                             icm_noise_matrix(model.likelihood),
+                             noise_matrix(model.likelihood),
                              info["n_iter"], info["train_time"], pred_s,
                              print_metrics=False)
     print(f"  H1 served: icm cache {cache_ms:.3f} ms, posterior "
@@ -2443,9 +2460,9 @@ def path_h1(torch, pl, ck, dev, totals):
     # farther from them than the CPU's own fp32 metrics are, and within 1e-3
     # wherever those are.
     cpu = carried(pl, model, torch.device("cpu"),
-                  lambda w: driver_icm(pl, X, Y, w))
-    cpu64 = carried(pl, model, torch.device("cpu"), lambda w: driver_icm(
-        pl, X.astype(np.float64), Y.astype(np.float64), w))
+                  lambda w: driver_model("ICM", X, Y, w))
+    cpu64 = carried(pl, model, torch.device("cpu"), lambda w: driver_model(
+        "ICM", X.astype(np.float64), Y.astype(np.float64), w))
     xt = torch.as_tensor(Xt)
     want, cm, cv = icm_metrics(pl, torch, cpu, xt, Yt, info, pred_s)
     want64, m64, v64 = icm_metrics(pl, torch, cpu64, xt.double(), Yt, info,
@@ -2781,21 +2798,6 @@ def sgpr_probes(torch):
             setattr(owner, name, old)
 
 
-def driver_var(pl, X, Y, device):
-    """The variational model as the experiment driver builds it
-    (driver.py:85-92): likelihood rank 25, n_latents 25, zero mean, Matérn,
-    the SVD init, train_ind_ratio 1.5 (m = 333 at n = 500)."""
-    import torch
-    p = Y.shape[1]
-    dt = torch.float64 if X.dtype == np.float64 else torch.float32
-    lik = pl.MultitaskGaussianLikelihood(num_tasks=p, rank=F1_Q, dtype=dt,
-                                         device=device)
-    return pl.VariationalMultitaskGPModel(
-        X, n_latents=F1_Q, n_tasks=p, train_y=Y, init_lmc_coeffs=True,
-        mean_type="zero", kernel_type="matern", train_ind_ratio=1.5, seed=0,
-        likelihood=lik, device=device)
-
-
 def loss_step(model, loss):
     def step():
         model.zero_grad(set_to_none=True)
@@ -2854,7 +2856,7 @@ def var_metrics(pl, torch, model, x_test, Yt, info, pred_s):
     with torch.no_grad():
         pred = model(x_test, observed=True)
     return pl.compute_metrics(Yt, pred.mean, pred.stddev, info["loss"],
-                              icm_noise_matrix(model.likelihood),
+                              noise_matrix(model.likelihood),
                               info["n_iter"], info["train_time"], pred_s,
                               print_metrics=False)
 
@@ -2876,7 +2878,7 @@ def path_i1(torch, pl, ck, dev, totals):
     data = generate_synthetic()
     X, Y, Xt, Yt = data["X"], data["Y"], data["X_test"], data["Y_test"]
     x_test = torch.as_tensor(Xt, device=dev)
-    model = driver_var(pl, X, Y, dev)
+    model = driver_model("var", X, Y, dev)
     z = model.inducing_points.detach()
     print(f"  I1 driver var: n={X.shape[0]}, p={Y.shape[1]}, q={F1_Q}, "
           f"m={z.shape[0]}, likelihood rank {F1_Q}")
@@ -2895,7 +2897,7 @@ def path_i1(torch, pl, ck, dev, totals):
           f"ms (the first {first_ms:.3f}); R2 {got['R2']:.4f} (README, JAX "
           f"var fully converged: {README_VAR_R2}), RMSE {got['RMSE']:.4f}, "
           f"PVA {got['PVA']:.4f}, alpha_CI {got['alpha_CI']:.4f}")
-    em = driver_var(pl, X, Y, dev)
+    em = driver_model("var", X, Y, dev)
     with torch.no_grad():
         _, em_ms = served(torch, ck, "I1 sgpr_em", 15, em.sgpr_em, totals)
         em_loss, _ = served(torch, ck, "I1 ELBO", 2,
@@ -3525,25 +3527,14 @@ def tidal_series(seed=0):
 
 
 def tidal_models(pl, X, Y, device):
-    """The experiment driver's tidal ICM (likelihood rank 4) and PLMC
-    (``MODEL_CONFIGS["PLMC"]``): q = 4, zero mean, a 5-mixture spectral
-    mixture kernel initialized by ``initialize_from_data_empspect``
-    (driver.py:52-68)."""
-    import torch
+    """The port's experiment driver's tidal ICM (likelihood rank 4) and
+    PLMC (``build_models``: q = 4, zero mean, a 5-mixture spectral mixture
+    kernel initialized by ``initialize_from_data_empspect``)."""
+    from projected_lmc_tpu_torch.experiments.driver import build_models
     p = Y.shape[1]
-    dt = torch.float64 if X.dtype == np.float64 else torch.float32
-    sm = dict(kernel_type="spectral_mixture", ker_kwargs={"num_mixtures": 5},
-              mean_type="zero", seed=0, device=device)
-    lik = pl.MultitaskGaussianLikelihood(num_tasks=p, rank=p, dtype=dt,
-                                         device=device)
-    models = {"ICM": pl.MultitaskGPModel(X, Y, lik, n_tasks=p, n_latents=p,
-                                         model_type="ICM",
-                                         init_lmc_coeffs=True, **sm),
-              "PLMC": pl.ProjectedGPModel(X, Y, p, p, init_lmc_coeffs=True,
-                                          **sm, **PROJ_CONFIGS["PLMC"])}
-    for m in models.values():
-        m.covar_module.initialize_from_data_empspect(X, Y, seed=0)
-    return models
+    return build_models(X, Y, p, p, ["ICM", "PLMC"],
+                        kernel_type="spectral_mixture",
+                        ker_kwargs={"num_mixtures": 5}, device=device)
 
 
 def tidal_predict(torch, name, model, x):
@@ -3579,7 +3570,7 @@ def path_j3(torch, pl, ck, dev, totals):
                              f"{read_counts(ck)} or lost finiteness")
         (mean, var), pred_ms = timed(
             torch, lambda: tidal_predict(torch, name, model, x_test))
-        noise = icm_noise_matrix(model.likelihood) if name == "ICM" else \
+        noise = noise_matrix(model.likelihood) if name == "ICM" else \
             model.full_likelihood().task_noise_covar_factor.detach()
         got = pl.compute_metrics(Yt, mean, torch.sqrt(var), info["loss"],
                                  noise, info["n_iter"], info["train_time"],
@@ -4053,6 +4044,470 @@ def path_j_phase(torch, pl, ck, dev, totals, median_4=float("nan")):
     print(f"  path J took {time.perf_counter() - t0:.1f} s")
 
 
+# -- path K: the experiments around the models ---------------------------------
+
+K_MODELS = ["ICM", "var", "PLMC", "oilmm", "PLMC_fast"]   # the driver's five
+K_STEPS = 128                    # K1's and K3's cap on a model's fit steps
+K1_RUNS = 2
+K2_B, K2_STEPS, K2_SEQ, K2_TEST = 8, 128, 32, 100
+K4_B, K4_N, K4_M, K4_D = 4, 1000, 800, 3
+K_METRICS = ("n_iter", "train_time", "pred_time", "loss", "noise", "R2",
+             "RMSE", "mean_err_abs", "max_err_abs", "mean_err_quant05",
+             "mean_err_quant95", "mean_err_quant99", "mean_sigma", "PVA",
+             "alpha_CI")
+
+
+@contextlib.contextmanager
+def driver_captured(drv):
+    """From outside the package: the arguments of the driver's last
+    ``build_models`` call, and the results and trained models of its last
+    ``train_and_eval``."""
+    seen = {}
+    build, train = drv.build_models, drv.train_and_eval
+
+    def build_spy(X, Y, *args, **kwargs):
+        seen["build"] = (X, Y, args, kwargs)
+        return build(X, Y, *args, **kwargs)
+
+    def train_spy(models, X_test, Y_test, **kwargs):
+        res, trained = train(models, X_test, Y_test, **kwargs)
+        seen.update(results=res, trained=trained, test=(X_test, Y_test))
+        return res, trained
+    drv.build_models, drv.train_and_eval = build_spy, train_spy
+    try:
+        yield seen
+    finally:
+        drv.build_models, drv.train_and_eval = build, train
+
+
+def driver_predictions(torch, drv, name, model, info, Xt, Yt):
+    """``predict_and_metrics``' metrics and the mean and variance it
+    computed (read from outside, at its ``compute_metrics`` call)."""
+    got = {}
+    real = drv.compute_metrics
+
+    def spy(y, mean, sigma, *args, **kwargs):
+        got.update(mean=torch.as_tensor(mean),
+                   var=torch.as_tensor(sigma).double() ** 2)
+        return real(y, mean, sigma, *args, **kwargs)
+    drv.compute_metrics = spy
+    try:
+        metrics = drv.predict_and_metrics(name, model, info, Xt, Yt,
+                                          print_metrics=False)
+    finally:
+        drv.compute_metrics = real
+    return metrics, got["mean"], got["var"]
+
+
+def driver_prior_var_max(torch, pl, model, x) -> float:
+    """The largest prior variance with noise at x, the variational model's
+    from its mixing weights."""
+    if not isinstance(model, pl.VariationalMultitaskGPModel):
+        return prior_var_max(torch, model, x)
+    with torch.no_grad():
+        return task_prior_var_max(
+            model.covar_module(x, diag=True), model.lmc_coeffs ** 2,
+            torch.diagonal(model.likelihood.task_covariance()))
+
+
+def read_study(path):
+    """{row label: {column: field}} of a study CSV (the csv module: the
+    card's host has no pandas)."""
+    with open(path, newline="") as f:
+        return {r[""]: r for r in csv.DictReader(f)}
+
+
+def path_k1(torch, pl, ck, dev, totals):
+    """K1: the paper's study at full width (``DEFAULT_PARAMS``), the port's
+    ``run_study`` on the card: five models, 2 runs, non-converged-run
+    rejection, at most ``K_STEPS`` steps a model; its landmark and final
+    CSVs; then each trained model of the last run through
+    ``predict_and_metrics`` on the card against the CPU on the same leaves,
+    on 500 of the test points (path G's limits; the ICM held to the CPU's fp64 result as H1 is, the
+    variational model, whose trained fp32 posterior is as far from its
+    fp64 one on the CPU, as :func:`held_to_fp64` holds path I's), and K3
+    at the study's shapes."""
+    import tempfile
+    from projected_lmc_tpu_torch.experiments import driver as drv
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "parameter_study_void_void.csv")
+        zero_counts(ck)
+        t0 = time.perf_counter()
+        with driver_captured(drv) as seen:
+            drv.run_study(n_random_runs=K1_RUNS, models_to_run=K_MODELS,
+                          path=path, n_iter=K_STEPS,
+                          reject_nonconverged_runs=True, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # a step: K3 once for the ICM and each projected model, twice for
+        # the variational one; serving: 2 a projected model, 4 the ICM
+        # (its cache, posterior, compute_var's cache and posterior), 2 var
+        k3 = K1_RUNS * (6 * K_STEPS + 12)
+        if read_counts(ck) != expect(K3=k3):
+            raise SystemExit(f"chip_smoke: K1's study launched "
+                             f"{read_counts(ck)}, not K3 {k3} times")
+        totals["K3"] += k3
+        files = [path[:-4] + f"_{k}runs.csv" for k in (1, K1_RUNS)] + [path]
+        labels = [f"{m}_void_void_0_0" for m in K_MODELS]
+        for f in files:
+            rows = read_study(f)
+            bad = [(label, k) for label, r in rows.items()
+                   for k in K_METRICS + ("n_sucess_runs",)
+                   if not math.isfinite(float(r[k]))]
+            if list(rows) != labels + [lab + "_conv" for lab in labels] \
+                    or bad:
+                raise SystemExit(f"chip_smoke: K1's {os.path.basename(f)} "
+                                 f"has rows {list(rows)}, non-finite {bad}")
+        final = read_study(path)
+    print(f"  K1 run_study (n={drv.DEFAULT_PARAMS['n']}, p="
+          f"{drv.DEFAULT_PARAMS['p']}, q={drv.DEFAULT_PARAMS['q']}, "
+          f"{K1_RUNS} runs, {K_STEPS} steps a model): {wall:.1f} s, K3 {k3} "
+          f"launches; {', '.join(os.path.basename(f) for f in files)} each "
+          f"with 5 model and 5 _conv rows, every metric finite")
+    for name, label in zip(K_MODELS, labels):
+        r, c = final[label], final[label + "_conv"]
+        t = float(r["train_time"])
+        print(f"  K1 {name} (mean of {K1_RUNS} runs): train_time {t:.2f} s, "
+              f"t_per_iter {t / float(r['n_iter']) * 1e3:.3f} ms; R2 "
+              f"{float(r['R2']):.4f}, RMSE {float(r['RMSE']):.4f}, PVA "
+              f"{float(r['PVA']):.4f}, alpha_CI {float(r['alpha_CI']):.4f}; "
+              f"converged runs {float(c['n_sucess_runs']):g}")
+
+    X, Y, args, kwargs = seen["build"]
+    Xt, Yt = (a[:G_CHECK_TEST] for a in seen["test"])
+    cpu = torch.device("cpu")
+
+    def rel(a, b):
+        return abs(a - b) / max(1.0, abs(b))
+    for name in K_MODELS:
+        model, r = seen["trained"][name], seen["results"][name]
+        info = dict(n_iter=r["n_iter"], train_time=r["train_time"],
+                    loss=r["loss"])
+
+        def make(w, dt=np.float32, name=name):
+            return drv.build_models(X.astype(dt), Y.astype(dt), *args[:2],
+                                    [name], seed=kwargs["seed"],
+                                    device=w)[name]
+        got, gm, gv = driver_predictions(torch, drv, name, model, info, Xt,
+                                         Yt)
+        host = carried(pl, model, cpu, make)
+        want, cm, cv = driver_predictions(torch, drv, name, host, info, Xt,
+                                          Yt)
+        keys = [k for k in K_METRICS if k != "pred_time"]
+        label = f"K1 {name}"
+        if name not in ("ICM", "var"):
+            scale = driver_prior_var_max(torch, pl, host, torch.as_tensor(Xt))
+            held(f"{label} mean", gm, cm, scale_of(cm), 1e-4)
+            held(f"{label} variance", gv, cv, scale, 1e-3)
+            err = max(rel(got[k], want[k]) for k in keys)
+            print(f"  {label}: the metrics, card against CPU, max|Δ|/max(1, "
+                  f"|cpu|) {err:.2e} (tolerance 1e-3)")
+            if not (math.isfinite(err) and err <= 1e-3):
+                raise SystemExit(f"chip_smoke: {label}'s metrics disagree "
+                                 f"between the card and the CPU")
+            continue
+        host64 = carried(pl, model, cpu, lambda w: make(w, np.float64))
+        want64, m64, v64 = driver_predictions(torch, drv, name, host64,
+                                              info, Xt, Yt)
+        scale = driver_prior_var_max(torch, pl, host64,
+                                     torch.as_tensor(Xt, dtype=torch.float64))
+        held_to_fp64(f"{label} mean", gm, cm, m64, scale_of(m64), 1e-4)
+        held_to_fp64(f"{label} variance", gv, cv, v64, scale, 1e-3)
+        print(f"  {label} metrics, max|Δ|/max(1, |·|) of card against CPU "
+              f"fp32 / card against CPU fp64 / CPU fp32 against fp64: "
+              + ", ".join(f"{k} {rel(got[k], want[k]):.1e} / "
+                          f"{rel(got[k], want64[k]):.1e} / "
+                          f"{rel(want[k], want64[k]):.1e}" for k in keys))
+        if name == "ICM":      # H1's rule
+            bad = [k for k in keys if not rel(got[k], want64[k])
+                   <= max(1e-3, rel(want[k], want64[k]))]
+        else:                  # held_to_fp64's rule, as the mean above
+            bad = [k for k in keys if not (
+                rel(got[k], want[k]) <= 1e-3
+                or rel(got[k], want64[k]) <= 2 * rel(want[k], want64[k]))]
+        if bad:
+            raise SystemExit(f"chip_smoke: {label}'s metrics {bad} disagree "
+                             f"with the CPU's beyond the fp32 rounding of "
+                             f"its own result")
+    icm, plmc, var = (seen["trained"][k] for k in ("ICM", "PLMC", "var"))
+    x_test = torch.as_tensor(seen["test"][0], device=dev)  # all 2,500
+    z = var.inducing_points.detach()
+    for model, pairs in ((icm, ((icm.train_x, icm.train_x),
+                                (x_test, icm.train_x))),
+                         (plmc, ((plmc.train_x, plmc.train_x),)),
+                         (var, ((z, z), (var.train_x, z)))):
+        k3_shapes(torch, ck, dev, pairs,
+                  model.covar_module.lengthscale.detach())
+
+
+def path_k2(torch, pl, ck, dev, totals):
+    """K2: the seeded study, ``fit_ensemble`` on B = 8 seeds of the paper's
+    default PLMC (``build_models(seed=s)`` on ``generate_synthetic(seed=s)``,
+    its test split cut to 100 points, unused here), 128 steps in 16-step
+    chunks, beside each seed's own sequential ``fit`` (32 steps, the same
+    chunks) on the card, whose losses the batch's must equal to 1e-6."""
+    from projected_lmc_tpu_torch.experiments import driver as drv
+    from projected_lmc_tpu_torch.experiments import generate_synthetic
+    v = drv.DEFAULT_PARAMS
+    datas = [generate_synthetic(
+        n=v["n"], p=v["p"], q=v["q"], q_noise=v["q_noise"],
+        mu_noise=v["mu_noise"], mu_str=v["mu_str"],
+        max_scale=v["max_scale"], n_test=K2_TEST, seed=s)
+        for s in range(K2_B)]
+
+    def seeded(s):
+        return drv.build_models(datas[s]["X"], datas[s]["Y"], v["q"], v["p"],
+                                ["PLMC"], seed=s, device=dev)["PLMC"]
+    kw = dict(lr=1e-2, schedule=pl.lambda_lr_schedule(1e-2, 1e-3),
+              scan_steps=STEPS_PER_CHUNK, device=dev)
+    models = [seeded(s) for s in range(K2_B)]
+    zero_counts(ck)
+    _, info = pl.fit_ensemble(models, pl.projected_lmc_mll, n_iter=K2_STEPS,
+                              **kw)
+    k3 = K2_STEPS * K2_B                       # K3 once a model a step
+    if read_counts(ck) != expect(K3=k3) or info["losses"].shape != (
+            K2_STEPS, K2_B) or not np.all(np.isfinite(info["losses"])):
+        raise SystemExit(f"chip_smoke: K2's fit_ensemble launched "
+                         f"{read_counts(ck)}, not K3 {k3} times, or lost "
+                         f"finiteness")
+    totals["K3"] += k3
+    del models
+    batch_ms = info["train_time"] / K2_STEPS * 1e3
+    seq_ms, worst, bitwise = [], 0.0, True
+    for s in range(K2_B):
+        zero_counts(ck)
+        _, si = pl.fit(seeded(s), pl.projected_lmc_mll, n_iter=K2_SEQ, **kw)
+        if read_counts(ck) != expect(K3=K2_SEQ):
+            raise SystemExit(f"chip_smoke: K2's sequential fit launched "
+                             f"{read_counts(ck)}, not K3 {K2_SEQ} times")
+        totals["K3"] += K2_SEQ
+        seq_ms.append(si["train_time"] / K2_SEQ * 1e3)
+        a = info["losses"][:K2_SEQ, s].astype(np.float64)
+        b = np.asarray(si["losses"], np.float64)
+        worst = max(worst, float(np.max(np.abs(a - b) / np.abs(b))))
+        bitwise = bitwise and np.array_equal(a, b)
+    print(f"  K2 fit_ensemble, B={K2_B} PLMC seeds (n={v['n']}, p={v['p']}, "
+          f"q={v['q']}), {K2_STEPS} steps in {STEPS_PER_CHUNK}-step chunks: "
+          f"{info['train_time']:.2f} s, {batch_ms:.3f} ms a batch step "
+          f"({K2_B} K3 launches a batch step); {K2_B} sequential fit steps "
+          f"(one a seed, {K2_SEQ}-step runs) {sum(seq_ms):.3f} ms "
+          f"(per seed {min(seq_ms):.3f}–{max(seq_ms):.3f} ms): batch / "
+          f"sequential {batch_ms / sum(seq_ms):.3f}")
+    print(f"  K2 each seed's first {K2_SEQ} losses against its own "
+          f"sequential fit on the card: max rel {worst:.2e} (tolerance "
+          f"1e-6); bitwise equal: {bitwise}")
+    if not worst <= 1e-6:
+        raise SystemExit("chip_smoke: K2's batched losses disagree with the "
+                         "sequential fits")
+
+
+def write_tidal_fixture(root, seed=0):
+    """Four bramblemet-format ``<station>.csv.gz`` files: ``Date``
+    (dd/mm/YYYY), ``Time`` (HH:MM), ``DEPTH`` and a spare column, on a
+    5-minute clock over ``load_tidal``'s window (2020-06-01 to 2020-06-15),
+    each station an M2 (12.42 h) plus an S2 (12.00 h) tide of its own
+    amplitude and phase on a slow quadratic trend with N(0, 0.05²) noise;
+    the third station's clock 2 minutes late, so that the loader's
+    interp1d moves it onto the first one's."""
+    import gzip
+    from datetime import datetime, timedelta
+    rng = np.random.default_rng(seed)
+    d = os.path.join(root, "bramblemet")
+    os.makedirs(d)
+    n = J3_DAYS * 86_400 // J3_SAMPLE_S
+    for k, station in enumerate(("bramblemet", "cambermet", "chimet",
+                                 "sotonmet")):
+        late = 120 if k == 2 else 0
+        t0 = datetime(2020, 6, 1) + timedelta(seconds=late)
+        hours = (np.arange(n) * J3_SAMPLE_S + late) / 3600.0
+        a, b = rng.uniform(0.8, 1.6), rng.uniform(0.2, 0.6)
+        depth = (2.0 + a * np.cos(2 * np.pi * hours / 12.42
+                                  + rng.uniform(0, 2 * np.pi))
+                 + b * np.cos(2 * np.pi * hours / 12.0
+                              + rng.uniform(0, 2 * np.pi))
+                 + np.polyval(rng.standard_normal(3), hours / hours.max())
+                 + 0.05 * rng.standard_normal(n))
+        with gzip.open(os.path.join(d, f"{station}.csv.gz"), "wt",
+                       newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["Date", "Time", "DEPTH", "WSPD"])
+            for i in range(n):
+                t = t0 + timedelta(seconds=J3_SAMPLE_S * i)
+                w.writerow([t.strftime("%d/%m/%Y"), t.strftime("%H:%M"),
+                            f"{depth[i]:.3f}", f"{rng.uniform(0, 20):.1f}"])
+
+
+def path_k3(torch, pl, ck, dev, totals):
+    """K3: the real-data entry point on fixture files in each source's
+    format: ``load_tidal`` → ``build_models`` (the loader's spectral
+    mixture, 5 mixtures, likelihood rank 0, ``var_ind_range="data"``,
+    ``oilmm_bulk=False``) → ``train_and_eval(var_fit="warm_start")`` with
+    K1's cap on steps (no K3: the spectral mixture is plain torch); then
+    ``load_ship`` and ``load_sarcos`` (with and without the training file)
+    on small seeded files."""
+    import tempfile
+    from scipy.io import savemat
+    from projected_lmc_tpu_torch.experiments import driver as drv
+    from projected_lmc_tpu_torch.experiments import realdata
+    rng = np.random.default_rng(80)
+    with tempfile.TemporaryDirectory() as root:
+        write_tidal_fixture(root)
+        t0 = time.perf_counter()
+        d = realdata.load_tidal(root)
+        load_s = time.perf_counter() - t0
+        models = drv.build_models(
+            d["X"], d["Y"], d["q"], 0, K_MODELS,
+            kernel_type=d["kernel_type"], mean_type="zero",
+            n_ind_points=d["n_ind_points"], ker_kwargs=d["ker_kwargs"],
+            var_ind_range="data", oilmm_bulk=False, device=dev)
+        zero_counts(ck)
+        t0 = time.perf_counter()
+        res, _ = drv.train_and_eval(models, d["X_test"], d["Y_test"],
+                                    n_iter=K_STEPS,
+                                    loss_thresh=d["loss_thresh"],
+                                    print_metrics=False,
+                                    var_fit="warm_start", device=dev)
+        wall = time.perf_counter() - t0
+        if read_counts(ck) != expect():
+            raise SystemExit(f"chip_smoke: K3's tidal study launched "
+                             f"{read_counts(ck)}")
+        print(f"  K3 load_tidal on the fixture: {load_s:.2f} s, n="
+              f"{len(d['X'])} training and {len(d['X_test'])} test points, "
+              f"T={d['Y'].shape[1]}, {d['dates'][0]} to {d['dates'][-1]}; "
+              f"train_and_eval (at most {K_STEPS} steps, var by sgpr_em) "
+              f"{wall:.1f} s")
+        for name, r in res.items():
+            print(f"  K3 tidal {name}: n_iter {r['n_iter']}, train_time "
+                  f"{r['train_time']:.2f} s; R2 {r['R2']:.4f}, RMSE "
+                  f"{r['RMSE']:.4f}, PVA {r['PVA']:.4f}")
+            if not all(math.isfinite(r[k]) for k in K_METRICS):
+                raise SystemExit(f"chip_smoke: K3's tidal {name} metrics "
+                                 f"are not finite")
+        os.makedirs(os.path.join(root, "ship"))
+        with open(os.path.join(root, "ship", "data.txt"), "w") as f:
+            for row in rng.standard_normal((1000, 18)) * rng.uniform(
+                    0.1, 100.0, 18):
+                f.write("   " + "   ".join(f"{v:.3e}" for v in row) + "\n")
+        ship = realdata.load_ship(root)
+        sarcos = os.path.join(root, "SARCOS")
+        os.makedirs(sarcos)
+        savemat(os.path.join(sarcos, "sarcos_inv_test.mat"),
+                {"sarcos_inv_test": rng.standard_normal((500, 28))})
+        split = realdata.load_sarcos(root)
+        savemat(os.path.join(sarcos, "sarcos_inv.mat"),
+                {"sarcos_inv": rng.standard_normal((2000, 28))})
+        full = realdata.load_sarcos(root)
+    for label, out, want in (
+            ("load_ship", ship, ((100, 3), (100, 12), False)),
+            ("load_sarcos (split fallback)", split, ((100, 21), (100, 7), True)),
+            ("load_sarcos", full, ((500, 21), (500, 7), False))):
+        shapes = (out["X_test"].shape, out["Y_test"].shape,
+                  bool(out.get("split_fallback", False)))
+        finite = all(np.all(np.isfinite(out[k]))
+                     for k in ("X", "Y", "X_test", "Y_test"))
+        print(f"  K3 {label}: X {out['X'].shape}, Y {out['Y'].shape}, test "
+              f"{shapes[0]} / {shapes[1]}, split_fallback {shapes[2]}, "
+              f"finite {finite}")
+        if shapes != want or not finite:
+            raise SystemExit(f"chip_smoke: K3's {label} gave {shapes}")
+
+
+def path_k4(torch, pl, ck, dev, totals):
+    """K4: the utilities. Per-batch 3-D kernel inputs on the card against
+    the CPU (1e-6 of the largest entry; plain torch on both, no kernel),
+    ``profile_trace`` writing a Chrome trace that holds the region's kernel
+    launches on the card (its device kernel records are printed beside
+    them: run after paths 1–J, the profiler has recorded the runtime calls
+    but no device activity, while in a process of its own, and after
+    dozens of large profiles, it records both; the cause is not found),
+    and ``ensure_cuda()``."""
+    import glob
+    import tempfile
+    from projected_lmc_tpu_torch import kernels as tker
+    from projected_lmc_tpu_torch.module import keyed_state
+    from projected_lmc_tpu_torch.utils.device import ensure_cuda
+    from projected_lmc_tpu_torch.utils.profiling import profile_trace
+    rng = np.random.default_rng(90)
+
+    def inputs(*shape):
+        return torch.as_tensor(rng.uniform(-1, 1, shape), dtype=torch.float32)
+    x1 = inputs(K4_B, K4_N, K4_D)
+    x2 = inputs(K4_B, K4_M, K4_D)
+    shared = inputs(K4_M, K4_D)
+    for label, kw in (("matern", dict(kernel_type="matern")),
+                      ("rbf", dict(kernel_type="rbf")),
+                      ("additive", dict(kernel_type="matern",
+                                        decomp=[[0, 1], [2]])),
+                      ("spline", dict(kernel_type="spline")),
+                      ("spectral_mixture", dict(
+                          kernel_type="spectral_mixture",
+                          ker_kwargs={"num_mixtures": 3}))):
+        card = moved(torch, tker.handle_covar(dim=K4_D, n_funcs=K4_B,
+                                              device=dev, **kw), 91)
+        host = tker.handle_covar(dim=K4_D, n_funcs=K4_B, device="cpu", **kw)
+        pl.load_jax_state(host, {k: v.detach().cpu().numpy()
+                                 for k, v in keyed_state(card).items()})
+        err = 0.0
+        zero_counts(ck)
+        with torch.no_grad():
+            for a, b, diag in ((x1, x2, False), (x1, shared, False),
+                               (x1, x2, True)):
+                want = host(a, b, diag=diag)
+                got = card(a.to(dev), b.to(dev), diag=diag).cpu()
+                err = max(err, float((got - want).abs().max())
+                          / scale_of(want))
+        if read_counts(ck) != expect():
+            raise SystemExit(f"chip_smoke: K4's 3-D {label} kernel launched "
+                             f"{read_counts(ck)}")
+        check(f"K4 {label} 3-D inputs ({K4_B}, {K4_N}, {K4_D}) against "
+              f"({K4_B}, {K4_M}, {K4_D}), against a shared ({K4_M}, {K4_D}) "
+              f"and the diagonal, card against CPU (relative)", err, 1e-6)
+    kernel = tker.handle_covar("matern", K4_D, n_funcs=K4_B, device=dev)
+    with tempfile.TemporaryDirectory() as logdir, torch.no_grad():
+        x = shared.to(dev)
+        with profile_trace(logdir) as prof:   # a 2-D forward: K3 once
+            served(torch, ck, "K4 profile_trace", 1, lambda: kernel(x),
+                   totals)
+        files = glob.glob(os.path.join(logdir, "*.json"))
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    device_us = sum(e.device_time_total for e in prof.key_averages()
+                    if e.device_type.name == "CUDA")
+    cats = {}
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and "LaunchKernel" in e.get("name", "")]
+    kernels = sorted({e["name"][:40] for e in events
+                      if e.get("cat") == "kernel"})
+    print(f"  K4 profile_trace: {len(files)} trace file, {len(events)} "
+          f"events by category {cats}: {len(launches)} kernel launches on "
+          f"the host's CUDA runtime; device kernels {kernels}, the "
+          f"profiler's device time {device_us:.1f} us")
+    if len(files) != 1 or not launches:
+        raise SystemExit("chip_smoke: K4's profile_trace holds no kernel "
+                         "launch")
+    up = ensure_cuda()
+    print(f"  K4 ensure_cuda(): {up}")
+    if up is not True:
+        raise SystemExit("chip_smoke: ensure_cuda() is not True on the card")
+
+
+def path_k_phase(torch, pl, ck, dev, totals):
+    """Path K: the experiments around the models (K1–K4), each with its
+    wall time, and K3's launches on the path."""
+    t0 = time.perf_counter()
+    before = totals["K3"]
+    for label, part in (("K1", path_k1), ("K2", path_k2), ("K3", path_k3),
+                        ("K4", path_k4)):
+        t1 = time.perf_counter()
+        part(torch, pl, ck, dev, totals)
+        torch.cuda.empty_cache()
+        print(f"  {label} took {time.perf_counter() - t1:.1f} s")
+    print(f"  path K launched K3 {totals['K3'] - before} times and took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4147,6 +4602,12 @@ def main() -> int:
           f"kernel, schedules, checkpoints and evals n={J4_N}, J5 the blocked "
           f"Cholesky n={J5_N}")
     path_j_phase(torch, pl, ck, dev, totals, median_4)
+    print(f"path K: the experiments around the models, K1 the paper's study "
+          f"(run_study, {K1_RUNS} runs of the five models, at most {K_STEPS} "
+          f"steps each), K2 fit_ensemble on {K2_B} seeds, K3 the real-data "
+          f"loaders on fixture files and the tidal study, K4 3-D kernel "
+          f"inputs, profile_trace and ensure_cuda")
+    path_k_phase(torch, pl, ck, dev, totals)
 
     meta = [("K1", "scaled_kernel_stack_sym",
              "projected_lmc_tpu/ops/pallas_kernels.py:278"),

@@ -21,9 +21,15 @@ Titsias SGPR route of the exact, LMC/ICM and projected models
 means with the universal-kriging LOO, the composed and CG + SLQ MLL routes
 (``ops.iterative``), the blocked bf16 Cholesky, ``fit``'s chunks,
 checkpoints and evals, and ``save_model``/``load_model`` (checkpoints
-interchangeable with the JAX package's); with a hand-written CUDA
-kernel for each TPU kernel of the JAX package (``ops/cuda_kernels.py``,
-sources in ``csrc/``). Entry points default to
+interchangeable with the JAX package's), and the experiments around them:
+the study driver (``experiments.run_study``, ``build_models``,
+``train_and_eval``), the real-data loaders (``experiments.realdata``, no
+pandas needed), the study plots (``experiments.plots``, pandas and
+matplotlib, on the host), seed-parallel training
+(``training.fit_ensemble``), per-batch 3-D kernel inputs and the profiling
+helpers (``utils.profiling``, ``utils.device.ensure_cuda``); with a
+hand-written CUDA kernel for each TPU kernel of the JAX package
+(``ops/cuda_kernels.py``, sources in ``csrc/``). Entry points default to
 ``device="cuda"``; ``device="cpu"`` runs the kernels' plain PyTorch versions.
 """
 
@@ -36,7 +42,8 @@ from .models.multitask import MultitaskGPModel
 from .models.projected import ProjectedGPModel
 from .models.variational import VariationalMultitaskGPModel
 from .training import (default_scan_steps, exponential_schedule, fit,
-                       fit_svgp_minibatch, fit_two_phase, lambda_lr_schedule)
+                       fit_ensemble, fit_svgp_minibatch, fit_two_phase,
+                       lambda_lr_schedule)
 from .utils.checkpoint import load_jax_state, load_model, save_model
 
 __all__ = ["ExactGPModel", "GaussianLikelihood", "KronCov",
@@ -44,6 +51,6 @@ __all__ = ["ExactGPModel", "GaussianLikelihood", "KronCov",
            "ProjectedGPModel", "SumKronRank1Cov",
            "VariationalMultitaskGPModel", "compute_metrics",
            "default_scan_steps", "exact_mll", "exponential_schedule", "fit",
-           "fit_svgp_minibatch", "fit_two_phase", "lambda_lr_schedule",
+           "fit_ensemble", "fit_svgp_minibatch", "fit_two_phase", "lambda_lr_schedule",
            "load_jax_state", "load_model", "loo_pseudo_likelihood",
            "projected_lmc_mll", "save_model"]

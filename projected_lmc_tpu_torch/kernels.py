@@ -173,8 +173,8 @@ class MultivariateNormalPrior(Prior):
 class Kernel(Module):
     """Base kernel, batched over ``batch`` functions: ``forward(x1, x2,
     diag, out_dtype)`` on inputs shared by the batch, (n, d) or 1-D for one
-    feature, gives (batch, n, m), or with ``diag`` the (batch, min(n, m))
-    diagonal k(x1_i, x2_i)."""
+    feature, or per batch element, (batch, n, d), gives (batch, n, m), or
+    with ``diag`` the (batch, min(n, m)) diagonal k(x1_i, x2_i)."""
 
     has_lengthscale = False
 
@@ -192,15 +192,17 @@ class Kernel(Module):
         return self._leaf().device
 
     def _inputs(self, x1, x2):
-        """(x1, x2) as 2-D inputs over the kernel's active features."""
+        """(x1, x2) over the kernel's active features (sliced on the last
+        axis): both 2-D (n, d), or, when either is 3-D, both (batch, n, d),
+        a 2-D one broadcast to the batch (the JAX ``Kernel.__call__``)."""
         x2 = x1 if x2 is None else x2
         x1, x2 = (x[:, None] if x.dim() == 1 else x for x in (x1, x2))
-        if x1.dim() != 2 or x2.dim() != 2:
-            raise NotImplementedError("batched 3-D kernel inputs are ported "
-                                      "in a later slice")
         if self.active_dims is not None:
             idx = list(self.active_dims)
-            x1, x2 = x1[:, idx], x2[:, idx]
+            x1, x2 = x1[..., idx], x2[..., idx]
+        if x1.dim() == 3 or x2.dim() == 3:
+            x1, x2 = (x.expand(self.batch, *x.shape) if x.dim() == 2 else x
+                      for x in (x1, x2))
         return x1, x2
 
     def prior_log_prob(self):
@@ -241,17 +243,23 @@ class _StationaryKernel(Kernel):
         return self
 
     def forward(self, x1, x2=None, diag: bool = False, out_dtype=None):
-        """Dense (batch, n, m) through :func:`stationary_kernel_matrix`
-        (kernel K3 on the card), or the diagonal in plain torch, as the JAX
-        package leaves it to XLA."""
+        """Dense (batch, n, m) on shared inputs through
+        :func:`stationary_kernel_matrix` (kernel K3 on the card); the
+        diagonal, and per-batch 3-D inputs, in plain torch, as the JAX
+        package leaves them to XLA (it sends only 2-D inputs to Pallas)."""
         x1, x2 = self._inputs(x1, x2)
+        ls = self.lengthscale                               # (B, 1, d)
         if diag:
-            n = min(x1.shape[0], x2.shape[0])
-            d2 = (((x1[:n] - x2[:n])[None] / self.lengthscale) ** 2).sum(-1)
-            K = ck.profile(self._kind, d2)
-            return K if out_dtype is None else K.to(out_dtype)
-        return stationary_kernel_matrix(x1, x2, self.lengthscale, self._kind,
-                                        out_dtype, self.device)
+            n = min(x1.shape[-2], x2.shape[-2])
+            d2 = (((x1[..., :n, :] - x2[..., :n, :]) / ls) ** 2).sum(-1)
+        elif x1.dim() == 3:       # from direct differences, as K3's plain
+            a, b = x1 / ls, x2 / ls
+            d2 = ((a[..., :, None, :] - b[..., None, :, :]) ** 2).sum(-1)
+        else:
+            return stationary_kernel_matrix(x1, x2, ls, self._kind,
+                                            out_dtype, self.device)
+        K = ck.profile(self._kind, d2)
+        return K if out_dtype is None else K.to(out_dtype)
 
     def prior_log_prob(self):
         if self.lengthscale_prior is not None:
@@ -294,17 +302,16 @@ class SplineKernel(Kernel):
     def forward(self, x1, x2=None, diag: bool = False, out_dtype=None):
         x1, x2 = self._inputs(x1, x2)
         if diag:
-            x = x1[:min(x1.shape[0], x2.shape[0])]
-            K = (1 + x ** 2 + x ** 3 / 3.0).prod(-1)[None].expand(
-                self.batch, -1)
+            x = x1[..., :min(x1.shape[-2], x2.shape[-2]), :]
+            K = (1 + x ** 2 + x ** 3 / 3.0).prod(-1)
         else:
-            K = torch.ones((x1.shape[0], x2.shape[0]), dtype=x1.dtype,
+            K = torch.ones(x1.shape[:-1] + x2.shape[-2:-1], dtype=x1.dtype,
                            device=x1.device)
-            for j in range(x1.shape[1]):            # one (n, m) at a time
-                a, b = x1[:, j, None], x2[None, :, j]
+            for j in range(x1.shape[-1]):           # one (n, m) at a time
+                a, b = x1[..., :, j, None], x2[..., None, :, j]
                 lo, hi = torch.minimum(a, b), torch.maximum(a, b)
                 K = K * (1 + lo * hi + 0.5 * lo ** 2 * (hi - lo / 3.0))
-            K = K[None].expand(self.batch, -1, -1)
+        K = K.expand(self.batch, *(K.shape[-1:] if diag else K.shape[-2:]))
         return K if out_dtype is None else K.to(out_dtype)
 
 
@@ -437,8 +444,9 @@ class SpectralMixtureKernel(Kernel):
         mu = self.mixture_means[:, :, 0, :]                 # (B, Q, d)
         sig = self.mixture_scales[:, :, 0, :]
         if diag:
-            n = min(x1.shape[0], x2.shape[0])
-            tau = (x1[:n] - x2[:n])[None, None]             # (1, 1, n, d)
+            n = min(x1.shape[-2], x2.shape[-2])
+            # (1, n, d), or (B, 1, n, d) for per-batch inputs
+            tau = (x1[..., :n, :] - x2[..., :n, :]).unsqueeze(-3)
             comp = (torch.exp(-2 * math.pi ** 2 * tau ** 2
                               * sig[..., None, :] ** 2)
                     * torch.cos(2 * math.pi * tau * mu[..., None, :])
@@ -448,8 +456,9 @@ class SpectralMixtureKernel(Kernel):
             K = 0.0
             for q in range(self.num_mixtures):
                 comp = w[:, q, None, None]
-                for j in range(x1.shape[1]):
-                    tau = (x1[:, j, None] - x2[None, :, j])[None]  # (1, n, m)
+                for j in range(x1.shape[-1]):
+                    # (n, m), or (B, n, m) for per-batch inputs
+                    tau = x1[..., :, j, None] - x2[..., None, :, j]
                     s, m = sig[:, q, j, None, None], mu[:, q, j, None, None]
                     comp = comp * (torch.exp(-2 * math.pi ** 2 * tau ** 2
                                              * s ** 2)

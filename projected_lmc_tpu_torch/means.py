@@ -13,7 +13,20 @@ from .module import Module
 from .utils.device import resolve_device
 
 
-class ZeroMean(Module):
+class Mean(Module):
+    """Base of the means: ``forward(x)`` maps inputs (n, d) to (batch, n);
+    a mean without regressors has no ``basis_matrix`` (reading it raises
+    AttributeError, so ``hasattr`` is False)."""
+
+    def forward(self, x):
+        raise NotImplementedError
+
+    @property
+    def basis_matrix(self):
+        raise AttributeError(f"{type(self).__name__} has no basis_matrix")
+
+
+class ZeroMean(Mean):
     def __init__(self, input_size=None, batch_shape=1, dtype=torch.float32,
                  device="cuda", **_):
         super().__init__()
@@ -27,7 +40,7 @@ class ZeroMean(Module):
                            device=self._dummy.device)
 
 
-class ConstantMean(Module):
+class ConstantMean(Mean):
     def __init__(self, input_size=None, batch_shape=1, dtype=torch.float32,
                  device="cuda", **_):
         super().__init__()
@@ -39,7 +52,7 @@ class ConstantMean(Module):
         return self.constant[:, None].expand(self.batch, x.shape[0])
 
 
-class LinearMean(Module):
+class LinearMean(Mean):
     """Affine mean x W_b + c_b (projected_lmc.py:65-81): weights (B, d, 1)
     and, with ``bias``, a bias (B, 1), drawn from N(0, 1) by
     ``default_rng(seed)`` as the JAX package draws them. ``basis_matrix``
@@ -68,7 +81,7 @@ class LinearMean(Module):
                                         device=x.device)], 1)
 
 
-class PolynomialMean(Module):
+class PolynomialMean(Mean):
     """Degree-``degree`` polynomial mean Σ_{i≥1} (x^i) W_{i,b} + c_b with
     per-degree weights (degree + 1, B, d, 1) (projected_lmc.py:37-63; the
     degree-0 weights are drawn but unused, as in the reference) and, with

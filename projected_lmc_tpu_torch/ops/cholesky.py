@@ -36,19 +36,23 @@ def _factor(A):
 
 
 def _jittered_cholesky(A, max_tries: int):
+    """(L, jitter): the factor and the jitter of the rung that gave it (0
+    when A factored as it is; the last rung's when every rung failed)."""
     L, bad = _factor(A)
     jitter = _BASE_JITTER.get(A.dtype, 1e-6)
+    used = 0.0
     for _ in range(max_tries):
         if not bool(bad.any()):
-            return L
+            return L, used
         Aj = A.clone()
         Aj.diagonal(dim1=-2, dim2=-1).add_(jitter)
         L, bad = _factor(Aj)
+        used = jitter
         jitter *= 10.0
     if bool(bad.any()):     # every rung failed: NaN where it did, as in JAX
         L = torch.where(bad[..., None, None], torch.full_like(L, float("nan")),
                         L)
-    return L
+    return L, used
 
 
 def _phi(X):
@@ -60,7 +64,7 @@ def _phi(X):
 class _SafeCholesky(torch.autograd.Function):
     @staticmethod
     def forward(ctx, A, max_tries):
-        L = _jittered_cholesky(A, max_tries)
+        L, _ = _jittered_cholesky(A, max_tries)
         ctx.save_for_backward(L)
         return L
 
@@ -81,6 +85,17 @@ def safe_cholesky(A, max_tries: int = MAX_TRIES):
     """Lower Cholesky factor of ``A`` (+ escalating jitter on failure),
     batched over leading dimensions."""
     return _SafeCholesky.apply(A, max_tries)
+
+
+def safe_cholesky_with_jitter(A, max_tries: int = MAX_TRIES):
+    """Like :func:`safe_cholesky`, but also returns the jitter the ladder
+    added, as a 0-d tensor of A's dtype. The jitter is found on a detached
+    A and carries no gradient; L is the factor of A + jitter·I, with the
+    Cholesky pullback to A."""
+    with torch.no_grad():
+        _, jitter = _jittered_cholesky(A.detach(), max_tries)
+    L = safe_cholesky(add_jitter(A, jitter), 1)
+    return L, torch.tensor(jitter, dtype=A.dtype, device=A.device)
 
 
 def solve_triangular(L, B, *, lower=True, trans=False):

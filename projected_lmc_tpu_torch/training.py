@@ -1,7 +1,7 @@
 """Training loop with plateau early stopping (port of ``training.fit`` with
 its chunks, checkpoints and evals, ``training.fit_two_phase``,
-``training.fit_svgp_minibatch`` and the learning-rate schedules from
-``projected_lmc_tpu/training.py``).
+``training.fit_svgp_minibatch``, ``training.fit_ensemble`` and the
+learning-rate schedules from ``projected_lmc_tpu/training.py``).
 
 The reference's loop (experiments.py:256-284): AdamW, LambdaLR linear decay
 lr_max → lr_min over 10k iterations, and plateau stopping — |1 − loss /
@@ -19,7 +19,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .module import trainable_parameters
+from .module import keyed_state, trainable_parameters
 from .utils.device import check_device
 
 
@@ -212,6 +212,155 @@ def fit(model, loss_fn: Callable = None, n_iter: int = 10000, lr: float = 1e-2,
     if evals:
         info["evals"] = evals
     return model, info
+
+
+def _architecture(model):
+    """What models trained together must share: the class of every
+    submodule with its configuration (the attributes that are neither
+    tensors, arrays nor submodules: the projected model's BDN, diagonal_B,
+    scalar_B, the mixing matrix's diagonal_R, …), and every leaf's key
+    path, shape and dtype."""
+    config = []
+    for name, mod in model.named_modules():
+        attrs = sorted((k, v) for k, v in vars(mod).items()
+                       if not k.startswith("_") and k != "training"
+                       and not isinstance(v, (torch.Tensor, np.ndarray,
+                                              torch.nn.Module)))
+        config.append((name, type(mod).__name__, attrs))
+    leaves = [(k, tuple(t.shape), t.dtype) for k, t in
+              keyed_state(model).items()]
+    return config, leaves
+
+
+def _plateau_step(criterion, i, new_loss, state, loss_thresh, patience):
+    """One loss row of :func:`fit_ensemble`'s per-seed plateau test (the
+    test of :func:`fit`, vectorized over seeds, as in the JAX loop); returns
+    the seeds that plateau at step ``i``."""
+    if criterion == "max":
+        flat = (i > 0) & (np.abs(1 - new_loss / state["last"]) < loss_thresh)
+        state["count"] = np.where(flat, state["count"] + 1, 0)
+        newly = (~state["done"]) & (state["count"] > patience)
+    elif criterion == "mean":
+        deltas = state["deltas"]
+        deltas[1:] = deltas[:-1]
+        deltas[0] = np.abs(1 - new_loss / state["last"])
+        newly = (~state["done"]) & (i >= patience) \
+            & (deltas.mean(axis=0) < loss_thresh)
+    else:
+        raise ValueError("Criterion not recognized")
+    state["last"] = new_loss
+    return newly
+
+
+def fit_ensemble(models, loss_fn: Callable = None, n_iter: int = 10000,
+                 lr: float = 1e-2, schedule=None, loss_thresh: float = 2.5e-6,
+                 patience: int = 500, criterion: str = "max",
+                 weight_decay: float = 1e-2, scan_steps: int = None,
+                 seed: int = 0, print_loss: bool = False,
+                 freq_print: int = 1000, force_xla_kernels: bool = True,
+                 device="cuda"):
+    """Seed-parallel training (port of ``training.fit_ensemble``): B
+    same-config models, e.g. ``experiments.driver.build_models`` with B
+    seeds (the reference's seeded-study protocol, experiments.py:125-127),
+    stepped in lockstep, in place.
+
+    Each step evaluates the B losses, runs one backward of their sum (the
+    graphs are disjoint, so each model gets exactly its own gradient) and
+    one AdamW update over all B models' parameters (the foreach update;
+    :func:`fit`'s weight decay, off the ``raw_mixture*`` leaves, and
+    schedule). The host reads the (scan_steps, B) losses once a chunk.
+    A ``loss_fn(model, generator)`` gets one ``torch.Generator`` a model,
+    model b's seeded with ``seed + b`` (its sequential :func:`fit` with
+    ``seed=seed + b`` draws the same). ``torch.func.vmap`` is not used:
+    the Cholesky ladder reads its failure flag on the host, a branch vmap
+    cannot batch.
+
+    Plateau semantics: each seed's plateau step (:func:`fit`'s rule) is
+    recorded in ``info["n_iter"]`` (shape (B,)); the batch stops only when
+    every seed has plateaued, or at ``n_iter``. A plateaued seed keeps
+    stepping until the batch stops.
+
+    ``force_xla_kernels`` is accepted for the JAX signature and does
+    nothing: JAX turns its Pallas kernels off because they do not batch
+    under vmap; the port's CUDA kernels have no such limit, so each model
+    keeps launching its kernels (K3) on the card.
+
+    Raises ``ValueError`` naming the architecture when the models differ in
+    class, configuration or leaves. Returns ``(models, info)``: the
+    length-B list, and info with ``losses`` (iters, B), per-seed ``n_iter``,
+    the shared ``train_time`` and per-seed final ``loss``.
+    """
+    del force_xla_kernels
+    B = len(models)
+    if B == 0:
+        raise ValueError("fit_ensemble needs at least one model")
+    ref = _architecture(models[0])
+    for i, m in enumerate(models[1:], 1):
+        if _architecture(m) != ref:
+            raise ValueError(
+                f"model {i} has a different architecture (class, "
+                "configuration or leaf mismatch) — fit_ensemble batches "
+                "same-config models")
+    params = [trainable_parameters(m) for m in models]
+    dev = check_device(device, *[p for ps in params for _, p in ps])
+    if loss_fn is None:
+        loss_fn = lambda m: m.mll()                         # noqa: E731
+    if schedule is None:
+        schedule = lambda_lr_schedule(lr_max=lr, lr_min=lr / 10.0)
+    if scan_steps is None:
+        scan_steps = default_scan_steps(dev)
+    takes_gen = _loss_fn_takes_generator(loss_fn)
+    generators = [torch.Generator(device=dev).manual_seed(seed + b)
+                  if takes_gen else None for b in range(B)]
+
+    def raw_mixture(n):
+        return n.split(".")[-1].startswith("raw_mixture")
+
+    decay = [p for ps in params for n, p in ps if not raw_mixture(n)]
+    no_decay = [p for ps in params for n, p in ps if raw_mixture(n)]
+    groups = [{"params": decay, "weight_decay": weight_decay}]
+    if no_decay:
+        groups.append({"params": no_decay, "weight_decay": 0.0})
+    opt = torch.optim.AdamW(groups, lr=1.0)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lr_lambda=schedule)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        losses = torch.stack([
+            -(loss_fn(m, g) if takes_gen else loss_fn(m))
+            for m, g in zip(models, generators)])
+        losses.sum().backward()
+        opt.step()
+        sched.step()
+        return losses.detach()
+
+    losses = []
+    state = dict(count=np.zeros(B, dtype=int), last=np.full(B, 1e-9),
+                 deltas=np.zeros((patience, B)), done=np.zeros(B, dtype=bool))
+    eff_n_iter = np.full(B, n_iter, dtype=int)
+    start = time.time()
+    i = 0
+    while i < n_iter:
+        chunk = torch.stack([step() for _ in range(max(scan_steps, 1))])
+        stop = False
+        for j, lv in enumerate(chunk.cpu().numpy()):
+            losses.append(lv)
+            if print_loss and (i + j) % freq_print == 0:
+                print(f"iter {i + j}: loss {np.array2string(lv, precision=4)}")
+            newly = _plateau_step(criterion, i + j, lv, state, loss_thresh,
+                                  patience)
+            eff_n_iter[newly] = i + j
+            state["done"] |= newly
+            if state["done"].all():
+                stop = True
+                break
+        i += max(scan_steps, 1)
+        if stop:
+            break
+    train_time = time.time() - start
+    info = dict(n_iter=eff_n_iter, train_time=train_time,
+                losses=np.asarray(losses), loss=state["last"].copy())
+    return list(models), info
 
 
 def fit_two_phase(model, coarse_loss_fn, fine_loss_fn, n_iter: int = 10000,

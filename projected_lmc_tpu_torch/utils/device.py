@@ -4,7 +4,8 @@
 Every entry point of the port takes a ``device`` argument that defaults to
 ``"cuda"``. Only an explicit ``device="cpu"`` runs on the CPU, where each
 kernel wrapper takes its plain PyTorch version; asking for CUDA on a machine
-without a card raises instead of dropping to the CPU.
+without a card raises instead of dropping to the CPU. :func:`ensure_cuda`
+is the counterpart of ``ensure_tpu``: a query that readies the card.
 """
 
 from __future__ import annotations
@@ -36,3 +37,16 @@ def check_device(device, *tensors) -> torch.device:
         if t is not None and t.device.type != dev.type:
             raise ValueError(f"tensor on {t.device} but device={device!r}")
     return dev
+
+
+def ensure_cuda() -> bool:
+    """True if a CUDA card is up, after building and loading the kernel
+    library (``ops._build``), as ``ensure_tpu`` readies JAX's compilation
+    cache; False on a host with no card, as ``ensure_tpu`` returns on a
+    CPU host. A query, not a fallback: entry points still raise on
+    ``device="cuda"`` without a card."""
+    if not torch.cuda.is_available():
+        return False
+    from ..ops import _build
+    _build.library()
+    return True

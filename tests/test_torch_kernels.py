@@ -302,9 +302,10 @@ class TestPCG:
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port (the projected model, the MLLs, the
-    synthetic data, the prediction modules, the variational model and the
-    blocked Cholesky among them), imported in a fresh interpreter, leaves no
-    ``jax`` or ``projected_lmc_tpu`` module behind."""
+    synthetic data, the prediction modules, the variational model, the
+    blocked Cholesky, the study driver, the real-data loaders, the plots
+    and the profiling helpers among them), imported in a fresh interpreter,
+    leaves no ``jax`` or ``projected_lmc_tpu`` module behind."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import projected_lmc_tpu_torch as p\n"
@@ -313,7 +314,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "need = {'models.projected', 'mlls', 'experiments.synthetic',\n"
         "        'ops.woodbury', 'distributions', 'metrics',\n"
         "        'models.variational', 'ops.blocked_cholesky',\n"
-        "        'utils.checkpoint'}\n"
+        "        'utils.checkpoint', 'experiments.driver',\n"
+        "        'experiments.realdata', 'experiments.plots',\n"
+        "        'utils.profiling'}\n"
         "assert all(p.__name__ + '.' + m in sys.modules for m in need)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'projected_lmc_tpu'\n"
