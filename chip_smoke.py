@@ -171,6 +171,28 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
      ``load_ship`` and ``load_sarcos`` on small seeded files. K4: per-batch
      3-D kernel inputs on the card against the CPU (1e-6), ``profile_trace``
      writing a trace of a K3 launch, ``ensure_cuda()``.
+  L. path L: the ('data', 'latent') mesh on ``torch.distributed``
+     (``parallel``), 4 ranks spawned by ``parallel.launch`` (the kernels
+     built once by this process, loaded by the ranks); they share the card
+     over gloo when there are fewer cards than ranks, and take one each
+     over NCCL otherwise. L1: F2's projected model (n = 10⁴, p = 7, q = 4,
+     d = 4, full B̃, the init moved) on data 2 × latent 2, each rank K3
+     (2, 10⁴, 10⁴) and potrf on its latents: 8 ``sharded_fit_step`` steps
+     against 8 unsharded steps on this card (the first step's loss rel.
+     ≤ 1e-5, each gradient within 1e-4 of its largest entry, the parameters
+     within rtol 1e-4 + atol 1e-6, except entries in AdamW's ε regime,
+     which are held to AdamW's step from the sharded gradient; every loss
+     rel. ≤ 1e-4), then the sharded cache and ``predict`` on 2,500 points
+     (path G's limits; each rank's own latents within 1e-6 of an unsharded
+     model carrying its leaves restricted to the same latents) and
+     ``save_orbax``/``load_orbax`` under the group. L2: I3's projected SGPR
+     (n = 44,480, d = 21, q = 7, m = 500) and L3: the variational ELBO at
+     n = 44,484 (I2's model), both on data 4 × latent 1 (each rank K3 on
+     its 11,120 rows), compared as L1. L4: ``entry.dryrun_multichip(4)``
+     and a one-rank NCCL group's ``dryrun_step`` on L1's model. Step times
+     (ranks sharing one card: not a speed-up), peak memory a rank, the
+     backend; each rank's K3 launches go into the totals; K3 at each new
+     local shape against its plain version and bitwise K6.
 
 Every training run sets the launch counts to 0 just before it and reads
 them just after. The last lines are one JSON object with every kernel's
@@ -182,6 +204,7 @@ JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import csv
 import json
 import math
@@ -4508,6 +4531,464 @@ def path_k_phase(torch, pl, ck, dev, totals):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# -- path L: the mesh on torch.distributed ----------------------------------------
+
+L_RANKS, L_STEPS = 4, 8
+L1_MESH, L2_MESH = (2, 2), (4, 1)        # (data, latent)
+L_TIMEOUT = 600                          # seconds for a spawn of ranks
+L_LOSS_RTOL, L_GRAD_TOL = 1e-5, 1e-4     # the first step, sharded vs not
+L_PARAM_RTOL, L_PARAM_ATOL = 1e-4, 1e-6
+L_STEPS_RTOL = 1e-4                      # each of the 8 steps' losses
+L_EPS_REGIME = 10.0                      # |g| < 10·ε: AdamW's ε regime
+L_EPS_GRAD_RTOL = 1e-2                   # such a gradient, sharded vs not
+L_WITNESS_TOL = 1e-6                     # a rank's latents vs the same batch
+
+
+def _peak_gib(torch, dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+
+def _l_model(pl, case, device):
+    """A path-L model on ``device``, carrying the case's leaves once
+    :func:`l_cases` has set them."""
+    if case["kind"] == "variational":
+        model = var_model(pl, case["X"], case["Y"], case["m"], device)
+    else:
+        model = pl.ProjectedGPModel(
+            case["X"], case["Y"], case["Y"].shape[1], case["q"],
+            init_lmc_coeffs=True, mean_type="zero", kernel_type="matern",
+            n_inducing_points=case["m"], device=device,
+            **PROJ_CONFIGS[case["config"]])
+    if "arrays" in case:
+        pl.load_jax_state(model, case["arrays"])
+    return model
+
+
+def _l_loss(pl, case):
+    if case["kind"] == "variational":
+        return lambda m: m.elbo()
+    return pl.projected_lmc_mll
+
+
+def _l_train(torch, model, opt_step, steps, params):
+    """``steps`` AdamW steps by ``opt_step()`` (returns −loss): every loss,
+    each step's host ms around a synchronize, and the first step's
+    gradients and the parameters after it."""
+    losses, ms = [], []
+    for i in range(steps):
+        loss, t = timed(torch, lambda: float(opt_step()))
+        ms.append(t)
+        losses.append(loss)
+        if i == 0:
+            grads = {n: np.zeros(tuple(p.shape)) if p.grad is None
+                     else p.grad.detach().cpu().numpy().copy()
+                     for n, p in params}
+            after = {n: p.detach().cpu().numpy().copy() for n, p in params}
+    return dict(losses=losses, ms=ms, grads=grads, params=after)
+
+
+def l_reference(torch, pl, case, dev, steps):
+    """The unsharded run on this process's card: the same AdamW(1e-2,
+    weight decay 1e-2) as ``sharded_fit_step``, ``steps`` steps."""
+    from projected_lmc_tpu_torch.module import trainable_parameters
+    model = _l_model(pl, case, dev)
+    params = trainable_parameters(model)
+    opt = torch.optim.AdamW([p for _, p in params], lr=1e-2,
+                            weight_decay=1e-2)
+    loss_fn = _l_loss(pl, case)
+
+    def opt_step():
+        opt.zero_grad(set_to_none=False)
+        loss = -loss_fn(model)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = _l_train(torch, model, opt_step, steps, params)
+    out["peak_gib"] = _peak_gib(torch, dev)
+    return model, out
+
+
+def l_restricted(model, x, lo, hi):
+    """The unsharded projected model restricted to latents lo..hi − 1, the
+    batch a rank of the latent axis holds (its covariance, likelihood and
+    mean modules sliced by ``module.latent_slice``, its own cache of the
+    projected targets' rows lo..hi − 1): the latent posterior at x."""
+    from projected_lmc_tpu_torch.module import latent_slice
+    q = model.n_funcs
+    view = copy.copy(model)
+    view._modules = dict(model._modules)
+    for name in ("covar_module", "likelihood", "mean_module"):
+        view._modules[name] = latent_slice(model._modules[name], lo, hi, q)
+    view.n_funcs = hi - lo
+    y = model._targets(model.project_data(model.train_y_tasks), "tn")
+    cache = view.precompute_posterior(y[lo:hi], "tn")
+    return view.posterior(x, cache, full_cov=False)
+
+
+def l_witness(torch, pl, case, state, x, lo, hi):
+    """An unsharded model carrying a rank's leaves ``state``: its latent
+    posterior mean and variance at x restricted to latents lo..hi − 1
+    (:func:`l_restricted`), and rows lo..hi − 1 of its whole batch's."""
+    model = _l_model(pl, dict(case, arrays=state), x.device)
+    with torch.no_grad():
+        part = l_restricted(model, x, lo, hi)
+        whole = model.compute_latent_distrib(x, full_cov=False)
+        out = ((part.mean.cpu().numpy(), part.variance.cpu().numpy()),
+               (whole.mean[lo:hi].cpu().numpy(),
+                whole.variance[lo:hi].cpu().numpy()))
+    del model, part, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def path_l_rank(rank, spec):
+    """One rank of path L's world: L1 (data 2 × latent 2), then L2 and L3
+    (data 4 × latent 1), each a sharded ``sharded_fit_step`` run with the
+    launch counts set to 0 just before and read just after; L1's sharded
+    cache and ``predict``, and ``save_orbax``/``load_orbax`` under the
+    group. Loads the kernel library the parent built."""
+    import torch
+
+    import projected_lmc_tpu_torch as pl
+    from projected_lmc_tpu_torch import parallel
+    from projected_lmc_tpu_torch.module import keyed_state, \
+        trainable_parameters
+    from projected_lmc_tpu_torch.ops import _build, cuda_kernels as ck
+    t0 = time.perf_counter()
+    dev = parallel.distributed.current_device()
+    _build.library()
+    out = {"backend": parallel.distributed.backend(), "device": str(dev),
+           "seconds": {}}
+    for label in ("L1", "L2", "L3"):
+        t1 = time.perf_counter()
+        case = spec[label]
+        mesh = parallel.make_mesh(L_RANKS, data=case["mesh"][0],
+                                  latent=case["mesh"][1])
+        model = _l_model(pl, case, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts(ck)
+        step, model, _ = parallel.sharded_fit_step(model, mesh,
+                                                   _l_loss(pl, case))
+        res = _l_train(torch, model, step, spec["steps"],
+                       trainable_parameters(model))
+        if label == "L1":
+            x_test = torch.as_tensor(case["X_test"], device=dev)
+
+            def serve():
+                cache = model.prediction_cache()
+                return cache, model.predict(x_test, observed=True,
+                                            cache=cache)
+
+            with torch.no_grad():
+                (cache, (mean, var)), serve_ms = timed(torch, serve)
+        res.update(counts=read_counts(ck), peak_gib=_peak_gib(torch, dev),
+                   mesh=dict(mesh.shape))
+        if label == "L1":
+            # the rank's own latents before the gather: a witness, after
+            # the counts are read
+            with torch.no_grad():
+                own = model.compute_latent_distrib(x_test, full_cov=False,
+                                                   cache=cache)
+            res.update(mean=mean.cpu().numpy(), var=var.cpu().numpy(),
+                       serve_ms=serve_ms, latents=cache["latents"],
+                       own_mean=own.mean.cpu().numpy(),
+                       own_var=own.variance.cpu().numpy(),
+                       state={k: v.detach().cpu().numpy()
+                              for k, v in keyed_state(model).items()})
+            del cache, own
+        out[label] = res
+        if label == "L1":
+            pl.save_orbax(model, spec["ckpt"])
+            loaded = pl.load_orbax(_l_model(pl, case, dev), spec["ckpt"])
+            a, b = keyed_state(model), keyed_state(loaded)
+            out["ckpt_max_diff"] = max(float((a[k] - b[k]).abs().max()
+                                             .detach())
+                                       for k in a if a[k].numel())
+        out["seconds"][label] = time.perf_counter() - t1
+        del model, step
+        torch.cuda.empty_cache()
+    out["seconds"]["all"] = time.perf_counter() - t0
+    return out
+
+
+def l_one_rank(pl, ck, case, dev):
+    """This process as a one-rank group (a card of its own: NCCL):
+    ``dryrun_step`` on L1's model, the launch counts set to 0 just before
+    and read just after; the group is left at the end."""
+    import tempfile
+
+    from projected_lmc_tpu_torch import parallel
+    with tempfile.TemporaryDirectory(prefix="plmc_one_") as tmp:
+        parallel.initialize("file://" + os.path.join(tmp, "rendezvous"), 1,
+                            0, device=dev.type, timeout=300)
+        try:
+            model = _l_model(pl, case, dev)
+            zero_counts(ck)
+            loss = parallel.dryrun_step(model, parallel.make_mesh(1),
+                                        pl.projected_lmc_mll)
+            return dict(loss=loss, counts=read_counts(ck),
+                        backend=parallel.distributed.backend())
+        finally:
+            parallel.distributed.shutdown()
+
+
+def l_cases(torch, pl, dev):
+    """Path L's three configurations, each a dict a rank can rebuild: its
+    data, its leaves moved off the init (uniform(−0.3, 0.3), as path F),
+    its mesh. L1: F2's full-B̃ projected model (n = 10⁴, p = 7, q = 4,
+    d = 4); L2: I3's projected SGPR (n = 44,480, d = 21, q = 7, m = 500,
+    PLMC_fast); L3: the variational model at SARCOS's n = 44,484 (I2's,
+    m = 500)."""
+    from projected_lmc_tpu_torch.module import keyed_state
+
+    X, Y = bench_data(N, seed=0)
+    Xt, _ = bench_data(N_TEST, seed=5)
+    cases = {"L1": dict(kind="projected", config="PLMC", X=X, Y=Y, q=Q,
+                        m=None, X_test=Xt, mesh=L1_MESH)}
+    rng = np.random.default_rng(1)
+    X = rng.standard_normal((I3_N, I_D)).astype(np.float32)
+    Y = rng.standard_normal((I3_N, T)).astype(np.float32)
+    cases["L2"] = dict(kind="projected", config="PLMC_fast", X=X, Y=Y, q=T,
+                       m=I_M, mesh=L2_MESH)
+    X, Y = bench_data(I2_FULL_N, seed=0, d=I_D)
+    cases["L3"] = dict(kind="variational", X=X, Y=Y, q=T, m=I_M,
+                       mesh=L2_MESH)
+    for seed, case in zip((14, 15, 16), cases.values()):
+        model = moved(torch, _l_model(pl, case, dev), seed)
+        case["arrays"] = {k: v.detach().cpu().numpy()
+                          for k, v in keyed_state(model).items()}
+    return cases
+
+
+def _l_param_err(got, want):
+    """{leaf: |got − want| / (atol + rtol·|want|)} over every entry."""
+    return {k: np.abs(got[k] - v) / (L_PARAM_ATOL + L_PARAM_RTOL * np.abs(v))
+            for k, v in want.items() if v.size}
+
+
+def _worst(errs, masks=None):
+    """(worst entry, its leaf, its index) of ``errs``, over the entries
+    ``masks`` selects (every entry without it); (0, None, None) if none."""
+    worst = (-1.0, None, None)
+    for k, e in errs.items():
+        e = e if masks is None else np.where(masks[k], e, -1.0)
+        i = np.unravel_index(int(e.argmax()), e.shape)
+        worst = max(worst, (float(e[i]), k, i), key=lambda w: w[0])
+    return worst if worst[1] is not None and worst[0] >= 0 \
+        else (0.0, None, None)
+
+
+def l_held(label, got, want, start, lr=1e-2, weight_decay=1e-2, eps=1e-8):
+    """A sharded run against the unsharded one: the first step's loss,
+    gradients and parameters at L1's limits, then every step's loss.
+
+    Every parameter entry is held to the unsharded step's at rtol + atol,
+    with one exception. In fp32 an entry whose gradient sits in AdamW's ε
+    regime moves by lr·g/(|g| + ε) on the first step, so a gradient
+    difference at the fp32 floor moves it by up to 1e6 times that. An entry
+    beyond the limit is excused only when its unsharded gradient is below
+    ``L_EPS_REGIME``·ε and its sharded one has the same sign and lies
+    within ``L_EPS_GRAD_RTOL`` of it; it is then held instead to AdamW's
+    first step taken from its sharded gradient from the same start,
+    p·(1 − lr·wd) − lr·g/(|g| + ε), at the same limit. Any other entry
+    beyond the limit fails the run."""
+    rel = abs(got["losses"][0] - want["losses"][0]) / abs(want["losses"][0])
+    grad = max(float(np.abs(got["grads"][k] - g).max()
+                     / max(np.abs(g).max(), 1e-30))
+               for k, g in want["grads"].items() if g.size)
+    errs = _l_param_err(got["params"], want["params"])
+    raw = _worst(errs)[0]
+    excused = {}
+    for k, e in errs.items():
+        g_u, g_s = want["grads"][k], got["grads"][k]
+        excused[k] = ((e > 1.0) & (np.abs(g_u) < L_EPS_REGIME * eps)
+                      & (np.sign(g_u) == np.sign(g_s))
+                      & (np.abs(g_s - g_u) <= L_EPS_GRAD_RTOL * np.abs(g_u)))
+    par, p_leaf, p_idx = _worst(errs, {k: ~m for k, m in excused.items()})
+    at = "" if p_leaf is None else (
+        f" at {p_leaf}{[int(j) for j in p_idx]} (gradient "
+        f"{want['grads'][p_leaf][p_idx]:.3e} unsharded, "
+        f"{got['grads'][p_leaf][p_idx]:.3e} sharded)")
+    e_worst, leaf, idx = _worst(errs, excused)
+    adam = {k: start[k] * (1 - lr * weight_decay)
+            - lr * g / (np.abs(g) + eps) for k, g in got["grads"].items()}
+    own, o_leaf, o_idx = _worst(_l_param_err(got["params"], adam), excused)
+    n_exc = sum(int(m.sum()) for m in excused.values())
+    steps = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                    want["losses"]))
+    print(f"  {label} sharded against unsharded: first loss rel "
+          f"{rel:.2e} (tolerance {L_LOSS_RTOL:.0e}), worst gradient "
+          f"{grad:.2e} of its largest entry ({L_GRAD_TOL:.0e}), worst "
+          f"parameter {raw:.2e} of rtol {L_PARAM_RTOL:.0e} + atol "
+          f"{L_PARAM_ATOL:.0e}, {par:.2e} outside the ε regime (≤ 1){at}, "
+          f"{len(got['losses'])} losses worst rel {steps:.2e} "
+          f"({L_STEPS_RTOL:.0e})")
+    if n_exc:
+        i = tuple(o_idx)
+        print(f"  {label}: {n_exc} parameter entries beyond the limit lie in "
+              f"AdamW's ε regime (|g| < {L_EPS_REGIME:.0f}·ε = "
+              f"{L_EPS_REGIME * eps:.0e}, the sharded gradient of its sign "
+              f"within {L_EPS_GRAD_RTOL:.0e}); the worst of them "
+              f"{leaf}{[int(j) for j in idx]} reads {e_worst:.2e} of the "
+              f"limit; "
+              f"AdamW's first step from the sharded gradient holds them to "
+              f"{own:.2e} of the limit (≤ 1), worst at "
+              f"{o_leaf}{[int(j) for j in i]} (gradient "
+              f"{want['grads'][o_leaf][i]:.3e} unsharded, "
+              f"{got['grads'][o_leaf][i]:.3e} sharded, the leaf's largest "
+              f"{float(np.abs(want['grads'][o_leaf]).max()):.3e})")
+    if not (rel <= L_LOSS_RTOL and grad <= L_GRAD_TOL and par <= 1.0
+            and own <= 1.0 and steps <= L_STEPS_RTOL
+            and len(got["losses"]) == len(want["losses"])):
+        raise SystemExit(f"chip_smoke: {label}'s sharded run disagrees with "
+                         f"the unsharded one")
+
+
+L_K3_A_STEP = {"L1": 1, "L2": 2, "L3": 2}   # K(x, x); or K(z, z) and K(x, z)
+
+
+def path_l_phase(torch, pl, ck, dev, totals):
+    """Path L: the ('data', 'latent') mesh on ``torch.distributed``, 4
+    ranks spawned with the kernels built once by this process (the ranks
+    load the library). Ranks share the card over gloo when there are fewer
+    cards than ranks, and take one each over NCCL otherwise. L1: F2's
+    projected model on data 2 × latent 2 (each rank K3 (2, 10⁴, 10⁴) and
+    potrf), 8 sharded steps against 8 unsharded ones on this card, the
+    sharded cache and ``predict`` on 2,500 points; L2: I3's projected SGPR
+    and L3: the variational ELBO at n = 44,484, both on data 4 × latent 1;
+    L4: ``dryrun_multichip(4)``, a one-rank NCCL group's ``dryrun_step``,
+    ``save_orbax``/``load_orbax`` under the 4-rank group. K3 at each new
+    local shape against its plain version and bitwise K6."""
+    import tempfile
+
+    from projected_lmc_tpu_torch.entry import dryrun_multichip
+    from projected_lmc_tpu_torch.module import keyed_state
+    from projected_lmc_tpu_torch.parallel.launch import run_ranks
+    t0 = time.perf_counter()
+    cases = l_cases(torch, pl, dev)
+    refs = {}
+    for label, case in cases.items():
+        model, refs[label] = l_reference(torch, pl, case, dev, L_STEPS)
+        ls = model.covar_module.lengthscale.detach()
+        x = model.train_x
+        lo, hi = 0, case["q"] // case["mesh"][1]
+        r1 = x.shape[0] // case["mesh"][0]
+        if label == "L1":
+            x_test = torch.as_tensor(case["X_test"], device=dev)
+            k3_shapes(torch, ck, dev, ((x, x), (x, x_test)), ls[lo:hi])
+            with torch.no_grad():
+                cache = model.prediction_cache()
+                refs[label]["mean"], refs[label]["var"] = (
+                    t.cpu().numpy() for t in model.predict(
+                        x_test, observed=True, cache=cache))
+                del cache
+            refs[label]["state"] = {k: v.detach().cpu().numpy() for k, v in
+                                    keyed_state(model).items()}
+            refs[label]["prior_var"] = prior_var_max(torch, model, x_test)
+        else:
+            k3_shapes(torch, ck, dev, ((x[:r1], model.inducing_points
+                                        .detach()),), ls[lo:hi])
+        del model
+        torch.cuda.empty_cache()
+    print(f"  unsharded references on this card: " + ", ".join(
+        f"{k} median step {float(np.median(r['ms'][1:])):.3f} ms, peak "
+        f"{r['peak_gib']:.2f} GiB" for k, r in refs.items()))
+
+    with tempfile.TemporaryDirectory(prefix="plmc_ckpt_") as tmp:
+        spec = dict(cases, steps=L_STEPS, ckpt=os.path.join(tmp, "ckpt"))
+        t1 = time.perf_counter()
+        out = run_ranks(path_l_rank, L_RANKS, (spec,), device=dev.type,
+                        timeout=L_TIMEOUT, collective_timeout=300,
+                        threads=max(1, (os.cpu_count() or 1) // L_RANKS))
+        spawn_s = time.perf_counter() - t1
+    backend = out[0]["backend"]
+    note = "ranks sharing one card: not a speed-up" \
+        if len({o["device"] for o in out}) < L_RANKS else "a card a rank"
+    sec = out[0]["seconds"]
+    print(f"  {L_RANKS} ranks over {backend} on "
+          f"{sorted({o['device'] for o in out})} ({note}), {spawn_s:.1f} s: "
+          f"start-up and rendezvous {spawn_s - sec['all']:.1f} s, then rank "
+          f"0's L1 {sec['L1']:.1f} s (with its cache, predict and "
+          f"checkpoint), L2 {sec['L2']:.1f} s, L3 {sec['L3']:.1f} s, each "
+          f"with its groups and model")
+    for label in ("L1", "L2", "L3"):
+        want = refs[label]
+        k3 = L_K3_A_STEP[label] * L_STEPS + (2 if label == "L1" else 0)
+        for r, o in enumerate(out):
+            got = o[label]
+            l_held(f"{label} rank {r} mesh {got['mesh']}", got, want,
+                   {k: cases[label]["arrays"]["." + k]
+                    for k in want["params"]})
+            if got["counts"] != expect(K3=k3):
+                raise SystemExit(f"chip_smoke: {label} rank {r} launched "
+                                 f"{got['counts']}, not K3 {k3} times")
+            totals["K3"] += got["counts"]["K3"]
+        meds = [float(np.median(o[label]["ms"][1:])) for o in out]
+        print(f"  {label} step median, sharded by rank "
+              + " / ".join(f"{m:.3f}" for m in meds)
+              + f" ms ({note}); unsharded {float(np.median(want['ms'][1:])):.3f}"
+              f" ms; peak memory by rank " + " / ".join(
+                  f"{o[label]['peak_gib']:.2f}" for o in out)
+              + f" GiB (unsharded {want['peak_gib']:.2f}); K3 {k3} a rank")
+    ref = refs["L1"]
+    x_test = torch.as_tensor(cases["L1"]["X_test"], device=dev)
+
+    def rel_to(a, b, scale):
+        return float(np.abs(a - b).max() / max(float(scale), 1e-30))
+
+    for r, o in enumerate(out):
+        got = o["L1"]
+        lo, hi = got["latents"]
+        mean_err = rel_to(got["mean"], ref["mean"], np.abs(ref["mean"]).max())
+        var_err = rel_to(got["var"], ref["var"], ref["prior_var"])
+        # the witness: the rank's latents against an unsharded model with
+        # the rank's leaves restricted to the same latents (the same batch
+        # shape), held; for the reading only, against rows lo..hi − 1 of
+        # that model's whole batch, and the rank's leaves against the
+        # unsharded run's after the 8 steps
+        (w_mean, w_var), (b_mean, b_var) = l_witness(
+            torch, pl, cases["L1"], got["state"], x_test, lo, hi)
+        wit = (rel_to(got["own_mean"], w_mean, np.abs(w_mean).max()),
+               rel_to(got["own_var"], w_var, np.abs(w_var).max()))
+        whole = (rel_to(got["own_mean"], b_mean, np.abs(w_mean).max()),
+                 rel_to(got["own_var"], b_var, np.abs(w_var).max()))
+        drift = max(rel_to(v, ref["state"][k], np.abs(ref["state"][k]).max())
+                    for k, v in got["state"].items() if v.size)
+        print(f"  L1 rank {r} latents {got['latents']}: cache + predict "
+              f"({len(got['mean'])} points) {got['serve_ms']:.3f} ms; mean "
+              f"{mean_err:.2e} of its largest entry (1e-4), variance "
+              f"{var_err:.2e} of the largest prior variance (1e-3); its "
+              f"latents' mean and variance against the unsharded model "
+              f"restricted to them {wit[0]:.2e}, {wit[1]:.2e} of their "
+              f"largest entries ({L_WITNESS_TOL:.0e}), against those rows "
+              f"of the whole batch {whole[0]:.2e}, {whole[1]:.2e}; its "
+              f"leaves after {L_STEPS} steps {drift:.2e} of each leaf's "
+              f"largest entry from the unsharded run's; checkpoint round "
+              f"trip max diff {o['ckpt_max_diff']:.1e}")
+        if not (mean_err <= 1e-4 and var_err <= 1e-3
+                and max(wit) <= L_WITNESS_TOL
+                and o["ckpt_max_diff"] == 0.0):
+            raise SystemExit("chip_smoke: L1's sharded prediction or "
+                             "checkpoint disagrees")
+
+    t1 = time.perf_counter()
+    dryrun_multichip(L_RANKS, device=dev.type, timeout=L_TIMEOUT)
+    dry_s = time.perf_counter() - t1
+    one = l_one_rank(pl, ck, cases["L1"], dev)
+    rel = abs(one["loss"] - refs["L1"]["losses"][0]) / abs(
+        refs["L1"]["losses"][0])
+    print(f"  L4 dryrun_multichip({L_RANKS}) {dry_s:.1f} s; a one-rank "
+          f"{one['backend']} group's dryrun_step on L1's model: loss "
+          f"{one['loss']:.6f}, rel {rel:.2e} from the unsharded step "
+          f"({L_LOSS_RTOL:.0e}), launches {one['counts']}")
+    if not rel <= L_LOSS_RTOL or one["counts"] != expect(K3=1):
+        raise SystemExit("chip_smoke: the one-rank group's step disagrees")
+    totals["K3"] += one["counts"]["K3"]
+    print(f"  path L took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4608,6 +5089,13 @@ def main() -> int:
           f"loaders on fixture files and the tidal study, K4 3-D kernel "
           f"inputs, profile_trace and ensure_cuda")
     path_k_phase(torch, pl, ck, dev, totals)
+    print(f"path L: the mesh on torch.distributed, {L_RANKS} spawned ranks, "
+          f"L1 F2's projected model on data {L1_MESH[0]} x latent "
+          f"{L1_MESH[1]}, L2 I3's projected SGPR and L3 the variational ELBO "
+          f"n={I2_FULL_N} on data {L2_MESH[0]} x latent {L2_MESH[1]} "
+          f"({L_STEPS} sharded steps each against unsharded ones), L4 "
+          f"dryrun_multichip, a one-rank NCCL group and the DCP checkpoint")
+    path_l_phase(torch, pl, ck, dev, totals)
 
     meta = [("K1", "scaled_kernel_stack_sym",
              "projected_lmc_tpu/ops/pallas_kernels.py:278"),

@@ -31,6 +31,13 @@ helpers (``utils.profiling``, ``utils.device.ensure_cuda``); with a
 hand-written CUDA kernel for each TPU kernel of the JAX package
 (``ops/cuda_kernels.py``, sources in ``csrc/``). Entry points default to
 ``device="cuda"``; ``device="cpu"`` runs the kernels' plain PyTorch versions.
+
+Multi-rank execution (``parallel``): the ('data', 'latent') mesh on
+``torch.distributed``, one process a rank, sharded training and prediction
+of the projected LMC (exact and SGPR) and of the variational ELBO
+(``parallel.shard_model``, ``parallel.sharded_fit_step``), checkpoints on
+``torch.distributed.checkpoint`` (``utils.checkpoint.save_orbax``) and
+``entry.dryrun_multichip``.
 """
 
 from .distributions import KronCov, SumKronRank1Cov
@@ -44,7 +51,9 @@ from .models.variational import VariationalMultitaskGPModel
 from .training import (default_scan_steps, exponential_schedule, fit,
                        fit_ensemble, fit_svgp_minibatch, fit_two_phase,
                        lambda_lr_schedule)
-from .utils.checkpoint import load_jax_state, load_model, save_model
+from .utils.checkpoint import (load_jax_state, load_model, load_orbax,
+                               save_model, save_orbax)
+from . import parallel
 
 __all__ = ["ExactGPModel", "GaussianLikelihood", "KronCov",
            "MultitaskGaussianLikelihood", "MultitaskGPModel",
@@ -52,5 +61,6 @@ __all__ = ["ExactGPModel", "GaussianLikelihood", "KronCov",
            "VariationalMultitaskGPModel", "compute_metrics",
            "default_scan_steps", "exact_mll", "exponential_schedule", "fit",
            "fit_ensemble", "fit_svgp_minibatch", "fit_two_phase", "lambda_lr_schedule",
-           "load_jax_state", "load_model", "loo_pseudo_likelihood",
-           "projected_lmc_mll", "save_model"]
+           "load_jax_state", "load_model", "load_orbax",
+           "loo_pseudo_likelihood", "parallel", "projected_lmc_mll",
+           "save_model", "save_orbax"]

@@ -16,10 +16,21 @@ for K(z, z) and K(x, z) on the card), an MLL that is the Titsias bound with
 its −tr(K − Q)/2σ² term, and posteriors through the (m, m) capacitance
 R ᵀR + σ²I, whose variance adds the gap k(x*, x*) − diag(R* R*ᵀ)
 (``sgpr_titsias_var``).
+
+Under a mesh (``parallel.shard_model``) a rank computes its latents' share
+of the task batch (``module.latent_slice``) and the group sums, by
+``parallel.sharded``'s rule: the dense route factorizes only the rank's
+(T/L, n, n) block (the ranks of one data group hold replicas of it, since
+the n×n factorization is not split by rows), and the SGPR route builds its
+rows' K_xz, (T/L, n/D, m), and sums RᵀR, Rᵀδ, δᵀδ and the trace gap over
+the data group before the m×m Cholesky. ``log_marginal``, ``mll`` and
+``compute_loo`` return the whole batch on every rank; the cache of
+``precompute_posterior`` and ``posterior`` hold the rank's latents.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import warnings
 
@@ -30,7 +41,7 @@ from ..distributions import MultivariateNormal, MultitaskMultivariateNormal
 from ..kernels import KERNEL_REGISTRY, AdditiveKernel, handle_covar
 from ..likelihoods import GaussianLikelihood
 from ..means import MEAN_REGISTRY
-from ..module import Module
+from ..module import Module, latent_slice
 from ..ops import fused_mll
 from ..ops import iterative as it_ops
 from ..ops.cholesky import (cho_solve, chol_inverse_diag, logdet_from_chol,
@@ -82,19 +93,19 @@ def _resolve(registry, spec, default):
     return registry[spec] if isinstance(spec, str) else spec
 
 
-def inducing_factor(covar_module, z):
+def inducing_factor(covar_module, z, agree=None):
     """L_zz, the lower factor of K_zz + 1e-6 I, (k, m, m) (K3 on the
-    card)."""
+    card); ``agree`` as in ``ops.cholesky.safe_cholesky``."""
     Kzz = covar_module(z)
     return safe_cholesky(Kzz + 1e-6 * torch.eye(
-        Kzz.shape[-1], dtype=Kzz.dtype, device=Kzz.device))
+        Kzz.shape[-1], dtype=Kzz.dtype, device=Kzz.device), agree=agree)
 
 
-def nystrom_roots(covar_module, z, x):
+def nystrom_roots(covar_module, z, x, agree=None):
     """R = K_xz L_zz⁻ᵀ, (k, n, m): the Nyström factors of gpytorch's
     InducingPointKernel at inducing points z, one set per kernel of the
     batch; K(z, z) and K(x, z) are kernel K3 on the card."""
-    Lzz = inducing_factor(covar_module, z)
+    Lzz = inducing_factor(covar_module, z, agree)
     return solve_triangular(Lzz, covar_module(x, z).transpose(-1, -2),
                             lower=True).transpose(-1, -2)
 
@@ -110,6 +121,8 @@ class ExactGPModel(Module):
 
     # dense batched-Cholesky ceiling of the auto-routing: T·n² elements
     ITER_TN2_MAX = 2 ** 30
+    # under a mesh, the latent group's vote on each rung of the ladder
+    _agree = None
 
     def __init__(self, train_x, train_y, likelihood, n_tasks: int = 1,
                  prior_scales=None, prior_width=None, mean_type="constant",
@@ -144,10 +157,27 @@ class ExactGPModel(Module):
         else:
             self.inducing_points = None
         self.sgpr_titsias_var = bool(sgpr_titsias_var)
+        self.mesh = None
 
     @property
     def device(self):
         return self.train_x.device
+
+    def _latent_part(self):
+        """(view, lo, hi): under the mesh, this model restricted to its
+        rank's latents lo..hi − 1 (the covariance, likelihood and mean
+        modules sliced by ``module.latent_slice``), with no mesh of its own
+        and its Cholesky ladders climbing with the latent group's."""
+        q = self.n_funcs
+        lo, hi = self.mesh.latent_range(q)
+        view = copy.copy(self)
+        view._modules = dict(self._modules)
+        for name in ("covar_module", "likelihood", "mean_module"):
+            view._modules[name] = latent_slice(self._modules[name], lo, hi, q)
+        view.n_funcs = hi - lo
+        view.mesh = None
+        view._agree = self.mesh.latent_any
+        return view, lo, hi
 
     @property
     def sgpr(self) -> bool:
@@ -186,28 +216,46 @@ class ExactGPModel(Module):
 
     def _low_rank_root(self, x):
         """R = K_xz L_zz⁻ᵀ, (T, n, m)."""
-        return nystrom_roots(self.covar_module, self.inducing_points, x)
+        return nystrom_roots(self.covar_module, self.inducing_points, x,
+                             self._agree)
 
-    def _sgpr_capacitance(self, R):
-        """The lower factor of RᵀR + σ²I, (T, m, m)."""
+    def _sgpr_capacitance(self, gram):
+        """The lower factor of RᵀR + σ²I, (T, m, m), from the Gram RᵀR."""
         s2 = self.likelihood.noise[..., 0][:, None, None]
-        eye = torch.eye(R.shape[-1], dtype=R.dtype, device=R.device)
-        return safe_cholesky(R.transpose(-1, -2) @ R + s2 * eye)
+        eye = torch.eye(gram.shape[-1], dtype=gram.dtype, device=gram.device)
+        return safe_cholesky(gram + s2 * eye, agree=self._agree)
 
-    def _sgpr_log_prob(self, x, delta):
-        """Titsias bound per task: log N(y; m, Q + σ²I) − tr(K − Q)/(2σ²),
-        (T,)."""
-        n = x.shape[0]
+    def _sgpr_sums(self, x, delta, reduce=None, gap: bool = True):
+        """RᵀR (T, m, m), Rᵀδ (T, m, 1), δᵀδ (T,) and, with ``gap``, the
+        trace gap Σᵢ max(k_ii − ‖rᵢ‖², 0) (T,) over the rows of x; with
+        ``reduce`` (a mesh's ``data_sum``) summed over the data group in one
+        call."""
         R = self._low_rank_root(x)                               # (T, n, m)
-        m = R.shape[-1]
-        Lc = self._sgpr_capacitance(R)
-        Rty = R.transpose(-1, -2) @ delta[..., None]
+        Rt = R.transpose(-1, -2)
+        sums = [Rt @ R, Rt @ delta[..., None], (delta * delta).sum(-1)]
+        if gap:
+            sums.append(torch.clamp(self.covar_module(x, diag=True)
+                                    - (R * R).sum(-1), min=0.0).sum(-1))
+        if reduce is None:
+            return sums
+        T = R.shape[0]
+        packed = reduce(torch.cat([t.reshape(T, -1) for t in sums], 1))
+        parts = packed.split([t[0].numel() for t in sums], 1)
+        return [p.reshape(t.shape) for p, t in zip(parts, sums)]
+
+    def _sgpr_log_prob(self, x, delta, reduce=None, n: int = None):
+        """Titsias bound per task: log N(y; m, Q + σ²I) − tr(K − Q)/(2σ²),
+        (T,). Under a mesh x and δ are the rank's rows, ``reduce`` sums the
+        Gram and row sums over the data group, and n is the global n."""
+        n = x.shape[0] if n is None else n
+        gram, Rty, dd, gap = self._sgpr_sums(x, delta, reduce)
+        m = gram.shape[-1]
+        Lc = self._sgpr_capacitance(gram)
         w = solve_triangular(Lc, Rty, lower=True)[..., 0]
         s2 = self.likelihood.noise[..., 0]                       # (T,)
-        quad = ((delta * delta).sum(-1) - (w * w).sum(-1)) / s2
+        quad = (dd - (w * w).sum(-1)) / s2
         logdet = (n - m) * torch.log(s2) + logdet_from_chol(Lc)
-        gap = self.covar_module(x, diag=True) - (R * R).sum(-1)
-        trace_term = torch.clamp(gap, min=0.0).sum(-1) / (2 * s2)
+        trace_term = gap / (2 * s2)
         return -0.5 * (quad + logdet + n * math.log(2 * math.pi)) - trace_term
 
     def log_marginal(self, y=None, x=None, orientation: str = "auto"):
@@ -218,14 +266,33 @@ class ExactGPModel(Module):
         y = self.train_y if y is None else _canon_targets(
             torch.as_tensor(y, dtype=x.dtype, device=x.device), self.n_funcs,
             orientation)
+        if self.mesh is not None:
+            return self._sharded_log_marginal(x, y)
         n = x.shape[0]
         delta = y - self.mean_module(x)
         if self.sgpr:
             return self._sgpr_log_prob(x, delta)
-        L = safe_cholesky(self.likelihood.add_to_covar(self.covar_module(x)))
+        L = safe_cholesky(self.likelihood.add_to_covar(self.covar_module(x)),
+                          agree=self._agree)
         z = solve_triangular(L, delta[..., None], lower=True)[..., 0]
         return -0.5 * ((z * z).sum(-1) + logdet_from_chol(L)
                        + n * math.log(2 * math.pi))
+
+    def _sharded_log_marginal(self, x, y):
+        """``log_marginal`` under the mesh: this rank's latents (and, on the
+        SGPR route, its rows), the whole (T,) gathered over the latent
+        group."""
+        view, lo, hi = self._latent_part()
+        if self.sgpr:
+            n = x.shape[0]
+            r0, r1 = self.mesh.data_range(n)
+            delta = self.mesh.block(y, (slice(lo, hi), slice(r0, r1))) \
+                - view.mean_module(x[r0:r1])
+            ll = view._sgpr_log_prob(x[r0:r1], delta, self.mesh.data_sum, n)
+        else:
+            ll = view.log_marginal(y=self.mesh.block(y, slice(lo, hi)), x=x,
+                                   orientation="tn")
+        return self.mesh.gather_latents(ll, lo, hi, self.n_funcs)
 
     def mll(self, x=None, y=None, iterative: bool = None,
             num_probes: int = 10, max_cg_iters: int = 256,
@@ -257,7 +324,7 @@ class ExactGPModel(Module):
         if iterative is None:
             iterative = (not self.sgpr
                          and self.n_funcs * n * n > self.ITER_TN2_MAX)
-            if iterative:
+            if iterative and self.mesh is None:
                 warnings.warn(
                     "ExactGPModel.mll: T·n² exceeds the dense-Cholesky "
                     "ceiling — auto-routing to the matrix-free PCG/SLQ "
@@ -269,6 +336,11 @@ class ExactGPModel(Module):
         if not iterative:
             ll = self.log_marginal(y=y, x=x)
             return (ll.sum() + self.covar_module.prior_log_prob()) / n
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "ExactGPModel's iterative MLL under a mesh is ROADMAP A 14 "
+                "(the row-sharded PCG); pass iterative=False for the dense "
+                "route")
         from .multitask import _fused_stationary_spec
         y_ = self.train_y if y is None else _canon_targets(
             torch.as_tensor(y, dtype=x_.dtype, device=x_.device), self.n_funcs)
@@ -337,27 +409,45 @@ class ExactGPModel(Module):
         for :meth:`posterior`, or on the SGPR route dict(kind="sgpr", Lc,
         beta, noise) with Lc the capacitance's factor and β = (RᵀR +
         σ²I)⁻¹Rᵀ(y − m), (T, m). ``targets`` re-targets the model (the
-        projected data of ``ProjectedGPModel``)."""
-        delta = self._targets(targets, orientation) \
-            - self.mean_module(self.train_x)
+        projected data of ``ProjectedGPModel``). Under a mesh the cache
+        holds the rank's latents lo..hi − 1, ``latents=(lo, hi)``, the
+        SGPR route's sums taken over the data group."""
+        y = self._targets(targets, orientation)
+        if self.mesh is not None:
+            view, lo, hi = self._latent_part()
+            if self.sgpr:
+                x = self.train_x
+                r0, r1 = self.mesh.data_range(x.shape[0])
+                delta = y[lo:hi, r0:r1] - view.mean_module(x[r0:r1])
+                cache = view._sgpr_cache(x[r0:r1], delta, self.mesh.data_sum)
+            else:
+                cache = view.precompute_posterior(y[lo:hi], "tn")
+            return dict(cache, latents=(lo, hi))
+        delta = y - self.mean_module(self.train_x)
         if self.sgpr:
-            R = self._low_rank_root(self.train_x)
-            Lc = self._sgpr_capacitance(R)
-            beta = cho_solve(Lc, R.transpose(-1, -2) @ delta[..., None])
-            return dict(kind="sgpr", Lc=Lc, beta=beta[..., 0],
-                        noise=self.likelihood.noise)
-        L = safe_cholesky(self._train_covar())
+            return self._sgpr_cache(self.train_x, delta)
+        L = safe_cholesky(self._train_covar(), agree=self._agree)
         alpha = cho_solve(L, delta[..., None])[..., 0]          # (T, n)
         return dict(kind="exact", L=L, alpha=alpha)
+
+    def _sgpr_cache(self, x, delta, reduce=None):
+        gram, Rty, _ = self._sgpr_sums(x, delta, reduce, gap=False)
+        Lc = self._sgpr_capacitance(gram)
+        beta = cho_solve(Lc, Rty)
+        return dict(kind="sgpr", Lc=Lc, beta=beta[..., 0],
+                    noise=self.likelihood.noise)
 
     def posterior(self, x_star, cache=None, full_cov: bool = True,
                   targets=None) -> MultivariateNormal:
         """Latent posterior p(f* | data), a batched MVN (T, n*): dense
         covariance with ``full_cov``, else its diagonal, clipped at 1e-12.
         The (T, n, n*) cross-covariance is kernel K3 on the card; on the
-        SGPR route the (T, n*, m) K(x*, z) is."""
+        SGPR route the (T, n*, m) K(x*, z) is. Under a mesh, the rank's
+        latents (the cache's ``latents``)."""
         if cache is None:
             cache = self.precompute_posterior(targets)
+        if self.mesh is not None:
+            return self._latent_part()[0].posterior(x_star, cache, full_cov)
         x_star = _as_inputs(x_star, self.train_x)
         if cache["kind"] == "sgpr":
             return self._sgpr_posterior(x_star, cache, full_cov)
@@ -404,9 +494,18 @@ class ExactGPModel(Module):
         K⁻ = K⁻¹ − K⁻¹H(HᵀK⁻¹H)⁻¹HᵀK⁻¹ with H the mean's basis matrix
         (projected_lmc.py:417-430; HᵀK⁻¹H factored with a 1e-6 ridge), and
         residuals K⁻y·σ² of the targets themselves, as the JAX model; a mean
-        without ``basis_matrix`` raises ``ValueError``."""
+        without ``basis_matrix`` raises ``ValueError``. Under a mesh each
+        rank computes its latents' columns, gathered over the latent
+        group."""
         y = self._targets(targets, orientation)
-        L = safe_cholesky(self._train_covar())
+        if self.mesh is not None:
+            view, lo, hi = self._latent_part()
+            out = view.compute_loo(y[lo:hi], complex_mean, "tn")
+            out = [self.mesh.gather_latents(t, lo, hi, self.n_funcs, dim=1)
+                   for t in out]
+            return tuple(t.detach() for t in out) if self.n_funcs > 1 \
+                else tuple(out)
+        L = safe_cholesky(self._train_covar(), agree=self._agree)
         if complex_mean:
             try:
                 H = self.mean_module.basis_matrix(self.train_x)  # (n, k)

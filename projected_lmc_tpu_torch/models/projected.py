@@ -25,6 +25,15 @@ cross-covariance (K3) and one triangular solve. With
 ``n_inducing_points`` the latent GPs take ``ExactGPModel``'s Titsias SGPR
 route (K3 builds K(z, z) and K(x, z)), and ``projected_lmc_mll``,
 ``prediction_cache``, ``predict`` and ``compute_loo`` run on it unchanged.
+
+Under a mesh (``parallel.shard_model``) the projection and its terms are
+computed whole on every rank (the (n, p) targets are small), each rank
+keeps its latents' rows of the (q, n) projected target and factorizes
+only its latents (``ExactGPModel`` under a mesh); ``predict`` and
+``forward`` gather the latents' means and (co)variances over the latent
+group (a sum of zero-padded buffers, exact: q·n* numbers where mixing
+first would sum p·n*) and mix them with H as one process does, so the
+mixing rounds as the unsharded model's, then add the noise diagonal once.
 """
 
 from __future__ import annotations
@@ -437,20 +446,33 @@ class ProjectedGPModel(ExactGPModel):
         """Eval-mode full posterior: the latent posterior mixed up to the
         tasks, covariance Σ_b K_b ⊗ h_b h_bᵀ (+ I ⊗ Σ when ``observed``)."""
         latent = self.compute_latent_distrib(x, full_cov=True)
+        mean, cov = latent.mean, latent.covariance_matrix
+        if self.mesh is not None:
+            q = self.n_latents
+            lo, hi = self.mesh.latent_range(q)
+            both = self.mesh.gather_latents(
+                torch.cat([mean, cov.flatten(1)], 1), lo, hi, q)
+            mean = both[:, :mean.shape[1]]
+            cov = both[:, mean.shape[1]:].reshape(q, *cov.shape[1:])
         H = self.lmc_coefficients()                             # (q, p)
         Sigma = self.full_likelihood().task_covariance() if observed else None
-        return MultitaskMultivariateNormal(
-            latent.mean.T @ H,
-            SumKronRank1Cov(latent.covariance_matrix, H.T, Sigma))
+        return MultitaskMultivariateNormal(mean.T @ H,
+                                           SumKronRank1Cov(cov, H.T, Sigma))
 
     def predict(self, x, observed: bool = True, cache=None):
         """(mean, variance), both (n*, p), at x, with the observation noise
         when ``observed``. Pass ``cache=model.prediction_cache()`` to reuse
         the training system's factorization across calls."""
         latent = self.compute_latent_distrib(x, full_cov=False, cache=cache)
+        mean, var = latent.mean, latent.variance
+        if self.mesh is not None:
+            lo, hi = self.mesh.latent_range(self.n_latents)
+            mean, var = self.mesh.gather_latents(
+                torch.cat([mean, var], 1), lo, hi, self.n_latents).split(
+                mean.shape[1], 1)
         H = self.lmc_coefficients()
-        mean = latent.mean.T @ H
-        var = latent.variance.T @ (H * H)
+        mean = mean.T @ H
+        var = var.T @ (H * H)
         if observed:
             Sigma = self.full_likelihood().task_covariance()
             var = var + torch.diagonal(Sigma)[None, :]

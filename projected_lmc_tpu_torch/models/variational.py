@@ -14,6 +14,15 @@ K(z, z) and K(x, z) are kernel K3 on the card (``kernels``). The
 closed-form SGPR E-step (``sgpr_warm_start``) and noise M-step
 (``noise_mstep``) run once, in float64 on the model's device, and write
 the model in place.
+
+Under a mesh (``parallel.shard_model``) the ELBO takes the rank's rows
+(data axis) and its latents (latent axis, ``var_mean``, ``var_chol`` and
+the kernel's leaves sliced), and sums by ``parallel.sharded``'s rule: μ·W
+and the trace term Σ_b var_b·(WΣt⁻¹Wᵀ)_bb and the KL over the latent group
+in one call, the expected log-likelihood over the data group; its n·logdet
+term counts the rank's rows, ``num_data`` stays the global n.
+``model(x, observed=True)`` mixes the rank's latents and sums over the
+latent group. The E/M steps are not sharded.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import torch
 from ..kernels import KERNEL_REGISTRY, handle_covar
 from ..likelihoods import MultitaskGaussianLikelihood
 from ..means import MEAN_REGISTRY
-from ..module import Module
+from ..module import Module, latent_slice
 from ..ops.cholesky import (cho_solve, logdet_from_chol, safe_cholesky,
                             solve_triangular)
 from ..ops.init_ops import init_lmc_coefficients, latin_hypercube, sobol
@@ -113,6 +122,9 @@ class VariationalMultitaskGPModel(Module):
     lower triangle is used) or ``var_chol_diag``, ``lmc_coeffs`` (q, T),
     ``output_mean_module.*``, ``covar_module.*``, ``likelihood.*``.
     ``train_y`` is stored (n, T)."""
+
+    # under a mesh, the latent group's vote on each rung of the ladder
+    _agree = None
 
     def __init__(self, train_x, n_latents: int, n_tasks: int = None,
                  train_ind_ratio: float = 1.5, seed: int = 0,
@@ -230,6 +242,7 @@ class VariationalMultitaskGPModel(Module):
                                 "K_zz's Cholesky failed up to a jitter of "
                                 "1e2")
                     self.var_chol.copy_(L)
+        self.mesh = None
 
     @property
     def device(self):
@@ -333,18 +346,32 @@ class VariationalMultitaskGPModel(Module):
         return self
 
     # -- variational machinery ----------------------------------------------------
-    def _S_chol(self):
-        """(q, m, m) lower factor of S, or None for the delta
-        distribution."""
+    def _S_chol(self, lo: int = 0, hi: int = None):
+        """(hi − lo, m, m) lower factor of S for latents lo..hi − 1 (all by
+        default), or None for the delta distribution."""
         if self.distrib == "cholesky":
-            return torch.tril(self.var_chol)
+            return torch.tril(self.var_chol[lo:hi])
         if self.distrib == "mean_field":
-            return torch.diag_embed(self.var_chol_diag)
+            return torch.diag_embed(self.var_chol_diag[lo:hi])
         return None
 
-    def _kernel_factors(self):
-        """L_zz, the lower factor of K_zz + 1e-6 I, (q, m, m)."""
-        return inducing_factor(self.covar_module, self.inducing_points)
+    def _kernel_factors(self, covar=None):
+        """L_zz, the lower factor of K_zz + 1e-6 I, (q, m, m), for
+        ``covar`` (default: the covariance module)."""
+        return inducing_factor(
+            self.covar_module if covar is None else covar,
+            self.inducing_points,
+            None if self.mesh is None else self.mesh.latent_any)
+
+    def _latents(self):
+        """(lo, hi, covar): the latents lo..hi − 1 this rank computes and
+        the covariance module restricted to them; every latent and the
+        module itself without a mesh."""
+        q = self.n_latents
+        if self.mesh is None:
+            return 0, q, self.covar_module
+        lo, hi = self.mesh.latent_range(q)
+        return lo, hi, latent_slice(self.covar_module, lo, hi, q)
 
     def compute_latent_distrib(self, x, full_cov: bool = False,
                                prior: bool = False):
@@ -359,9 +386,22 @@ class VariationalMultitaskGPModel(Module):
                 return mean, self.covar_module(x)
             return mean, torch.clamp(self.covar_module(x, diag=True),
                                      min=1e-12)
-        Lzz = self._kernel_factors()
-        Kxz = self.covar_module(x, self.inducing_points)        # (q, n, m)
-        S_chol = self._S_chol()
+        lo, hi, covar = self._latents()
+        mean, cov = self._latent_distrib(x, full_cov, lo, hi, covar)
+        if self.mesh is None:
+            return mean, cov
+        q = self.n_latents
+        both = self.mesh.gather_latents(
+            torch.cat([mean, cov.flatten(1)], 1), lo, hi, q)
+        return (both[:, :mean.shape[1]],
+                both[:, mean.shape[1]:].reshape(q, *cov.shape[1:]))
+
+    def _latent_distrib(self, x, full_cov, lo, hi, covar):
+        """q(f_b(x)) for latents lo..hi − 1, ``covar`` their covariance
+        module (:meth:`_latents`)."""
+        Lzz = self._kernel_factors(covar)
+        Kxz = covar(x, self.inducing_points)                    # (q, n, m)
+        S_chol = self._S_chol(lo, hi)
         if self.whitened:
             A = solve_triangular(Lzz, Kxz.transpose(-1, -2),
                                  lower=True).transpose(-1, -2)  # (q, n, m)
@@ -371,31 +411,40 @@ class VariationalMultitaskGPModel(Module):
             # + (interp S)(interp S)ᵀ
             A = cho_solve(Lzz, Kxz.transpose(-1, -2)).transpose(-1, -2)
             B = A @ Lzz
-        mean = (A @ self.var_mean[..., None])[..., 0]
+        mean = (A @ self.var_mean[lo:hi, :, None])[..., 0]
         AS = None if S_chol is None else A @ S_chol
         if full_cov:
-            cov = self.covar_module(x) - B @ B.transpose(-1, -2)
+            cov = covar(x) - B @ B.transpose(-1, -2)
             if AS is not None:
                 cov = cov + AS @ AS.transpose(-1, -2)
             return mean, cov
-        var = self.covar_module(x, diag=True) - (B * B).sum(-1)
+        var = covar(x, diag=True) - (B * B).sum(-1)
         if AS is not None:
             var = var + (AS * AS).sum(-1)
         return mean, torch.clamp(var, min=1e-12)
 
     def kl_divergence(self):
         """Σ_b KL(q(u_b) ‖ p(u_b)); the whitened prior is N(0, I). The
-        delta distribution's KL is −log p(m), gpytorch's MAP convention."""
-        S_chol = self._S_chol()
-        m = self.var_mean.shape[-1]
+        delta distribution's KL is −log p(m), gpytorch's MAP convention.
+        Under a mesh each rank sums its latents' and the latent group the
+        rest."""
+        lo, hi, covar = self._latents()
+        kl = self._kl(lo, hi, covar)
+        return kl if self.mesh is None else self.mesh.latent_sum(kl)
+
+    def _kl(self, lo, hi, covar):
+        """Σ_b KL(q(u_b) ‖ p(u_b)) over latents lo..hi − 1."""
+        S_chol = self._S_chol(lo, hi)
+        var_mean = self.var_mean[lo:hi]
+        m = var_mean.shape[-1]
         log2pi = m * math.log(2 * math.pi)
         if self.whitened:
-            quad = (self.var_mean * self.var_mean).sum(-1)
+            quad = (var_mean * var_mean).sum(-1)
             if S_chol is None:
                 return (0.5 * (quad + log2pi)).sum()
         else:
-            Lzz = self._kernel_factors()
-            w = solve_triangular(Lzz, self.var_mean[..., None],
+            Lzz = self._kernel_factors(covar)
+            w = solve_triangular(Lzz, var_mean[..., None],
                                  lower=True)[..., 0]
             quad = (w * w).sum(-1)
             logdet_K = logdet_from_chol(Lzz)
@@ -416,10 +465,14 @@ class VariationalMultitaskGPModel(Module):
         mixing of the latents plus the task means (and diag(Σt) when
         ``observed``)."""
         x = _as_inputs(x, self.train_x)
-        mean_l, var_l = self.compute_latent_distrib(x, full_cov=False)
-        W = self.lmc_coeffs
-        mean = mean_l.T @ W + self.output_mean_module(x).T
-        var = var_l.T @ (W * W)
+        lo, hi, covar = self._latents()
+        mean_l, var_l = self._latent_distrib(x, False, lo, hi, covar)
+        W = self.lmc_coeffs[lo:hi]
+        mean, var = mean_l.T @ W, var_l.T @ (W * W)
+        if self.mesh is not None:
+            mean, var = self.mesh.latent_sum(torch.cat([mean, var], 1)).split(
+                W.shape[1], 1)
+        mean = mean + self.output_mean_module(x).T
         if observed:
             var = var + torch.diagonal(self.likelihood.task_covariance())[
                 None, :]
@@ -430,26 +483,39 @@ class VariationalMultitaskGPModel(Module):
         / num_data, the expected log-likelihood under the multitask
         Gaussian noise Σt in closed form. ``x``, ``y`` (n, T) default to
         the training data, ``num_data`` to their n (a minibatch passes the
-        full n)."""
+        full n). Under a mesh each rank takes its rows of x and y and its
+        latents, and the sums run over the groups."""
         x = self.train_x if x is None else _as_inputs(x, self.train_x)
         y = self.train_y if y is None else torch.as_tensor(
             y, dtype=x.dtype, device=x.device)
+        num_data = x.shape[0] if num_data is None else num_data
+        if self.mesh is not None:
+            r0, r1 = self.mesh.data_range(x.shape[0])
+            x, y = x[r0:r1], y[r0:r1]
         n = x.shape[0]
-        num_data = n if num_data is None else num_data
-        mean_l, var_l = self.compute_latent_distrib(x, full_cov=False)
-        W = self.lmc_coeffs                                     # (q, T)
-        delta = y - (mean_l.T @ W + self.output_mean_module(x).T)  # (n, T)
+        lo, hi, covar = self._latents()
+        mean_l, var_l = self._latent_distrib(x, False, lo, hi, covar)
+        W = self.lmc_coeffs[lo:hi]                              # (q, T)
         Sigma_t = self.likelihood.task_covariance()
         Rt = safe_cholesky(Sigma_t)
-        z = solve_triangular(Rt, delta.T, lower=True)           # (T, n)
         T = Sigma_t.shape[-1]
         # trace term: Σ_n Σ_b var_b(x_n) (W Σt⁻¹ Wᵀ)_bb
         wsw = (W.T * cho_solve(Rt, W.T)).sum(0)                 # (q,)
-        exp_ll = -0.5 * ((z * z).sum() + (var_l * wsw[:, None]).sum()
+        mix, trace = mean_l.T @ W, (var_l * wsw[:, None]).sum()
+        kl = self._kl(lo, hi, covar)
+        if self.mesh is not None:
+            packed = self.mesh.latent_sum(torch.cat(
+                [mix.reshape(-1), trace[None], kl[None]]))
+            mix, trace, kl = packed[:-2].reshape(mix.shape), packed[-2], \
+                packed[-1]
+        delta = y - (mix + self.output_mean_module(x).T)        # (n, T)
+        z = solve_triangular(Rt, delta.T, lower=True)           # (T, n)
+        exp_ll = -0.5 * ((z * z).sum() + trace
                          + n * (logdet_from_chol(Rt)
                                 + T * math.log(2 * math.pi)))
-        return (exp_ll - self.kl_divergence()
-                + self.covar_module.prior_log_prob()) / num_data
+        if self.mesh is not None:
+            exp_ll = self.mesh.data_sum(exp_ll)
+        return (exp_ll - kl + self.covar_module.prior_log_prob()) / num_data
 
     # -- introspection ---------------------------------------------------------------
     def lscales(self, unpacked: bool = True):

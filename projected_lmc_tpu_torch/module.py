@@ -18,6 +18,7 @@ is written as JAX writes a list index (``kernels[0]``).
 
 from __future__ import annotations
 
+import copy
 import re
 
 import torch
@@ -40,7 +41,9 @@ class Module(nn.Module):
 
 def trainable_parameters(module: nn.Module):
     """[(name, parameter)] of the parameters the optimizer updates — the
-    port of ``trainable_mask`` + ``partition``."""
+    port of ``trainable_mask`` + ``partition``. The JAX package's
+    ``combine`` has no counterpart: the optimizer updates these tensors in
+    place, so the model never comes apart."""
     return [(n, p) for n, p in module.named_parameters() if p.requires_grad]
 
 
@@ -57,3 +60,26 @@ def keyed_state(module: nn.Module) -> dict:
     out = {jax_key(n): p for n, p in module.named_parameters()}
     out.update({jax_key(n): b for n, b in module.named_buffers()})
     return out
+
+
+def latent_slice(module: nn.Module, lo: int, hi: int, q: int) -> nn.Module:
+    """A shallow copy of ``module`` and of every submodule in which each
+    parameter and buffer whose leading dimension is ``q`` is its rows
+    ``lo:hi`` (a view, so gradients reach the whole leaf) and each integer
+    ``batch`` equal to ``q`` is ``hi - lo``: the module restricted to latents
+    lo..hi − 1, as a rank of the mesh's latent axis computes them. The
+    original is not changed."""
+    view = copy.copy(module)
+
+    def part(t):
+        if t is not None and t.dim() > 0 and t.shape[0] == q:
+            return t[lo:hi]
+        return t
+
+    view._parameters = {k: part(p) for k, p in module._parameters.items()}
+    view._buffers = {k: part(b) for k, b in module._buffers.items()}
+    view._modules = {k: None if m is None else latent_slice(m, lo, hi, q)
+                     for k, m in module._modules.items()}
+    if getattr(module, "batch", None) == q:
+        view.batch = hi - lo
+    return view

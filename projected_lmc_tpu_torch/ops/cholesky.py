@@ -35,14 +35,18 @@ def _factor(A):
     return L, (info != 0) | ~diag_ok
 
 
-def _jittered_cholesky(A, max_tries: int):
+def _jittered_cholesky(A, max_tries: int, agree=None):
     """(L, jitter): the factor and the jitter of the rung that gave it (0
-    when A factored as it is; the last rung's when every rung failed)."""
+    when A factored as it is; the last rung's when every rung failed).
+    ``agree`` (a mesh's ``latent_any``) turns this rank's "some element
+    failed" into the latent group's, so that the ranks holding one batch
+    between them climb the ladder together, as one batch would."""
     L, bad = _factor(A)
     jitter = _BASE_JITTER.get(A.dtype, 1e-6)
     used = 0.0
     for _ in range(max_tries):
-        if not bool(bad.any()):
+        failed = bad.any() if agree is None else agree(bad.any())
+        if not bool(failed):
             return L, used
         Aj = A.clone()
         Aj.diagonal(dim1=-2, dim2=-1).add_(jitter)
@@ -63,8 +67,8 @@ def _phi(X):
 
 class _SafeCholesky(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, A, max_tries):
-        L, _ = _jittered_cholesky(A, max_tries)
+    def forward(ctx, A, max_tries, agree):
+        L, _ = _jittered_cholesky(A, max_tries, agree)
         ctx.save_for_backward(L)
         return L
 
@@ -78,13 +82,14 @@ class _SafeCholesky(torch.autograd.Function):
         X = torch.linalg.solve_triangular(Lt, P, upper=True)
         A_bar = torch.linalg.solve_triangular(
             Lt, X.transpose(-1, -2), upper=True).transpose(-1, -2)
-        return 0.5 * (A_bar + A_bar.transpose(-1, -2)), None
+        return 0.5 * (A_bar + A_bar.transpose(-1, -2)), None, None
 
 
-def safe_cholesky(A, max_tries: int = MAX_TRIES):
+def safe_cholesky(A, max_tries: int = MAX_TRIES, agree=None):
     """Lower Cholesky factor of ``A`` (+ escalating jitter on failure),
-    batched over leading dimensions."""
-    return _SafeCholesky.apply(A, max_tries)
+    batched over leading dimensions; ``agree`` as in
+    :func:`_jittered_cholesky`."""
+    return _SafeCholesky.apply(A, max_tries, agree)
 
 
 def safe_cholesky_with_jitter(A, max_tries: int = MAX_TRIES):

@@ -1,0 +1,283 @@
+"""The ('data', 'latent') mesh of the port, and the model sharding rules
+(port of ``projected_lmc_tpu/parallel/mesh.py``).
+
+Two axes, as in the JAX package:
+
+  * ``latent``: the q-batch of latent GPs. Each rank of a latent group
+    factorizes its own latents (kernel K3 and one batched Cholesky on its
+    (q/L, n, n) block).
+  * ``data``: rows of the training set. On the SGPR route and in the
+    variational ELBO each rank of a data group builds its rows' K_xz with
+    K3 and the Gram and row sums are summed over the group.
+
+The JAX package places the leaves (:func:`model_shardings`) and lets XLA
+partition the computation. PyTorch has no partitioner, so here the mesh is
+attached to the model (:func:`shard_model`) and the model's own methods
+compute the rank's terms and the group sums (``parallel.sharded`` states
+the rule). The ranks form the grid ``reshape(data, latent)`` in rank order,
+as JAX's ``make_mesh`` lays out devices: rank = d·L + l.
+
+A :class:`Mesh` built with no process group (no
+``distributed.initialize``) is a layout: :func:`sharding_report` reads it,
+and a collective on one of its axes raises unless the axis has one rank.
+"""
+
+from __future__ import annotations
+
+import re
+
+import torch
+
+from ..module import keyed_state
+from . import collectives as col
+
+_LATENT_SCOPES = ("covar_module", "likelihood", "train_y", "var_mean",
+                  "var_chol", "lmc_coeffs", "mean_module")
+
+
+class Mesh:
+    """Axis sizes ``shape = {"data": D, "latent": L}``, this rank's place in
+    the grid (``data_index``, ``latent_index``), its latent and data process
+    groups, and its device. ``groups`` is None for a layout."""
+
+    axis_names = ("data", "latent")
+
+    def __init__(self, data: int, latent: int, rank: int = 0, groups=None,
+                 device=None):
+        self.shape = {"data": int(data), "latent": int(latent)}
+        self.size = self.shape["data"] * self.shape["latent"]
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is outside a mesh of {self.size}")
+        self.rank = int(rank)
+        self.data_index, self.latent_index = divmod(self.rank, int(latent))
+        self._groups = groups
+        self.device = device
+
+    def __repr__(self):
+        return (f"Mesh(data={self.shape['data']}, latent="
+                f"{self.shape['latent']}, rank={self.rank}, "
+                f"{'initialized' if self._groups else 'layout'})")
+
+    def group(self, axis: str):
+        """The process group of ``axis`` ("data", "latent" or "world"), or
+        None for an axis of one rank in a layout."""
+        if self._groups is not None:
+            return self._groups[axis]
+        if (self.size if axis == "world" else self.shape[axis]) == 1:
+            return None
+        raise RuntimeError(
+            f"this Mesh is a layout with no process group, and its {axis} "
+            f"axis has more than one rank: call parallel.initialize() and "
+            f"build the mesh with make_mesh or make_global_mesh")
+
+    @staticmethod
+    def _range(count: int, parts: int, index: int):
+        return index * count // parts, (index + 1) * count // parts
+
+    def latent_range(self, q: int):
+        """(lo, hi): this rank's latents lo..hi − 1 of q."""
+        return self._range(q, self.shape["latent"], self.latent_index)
+
+    def data_range(self, n: int):
+        """(lo, hi): this rank's rows lo..hi − 1 of n."""
+        return self._range(n, self.shape["data"], self.data_index)
+
+    def latent_sum(self, x):
+        """Σ over the latent group, differentiable."""
+        g = self.group("latent")
+        return x if g is None else col.group_sum(x, g)
+
+    def data_sum(self, x):
+        """Σ over the data group, differentiable."""
+        g = self.group("data")
+        return x if g is None else col.group_sum(x, g)
+
+    def gather_latents(self, x, lo: int, hi: int, q: int, dim: int = 0):
+        """The whole q-batch from this rank's latents lo..hi − 1 along
+        ``dim``, differentiable."""
+        g = self.group("latent")
+        return x if g is None else col.gather(x, lo, hi, q, g, dim)
+
+    def block(self, x, index):
+        """``x[index]``, this rank's block of a tensor every rank computes
+        whole, whose backward hands every rank the whole gradient
+        (``collectives.block`` over all ranks)."""
+        g = self.group("world")
+        return x[index] if g is None else col.block(x, index, g, self.size)
+
+    def latent_any(self, flag) -> bool:
+        """True if ``flag`` holds on any rank of the latent group."""
+        g = self.group("latent")
+        return bool(flag) if g is None else col.any_of(flag, g)
+
+    def broadcast_(self, tensors):
+        """Rank 0's values into every rank's ``tensors``, in place."""
+        if self.group("world") is not None:
+            col.broadcast_(list(tensors), self.group("world"))
+
+    def average_(self, tensors):
+        """Each tensor replaced by its mean over all ranks, in place."""
+        if self.group("world") is not None:
+            col.average_(list(tensors), self.group("world"))
+
+
+def make_mesh(n_devices: int = None, latent: int = None,
+              data: int = None) -> Mesh:
+    """A ('data', 'latent') mesh over the world's ranks (1 without a process
+    group). Axis sizes when not given, as JAX's: latent 2 when the count is
+    even, else 1, the rest to data. Under a process group every rank must
+    call it: it builds the groups (``torch.distributed.new_group``). With
+    no process group it is a layout of rank 0."""
+    import torch.distributed as dist
+
+    from . import distributed
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_devices is None:
+        n_devices = world
+    if latent is None and data is None:
+        latent = 2 if n_devices % 2 == 0 else 1
+        data = n_devices // latent
+    elif latent is None:
+        latent = n_devices // data
+    elif data is None:
+        data = n_devices // latent
+    if latent * data != n_devices:
+        raise AssertionError("mesh axes must multiply to n_devices")
+    if not dist.is_initialized():
+        return Mesh(data, latent)
+    if n_devices != world:
+        raise ValueError(f"a mesh spans every rank: {n_devices} devices "
+                         f"asked for in a world of {world}")
+    return Mesh(data, latent, dist.get_rank(), _new_groups(data, latent),
+                distributed.current_device())
+
+
+def _new_groups(data: int, latent: int) -> dict:
+    """This rank's latent group (its row of the grid), data group (its
+    column) and the world; every rank creates every group, in one order."""
+    import torch.distributed as dist
+
+    from . import distributed
+    rank, timeout = dist.get_rank(), distributed.collective_timeout()
+    groups = {"world": dist.group.WORLD}
+    rows = [[d * latent + i for i in range(latent)] for d in range(data)]
+    cols = [[d * latent + i for d in range(data)] for i in range(latent)]
+    for axis, members in (("latent", rows), ("data", cols)):
+        for ranks in members:
+            g = dist.new_group(ranks, timeout=timeout)
+            if rank in ranks:
+                groups[axis] = g
+    return groups
+
+
+def _names(key: str):
+    """JAX's ``_path_names``: the attribute names of a key path, its index
+    steps dropped (``.covar_module.kernels[0].raw_outputscale`` →
+    covar_module, kernels, raw_outputscale)."""
+    return re.sub(r"\[\d+\]", "", key).split(".")[1:]
+
+
+def _jax_order(key: str):
+    """Sort key giving JAX's leaf order: attributes by name, list items by
+    index."""
+    return tuple((0, int(t)) if t.isdigit() else (1, t)
+                 for t in re.split(r"[.\[\]]+", key) if t)
+
+
+def _spec_for(names, leaf, q, data_ax, latent_ax):
+    """(spec, rule tag) for one leaf, as JAX's ``_spec_for``: the spec a
+    tuple equal to JAX's ``PartitionSpec`` entries."""
+    if leaf.dim() == 0:
+        return (), "scalar"
+    if "train_x" in names or "train_y_tasks" in names:
+        if leaf.shape[0] % data_ax == 0:
+            return ("data",) + (None,) * (leaf.dim() - 1), "data-rows"
+        return (), "data-rows-indivisible"
+    if any(n in _LATENT_SCOPES for n in names) and q is not None \
+            and leaf.shape[0] == q and q % latent_ax == 0:
+        if "train_y" in names and leaf.dim() == 2 \
+                and leaf.shape[1] % data_ax == 0:
+            return ("latent", "data"), "latent-by-data"
+        return ("latent",) + (None,) * (leaf.dim() - 1), "latent-batch"
+    return (), "replicated"
+
+
+def _n_latents(model, n_latents):
+    if n_latents is not None:
+        return n_latents
+    return getattr(model, "n_latents", getattr(model, "n_funcs", None))
+
+
+def sharding_report(model, mesh: Mesh, n_latents: int = None) -> dict:
+    """{path: (spec, rule)} for every leaf, the path JAX's ("covar_module.
+    raw_lengthscale", index steps dropped). A pure function of the leaves
+    and the axis sizes: equal to the JAX package's for the same model."""
+    q = _n_latents(model, n_latents)
+    data_ax, latent_ax = mesh.shape["data"], mesh.shape["latent"]
+    state = keyed_state(model)
+    out = {}
+    for key in sorted(state, key=_jax_order):
+        names = _names(key)
+        out[".".join(names)] = _spec_for(names, state[key], q, data_ax,
+                                         latent_ax)
+    return out
+
+
+def model_shardings(model, mesh: Mesh, n_latents: int = None) -> dict:
+    """{JAX key path: spec} for every leaf (the placement that
+    :func:`sharding_report` audits)."""
+    q = _n_latents(model, n_latents)
+    data_ax, latent_ax = mesh.shape["data"], mesh.shape["latent"]
+    return {k: _spec_for(_names(k), t, q, data_ax, latent_ax)[0]
+            for k, t in keyed_state(model).items()}
+
+
+def shard_model(model, mesh: Mesh, n_latents: int = None):
+    """Put ``model`` on ``mesh``, in place: rank 0's parameters and buffers
+    broadcast to every rank, and the mesh attached, so that the model's
+    methods compute this rank's terms and the group sums
+    (``projected_lmc_mll(model)`` is then the full MLL on every rank).
+    Returns ``model``.
+
+    Takes ``ExactGPModel`` (``ProjectedGPModel`` with it) on its dense and
+    SGPR routes and ``VariationalMultitaskGPModel``. The LMC and ICM
+    families (``MultitaskGPModel``) and ``ExactGPModel``'s iterative route
+    wait for ROADMAP A 14, and raise ``NotImplementedError``."""
+    from ..models.exact import ExactGPModel
+    from ..models.multitask import MultitaskGPModel
+    from ..models.variational import VariationalMultitaskGPModel
+    if isinstance(model, MultitaskGPModel):
+        raise NotImplementedError(
+            "MultitaskGPModel (the LMC and ICM families) under a mesh is "
+            "ROADMAP A 14: its row-sharded PCG is not written yet")
+    if not isinstance(model, (ExactGPModel, VariationalMultitaskGPModel)):
+        raise TypeError(f"shard_model takes an ExactGPModel, a "
+                        f"ProjectedGPModel or a VariationalMultitaskGPModel, "
+                        f"not {type(model).__name__}")
+    q = _n_latents(model, n_latents)
+    if q < mesh.shape["latent"]:
+        raise ValueError(f"{q} latents cannot cover a latent axis of "
+                         f"{mesh.shape['latent']}")
+    tensors = list(model.parameters()) + list(model.buffers())
+    if mesh.device is not None and any(
+            t.device.type != torch.device(mesh.device).type for t in tensors):
+        raise ValueError(f"the model's tensors are not on the mesh's device "
+                         f"{mesh.device}")
+    mesh.broadcast_(tensors)
+    model.mesh = mesh
+    return model
+
+
+def replicate(tree, mesh: Mesh):
+    """Rank 0's values of ``tree`` (a module, a tensor, or a list or dict of
+    tensors) on every rank, in place; returns ``tree``."""
+    if isinstance(tree, torch.nn.Module):
+        tensors = list(tree.parameters()) + list(tree.buffers())
+    elif isinstance(tree, torch.Tensor):
+        tensors = [tree]
+    elif isinstance(tree, dict):
+        tensors = list(tree.values())
+    else:
+        tensors = list(tree)
+    mesh.broadcast_(tensors)
+    return tree

@@ -1,0 +1,87 @@
+"""Sharded training steps (port of
+``projected_lmc_tpu/parallel/sharded.py``).
+
+The JAX step is the plain step under ``jax.jit``: XLA partitions it over
+the mesh and inserts the collectives. PyTorch has no partitioner, so the
+port decomposes each model family by hand, one process a rank, each rank
+running its own CUDA kernels on its shard. The rule, which every sharded
+model method keeps:
+
+  * **Leaves.** Every rank holds every parameter whole (JAX: "parameters
+    stay replicated"); ``shard_model`` broadcasts them from rank 0. A rank
+    computes only the terms of its shard: its latents on the latent axis,
+    its rows on the data axis.
+  * **Forward.** Each rank computes the full loss value. A sum across
+    ranks inside the graph (the latent sum, the SGPR Gram sums RᵀR and
+    Rᵀδ, the ELBO's row sum, the mixing sum Σ_b μ_b h_b) is an
+    ``all_reduce`` whose backward is again an ``all_reduce`` of the
+    incoming gradient (``collectives.group_sum``).
+  * **Gradients.** After ``backward`` the parameters' gradients are
+    averaged over all ranks with one flattened ``all_reduce``. With the
+    rule above that counts once the terms that every rank computes whole
+    (the projection terms, the KL, the hyper-priors, K_zz): the backward
+    of W ranks' copies of the loss is W times the gradient.
+  * **Blocks of shared tensors.** Where a rank takes its block of a
+    tensor that every rank computes whole (the projected targets, its
+    latents' rows and its data columns), the backward sums the blocks'
+    gradients over all ranks and divides by their number
+    (``Mesh.block``): each rank carries the whole gradient into the
+    computation they share, as one process does, and its rounding; a
+    gradient that one process finds exactly zero (the mixing matrix's
+    columns past q) stays zero, where the sum of partial backwards would
+    leave fp32 noise that AdamW's first step scales up to the learning
+    rate. The averaged gradient is the same sum either way.
+  * **Optimizer.** AdamW then runs identically on every rank.
+
+Summing the gradients instead of averaging them, or letting the backward
+of a group sum pass its gradient through unchanged, counts the replicated
+terms once a rank; the tests hold a sharded step to an unsharded one to
+catch that.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..module import trainable_parameters
+from .mesh import shard_model
+
+
+def sharded_fit_step(model, mesh, loss_fn=None, lr: float = 1e-2,
+                     weight_decay: float = 1e-2):
+    """(step, model, optimizer): ``model`` sharded over ``mesh`` (in
+    place), an AdamW over its trainable parameters (optax's ``adamw``
+    defaults, as ``training.fit``), and ``step()``, which runs one update
+    and returns the minimized value −loss_fn(model) (``loss_fn`` defaults to
+    ``model.mll()``).
+
+    JAX returns ``(step, params, opt_state, static)`` with a pure
+    ``step(params, opt_state, static)``; here the model and the optimizer
+    hold that state and ``step`` updates them in place."""
+    if loss_fn is None:
+        loss_fn = lambda m: m.mll()                         # noqa: E731
+    model = shard_model(model, mesh)
+    params = [p for _, p in trainable_parameters(model)]
+    opt = torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay)
+
+    def step():
+        opt.zero_grad(set_to_none=False)
+        loss = -loss_fn(model)
+        loss.backward()
+        mesh.average_([p.grad if p.grad is not None
+                       else torch.zeros_like(p) for p in params])
+        opt.step()
+        return loss.detach()
+
+    return step, model, opt
+
+
+def dryrun_step(model, mesh, loss_fn=None) -> float:
+    """Run ONE sharded training step, synchronize, and return its loss as a
+    float (``entry.dryrun_multichip`` validates the multi-rank path with
+    it)."""
+    step, model, _ = sharded_fit_step(model, mesh, loss_fn)
+    loss = step()
+    if loss.is_cuda:
+        torch.cuda.synchronize(loss.device)
+    return float(loss)

@@ -9,11 +9,18 @@ arrays — a JAX checkpoint, a port checkpoint or a dict of numpy arrays —
 load into a port model built with the same constructor arguments
 (``load_jax_state``, ``load_model``), and a port checkpoint loads into the
 JAX package's ``load_model``.
+
+``save_orbax``/``load_orbax`` are the counterparts of the JAX package's
+sharded checkpoints. Their format is ``torch.distributed.checkpoint``
+(DCP), not orbax: the ``.npz`` of ``save_model`` stays the format both
+packages read.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -60,3 +67,42 @@ def load_model(template, path: str):
     mismatch. Returns ``template``."""
     with np.load(path if path.endswith(".npz") else path + ".npz") as data:
         return load_jax_state(template, data)
+
+
+def _dcp_state(model):
+    """{JAX key path: tensor} of the leaves that carry state: zero-size
+    leaves (parameterless modules' placeholders) are left out, as the JAX
+    package leaves them out of its orbax checkpoints."""
+    return {k: t.detach() for k, t in keyed_state(model).items()
+            if t.numel() > 0}
+
+
+@contextlib.contextmanager
+def _single_process_quiet():
+    """Silence DCP's notice that, with no process group, it runs in one
+    process (which is what is meant)."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*assuming the intent is")
+        yield
+
+
+def save_orbax(model, path: str):
+    """Save ``model`` as a ``torch.distributed.checkpoint`` directory at
+    ``path``, keyed by JAX key path. Works with and without an initialized
+    process group; under one, every rank calls it (the parameters are
+    replicated, so one copy is written)."""
+    import torch.distributed.checkpoint as dcp
+    with _single_process_quiet():
+        dcp.save(_dcp_state(model), checkpoint_id=os.path.abspath(path))
+
+
+def load_orbax(template, path: str):
+    """Load a checkpoint written by :func:`save_orbax` into ``template`` (a
+    model built with the same constructor arguments), in place; zero-size
+    leaves keep the template's. Under a process group every rank calls it.
+    Returns ``template``."""
+    import torch.distributed.checkpoint as dcp
+    state = _dcp_state(template)
+    with _single_process_quiet():
+        dcp.load(state, checkpoint_id=os.path.abspath(path))
+    return template

@@ -1,0 +1,254 @@
+"""The port's sharded models on 4 gloo ranks (CPU, float64, a mesh of data
+2 × latent 2 laid over two 'hosts' of two ranks) against the JAX package's
+unsharded and sharded results, and against the unsharded port.
+
+One module-scoped fixture spawns the ranks once (``parallel.launch``,
+``spawn``, a ``file://`` rendezvous in a fresh directory, one torch thread
+a rank, a deadline on every rank). The ranks run every check of
+``tests/torch_parallel_ranks.py`` on JAX's leaves (``load_jax_state``) and
+return numpy arrays; the tests below compare. ``dryrun_multichip`` is the
+second and last spawn.
+"""
+
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from projected_lmc_tpu.mlls import projected_lmc_mll as jax_mll
+from projected_lmc_tpu.models.projected import ProjectedGPModel as JaxProj
+from projected_lmc_tpu.models.variational import \
+    VariationalMultitaskGPModel as JaxVar
+from projected_lmc_tpu.module import combine, partition, trainable_mask
+from projected_lmc_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from projected_lmc_tpu.parallel.sharded import \
+    sharded_fit_step as jax_sharded_fit_step
+from projected_lmc_tpu.utils.checkpoint import _keyed_leaves
+
+sys.path.insert(0, str(Path(__file__).parent))
+import torch_parallel_ranks  # noqa: E402
+
+from projected_lmc_tpu_torch.entry import dryrun_multichip  # noqa: E402
+from projected_lmc_tpu_torch.parallel.launch import run_ranks  # noqa: E402
+
+PLMC = dict(init_lmc_coeffs=True, kernel_type="matern", BDN=False,
+            diagonal_B=False, scalar_B=False)
+
+
+def _data(n, p, q, d, seed):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-1, 1, (n, d))
+    U = np.stack([np.sin(3 * X[:, 0] + k) * np.cos((k + 1) * X[:, -1])
+                  for k in range(q)], axis=1)
+    Y = U @ rng.standard_normal((q, p)) + 0.05 * rng.standard_normal((n, p))
+    X_test = rng.uniform(-0.9, 0.9, (12, d))
+    return X, Y, X_test
+
+
+def _moved(jm, seed):
+    """The JAX model with its trainable leaves moved by a seeded
+    uniform(−0.2, 0.2), and those leaves as {key path: array}."""
+    rng = np.random.default_rng(seed)
+    arrays = {}
+    for (k, v), trainable in zip(_keyed_leaves(jm), trainable_mask(jm)):
+        v = np.asarray(v)
+        arrays[k] = v + rng.uniform(-0.2, 0.2, v.shape) if trainable else v
+    jm = jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(jm),
+        [jnp.asarray(arrays[k]) for k, _ in _keyed_leaves(jm)])
+    return jm, arrays
+
+
+def _projected_case(n, p, q, d, seed, m_ind=None):
+    X, Y, X_test = _data(n, p, q, d, seed)
+    args = dict(PLMC, n_inducing_points=m_ind)
+    jm, arrays = _moved(JaxProj(X, Y, p, q, **args), seed + 1)
+    case = dict(check="projected", X=X, Y=Y, X_test=X_test, p=p, q=q,
+                args=args, arrays=arrays)
+    return jm, case
+
+
+def _variational_case(n=48, p=6, q=4, d=2, seed=3):
+    X, Y, X_test = _data(n, p, q, d, seed)
+    args = dict(init_lmc_coeffs=True, kernel_type="matern",
+                mean_type="constant")
+    jm = JaxVar(X, n_latents=q, n_tasks=p, train_y=Y, **args)
+    jm, arrays = _moved(jm, seed + 1)
+    return jm, dict(check="variational", X=X, Y=Y, X_test=X_test, p=p, q=q,
+                    args=args, arrays=arrays)
+
+
+def _jax_loss_and_grads(jm, loss):
+    mask = trainable_mask(jm)
+    params, static = partition(jm, mask)
+    value, grads = jax.jit(jax.value_and_grad(
+        lambda p, s: loss(combine(p, s))))(params, static)
+    return float(value), {k[1:]: np.asarray(v)
+                          for k, v in _keyed_leaves(grads)}
+
+
+JAX_LOSS = {"exact": jax_mll, "sgpr": jax_mll,
+            "variational": lambda m: m.elbo()}
+
+
+def _jax_references(jax_models, cases):
+    """JAX's values for every case (jitted: its eager calls take seconds
+    each): loss and gradients, the predictions, one sharded step."""
+    refs = {}
+    for name in ("exact", "sgpr", "variational"):
+        jm, x = jax_models[name], jnp.asarray(cases[name]["X_test"])
+        loss, grads = _jax_loss_and_grads(jm, JAX_LOSS[name])
+        if name == "variational":
+            pred = jax.jit(lambda m, x: m(x, observed=True))(jm, x)
+            mean, var = pred.mean, pred.variance
+        else:
+            mean, var = jax.jit(lambda m, x: m.predict(
+                x, observed=True, cache=m.prediction_cache()))(jm, x)
+        refs[name] = dict(loss=loss, grads=grads, mean=np.asarray(mean),
+                          var=np.asarray(var))
+    step, params, opt, static = jax_sharded_fit_step(
+        jax_models["step"], jax_make_mesh(8), jax_mll, lr=1e-2)
+    params, _, loss = step(params, opt, static)
+    refs["step"] = dict(loss=float(loss), params={
+        k: np.asarray(v) for k, v in _keyed_leaves(params) if np.size(v)})
+    return refs
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """(the cases, the ranks' results, JAX's references). JAX computes its
+    references while the ranks run."""
+    jax_models, cases = {}, {}
+    jax_models["exact"], cases["exact"] = _projected_case(48, 6, 4, 2, 0)
+    jax_models["sgpr"], cases["sgpr"] = _projected_case(64, 6, 4, 2, 1,
+                                                        m_ind=10)
+    jax_models["variational"], cases["variational"] = _variational_case()
+    # the step: JAX's own test's model (tests/test_sharding.py), q = 2
+    X = np.linspace(-1, 1, 32)[:, None]
+    rng = np.random.default_rng(0)
+    U = np.stack([np.sin(3 * X[:, 0]), np.cos(5 * X[:, 0])], axis=1)
+    Y = U @ rng.standard_normal((2, 6)) + 0.05 * rng.standard_normal((32, 6))
+    args = dict(init_lmc_coeffs=True, kernel_type="matern")
+    jm, arrays = _moved(JaxProj(X, Y, 6, 2, **args), 7)
+    jax_models["step"] = jm
+    cases["step"] = dict(check="step", X=X, Y=Y, p=6, q=2, args=args,
+                         arrays=arrays)
+    cases["checkpoint"] = dict(cases["exact"], check="checkpoint",
+                               path=str(tmp_path_factory.mktemp("dcp")))
+    with ThreadPoolExecutor(1) as pool:
+        refs = pool.submit(_jax_references, jax_models, cases)
+        results = run_ranks(torch_parallel_ranks.run, 4, (cases,),
+                            device="cpu", local_world_size=2, timeout=240,
+                            collective_timeout=60, threads=1)
+        return cases, results, refs.result()
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_layout_keeps_latent_groups_on_one_host(world, rank):
+    lay = world[1][rank]["layout"]
+    assert lay["rank"] == rank
+    assert lay["shape"] == lay["make_mesh_shape"] == {"data": 2, "latent": 2}
+    assert (lay["data_index"], lay["latent_index"]) == divmod(rank, 2)
+    # the latent group is the rank's row of reshape(data, latent): one host
+    # of local_world_size = 2
+    assert lay["latent_group"] == [2 * (rank // 2), 2 * (rank // 2) + 1]
+    assert {r // 2 for r in lay["latent_group"]} == {rank // 2}
+    assert lay["data_group"] == [rank % 2, rank % 2 + 2]
+    assert lay["data_sum"] == float(sum(lay["data_group"]))
+    assert lay["replicated"] == [1.0, 1.0]          # rank 0's values
+
+
+def test_global_mesh_value_errors(world):
+    errors = world[1][0]["layout"]["errors"]
+    assert len(errors) == 2
+    assert "must divide the per-host device count" in errors[0]
+    assert "must multiply to the global device count" in errors[1]
+
+
+@pytest.mark.parametrize("case", ["exact", "sgpr", "variational"])
+def test_sharded_loss_matches_jax_and_unsharded(world, case):
+    _, results, refs = world
+    want = refs[case]["loss"]
+    for r in results:
+        got = r[case]
+        np.testing.assert_allclose(got["loss_sharded"], want, rtol=1e-9)
+        np.testing.assert_allclose(got["loss_unsharded"], want, rtol=1e-9)
+
+
+@pytest.mark.parametrize("case", ["exact", "sgpr", "variational"])
+def test_sharded_gradients_match_unsharded(world, case):
+    """Averaged over the ranks, each gradient equals the unsharded port's
+    within 1e-8 of its largest entry, and JAX's: a replicated term counted
+    once a rank would be off by a factor."""
+    _, results, refs = world
+    jax_grads = refs[case]["grads"]
+    for r in results:
+        sharded, unsharded = (r[case]["grads_sharded"],
+                              r[case]["grads_unsharded"])
+        assert sorted(sharded) == sorted(unsharded)
+        assert len(sharded) >= 4
+        for k, g in unsharded.items():
+            scale = max(np.abs(g).max(), 1e-300)
+            assert np.abs(sharded[k] - g).max() <= 1e-8 * scale, k
+            jg = jax_grads[k]
+            assert np.abs(sharded[k] - jg).max() <= 1e-8 * max(
+                np.abs(jg).max(), 1e-300), k
+
+
+@pytest.mark.parametrize("case", ["exact", "sgpr"])
+def test_sharded_cache_and_predict_match_jax(world, case):
+    _, results, refs = world
+    mean, var = refs[case]["mean"], refs[case]["var"]
+    for rank, r in enumerate(results):
+        got = r[case]
+        assert got["cache_latents"] == (2 * (rank % 2), 2 * (rank % 2) + 2)
+        assert np.abs(got["mean"] - mean).max() <= 1e-8 * np.abs(mean).max()
+        assert np.abs(got["var"] - var).max() <= 1e-8 * np.abs(var).max()
+
+
+def test_sharded_variational_prediction_matches_jax(world):
+    _, results, refs = world
+    mean, var = refs["variational"]["mean"], refs["variational"]["var"]
+    for r in results:
+        got = r["variational"]
+        assert np.abs(got["mean"] - mean).max() <= 1e-8 * np.abs(mean).max()
+        assert np.abs(got["var"] - var).max() <= 1e-8 * np.abs(var).max()
+
+
+def test_sharded_step_matches_unsharded_and_jax(world):
+    """One sharded AdamW step against one unsharded port step and against
+    JAX's ``sharded_fit_step`` on its 8-device mesh: the loss to 1e-9, the
+    parameters to JAX's own limit for this comparison (rtol 1e-4, atol 1e-8:
+    Adam's rsqrt amplifies ulp differences)."""
+    _, results, refs = world
+    loss, jax_params = refs["step"]["loss"], refs["step"]["params"]
+    for r in results:
+        got = r["step"]
+        np.testing.assert_allclose(got["loss_sharded"], float(loss),
+                                   rtol=1e-9)
+        np.testing.assert_allclose(got["loss_unsharded"], float(loss),
+                                   rtol=1e-9)
+        assert sorted(got["params_sharded"]) == sorted(jax_params)
+        for k, v in jax_params.items():
+            np.testing.assert_allclose(got["params_sharded"][k], v,
+                                       rtol=1e-4, atol=1e-8, err_msg=k)
+            np.testing.assert_allclose(got["params_sharded"][k],
+                                       got["params_unsharded"][k],
+                                       rtol=1e-4, atol=1e-8, err_msg=k)
+
+
+def test_checkpoint_round_trip_under_the_group(world):
+    for r in world[1]:
+        assert r["checkpoint"]["keys"]
+        assert r["checkpoint"]["max_diff"] == 0.0
+
+
+def test_dryrun_multichip_on_four_cpu_ranks(capsys):
+    dryrun_multichip(4, device="cpu", timeout=240)
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("dryrun_multichip(4) OK: mesh={'data': 2, "
+                           "'latent': 2} backend=gloo")

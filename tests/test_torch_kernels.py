@@ -303,8 +303,9 @@ class TestPCG:
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port (the projected model, the MLLs, the
     synthetic data, the prediction modules, the variational model, the
-    blocked Cholesky, the study driver, the real-data loaders, the plots
-    and the profiling helpers among them), imported in a fresh interpreter,
+    blocked Cholesky, the study driver, the real-data loaders, the plots,
+    the profiling helpers, the mesh layer and the entry points among them),
+    imported in a fresh interpreter,
     leaves no ``jax`` or ``projected_lmc_tpu`` module behind."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -316,7 +317,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'models.variational', 'ops.blocked_cholesky',\n"
         "        'utils.checkpoint', 'experiments.driver',\n"
         "        'experiments.realdata', 'experiments.plots',\n"
-        "        'utils.profiling'}\n"
+        "        'utils.profiling', 'parallel', 'parallel.mesh',\n"
+        "        'parallel.sharded', 'parallel.distributed',\n"
+        "        'parallel.collectives', 'parallel.launch', 'entry'}\n"
         "assert all(p.__name__ + '.' + m in sys.modules for m in need)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'projected_lmc_tpu'\n"

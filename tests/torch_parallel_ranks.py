@@ -1,0 +1,159 @@
+"""What each rank of ``tests/test_torch_distributed.py``'s spawned world
+runs: the port on a (data 2, latent 2) mesh of 4 gloo ranks on the CPU,
+in float64, beside the unsharded port on the same leaves. Imports neither
+JAX nor the JAX package (the test process holds those and compares); the
+ranks return numpy arrays."""
+
+import torch
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _grads(model, loss_fn):
+    """(loss value, {parameter name: gradient}) of ``loss_fn(model)``."""
+    for p in model.parameters():
+        p.grad = None
+    loss = loss_fn(model)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad for n, p in
+                                  model.named_parameters()
+                                  if p.grad is not None}
+
+
+def _loss_and_grads(make, loss_fn, mesh):
+    """The unsharded and the sharded (gradients averaged over the ranks)
+    loss and gradients of two models ``make()`` builds."""
+    from projected_lmc_tpu_torch.parallel import shard_model
+    loss_u, grads_u = _grads(make(), loss_fn)
+    model = shard_model(make(), mesh)
+    loss_s, grads_s = _grads(model, loss_fn)
+    mesh.average_(list(grads_s.values()))
+    return model, dict(
+        loss_unsharded=loss_u, loss_sharded=loss_s,
+        grads_unsharded={k: _np(v) for k, v in grads_u.items()},
+        grads_sharded={k: _np(v) for k, v in grads_s.items()})
+
+
+def _projected(case, mesh):
+    import projected_lmc_tpu_torch as pl
+
+    def make():
+        m = pl.ProjectedGPModel(case["X"], case["Y"], case["p"], case["q"],
+                                device="cpu", **case["args"])
+        return pl.load_jax_state(m, case["arrays"])
+
+    model, out = _loss_and_grads(make, pl.projected_lmc_mll, mesh)
+    with torch.no_grad():
+        cache = model.prediction_cache()
+        mean, var = model.predict(case["X_test"], observed=True, cache=cache)
+    out.update(mean=_np(mean), var=_np(var), cache_latents=cache["latents"])
+    return out
+
+
+def _variational(case, mesh):
+    import projected_lmc_tpu_torch as pl
+
+    def make():
+        m = pl.VariationalMultitaskGPModel(
+            case["X"], n_latents=case["q"], n_tasks=case["p"],
+            train_y=case["Y"], device="cpu", **case["args"])
+        return pl.load_jax_state(m, case["arrays"])
+
+    model, out = _loss_and_grads(make, lambda m: m.elbo(), mesh)
+    with torch.no_grad():
+        pred = model(case["X_test"], observed=True)
+    out.update(mean=_np(pred.mean), var=_np(pred.variance))
+    return out
+
+
+def _step(case, mesh):
+    """One sharded AdamW step beside one unsharded AdamW step."""
+    import projected_lmc_tpu_torch as pl
+    from projected_lmc_tpu_torch.module import keyed_state, \
+        trainable_parameters
+    from projected_lmc_tpu_torch.parallel import sharded_fit_step
+
+    def make():
+        m = pl.ProjectedGPModel(case["X"], case["Y"], case["p"], case["q"],
+                                device="cpu", **case["args"])
+        return pl.load_jax_state(m, case["arrays"])
+
+    ref = make()
+    opt = torch.optim.AdamW([p for _, p in trainable_parameters(ref)],
+                            lr=1e-2, weight_decay=1e-2)
+    loss_u = -pl.projected_lmc_mll(ref)
+    loss_u.backward()
+    opt.step()
+    step, model, _ = sharded_fit_step(make(), mesh, pl.projected_lmc_mll,
+                                      lr=1e-2)
+    loss_s = step()
+    trained = {n for n, _ in trainable_parameters(model)}
+    return dict(
+        loss_unsharded=float(loss_u.detach()), loss_sharded=float(loss_s),
+        params_unsharded={k: _np(v) for k, v in keyed_state(ref).items()
+                          if k[1:] in trained},
+        params_sharded={k: _np(v) for k, v in keyed_state(model).items()
+                        if k[1:] in trained})
+
+
+def _checkpoint(case, mesh):
+    """``save_orbax`` then ``load_orbax`` into a fresh model, every rank
+    calling both: the largest difference from the saved leaves."""
+    import projected_lmc_tpu_torch as pl
+    from projected_lmc_tpu_torch.module import keyed_state
+
+    def make():
+        return pl.ProjectedGPModel(case["X"], case["Y"], case["p"],
+                                   case["q"], device="cpu", **case["args"])
+
+    saved = pl.load_jax_state(make(), case["arrays"])
+    pl.save_orbax(saved, case["path"])
+    loaded = pl.load_orbax(make(), case["path"])
+    a, b = keyed_state(saved), keyed_state(loaded)
+    return dict(keys=sorted(a) == sorted(b),
+                max_diff=max(float((a[k] - b[k]).abs().max()) for k in a
+                             if a[k].numel()))
+
+
+def _layout(mesh):
+    """The global mesh's layout on two 'hosts' of two ranks, a data-group
+    sum, and the ValueErrors of make_global_mesh."""
+    import torch.distributed as dist
+
+    from projected_lmc_tpu_torch.parallel import make_global_mesh, \
+        make_mesh, replicate
+    errors = []
+    for bad in (dict(latent=4), dict(latent=2, data=3)):
+        try:
+            make_global_mesh(**bad)
+        except ValueError as e:
+            errors.append(str(e))
+    rank = dist.get_rank()
+    total = mesh.data_sum(torch.tensor([float(rank)], dtype=torch.float64))
+    mine = {"a": torch.full((2,), float(rank + 1), dtype=torch.float64)}
+    replicate(mine, mesh)
+    return dict(
+        replicated=mine["a"].tolist(),
+        rank=rank, shape=dict(mesh.shape), latent_index=mesh.latent_index,
+        data_index=mesh.data_index,
+        latent_group=dist.get_process_group_ranks(mesh.group("latent")),
+        data_group=dist.get_process_group_ranks(mesh.group("data")),
+        data_sum=float(total), errors=errors,
+        make_mesh_shape=dict(make_mesh(4).shape))
+
+
+CHECKS = {"projected": _projected, "variational": _variational,
+          "step": _step, "checkpoint": _checkpoint}
+
+
+def run(rank, cases):
+    """Every check on this rank: {case name: its results}, plus the layout
+    under "layout"."""
+    from projected_lmc_tpu_torch.parallel import make_global_mesh
+    mesh = make_global_mesh(latent=2)
+    out = {"layout": _layout(mesh)}
+    for name, case in cases.items():
+        out[name] = CHECKS[case["check"]](case, mesh)
+    return out
