@@ -193,6 +193,30 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
      (ranks sharing one card: not a speed-up), peak memory a rank, the
      backend; each rank's K3 launches go into the totals; K3 at each new
      local shape against its plain version and bitwise K6.
+  M. path M: the LMC and ICM families under the mesh, in path L's spawn.
+     M1: the headline LMC (n = 10⁴, T = 7, q = 4, d = 4, the init moved)
+     on data 2 × latent 2 and data 4 × latent 1, each rank's (2, 5,000,
+     10⁴) or (4, 2,500, 10⁴) bf16 block built by K6 and the row-sharded
+     PCG, K7's row-block form in the backward: 8 ``sharded_fit_step`` steps
+     against 8 unsharded steps on this card on the full grid (the kernels
+     the sharded op runs) at path L's limits, then one step with its world
+     sums timed; M2: H2's matrix-free ICM (n = 16,384, the rows over every
+     rank, K3's (1, 4,096, 16,384) block), 4 steps, held at path L's limits
+     to the unsharded step with its products blocked as the ranks'
+     (``blocked_products``) and to the plain one at the CG estimator's
+     fp32 gradient limit (``M_CG_GRAD_TOL``, phase 3's);
+     M3: the "lmc_iter" cache and ``posterior`` on 2,500 points at M1's
+     model, the "icm_iter" cache, ``posterior`` and ``compute_var`` at M2's,
+     the dense ICM MLL with its gradients, the "icm" cache and
+     ``compute_var`` at n = 4,096, against unsharded at path G's limits;
+     M4: path B's ``ExactGPModel`` (n = 16,384, T = 7), 4 steps, held as
+     M2; M5: L4's
+     ``dryrun_multichip(4)``, which runs JAX's whole dry run. Before the
+     spawn, at a rank's shapes on M1's layouts: K6's block bitwise the
+     rows of K1's stack and against its plain version; K7's row-block form
+     against its plain version, bitwise on a repeat, timed with its bound;
+     K3 at the roots' block. Step times, peak memory a rank, the time in
+     the world sums; each rank's K3, K6 and K7 launches go into the totals.
 
 Every training run sets the launch counts to 0 just before it and reads
 them just after. The last lines are one JSON object with every kernel's
@@ -277,13 +301,15 @@ def check(name: str, err: float, tol: float):
         raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
 
 
-def stack_error(torch, ck, got, x, ls, os_, dt, block=2500):
-    """K1's stack against its plain version, a block of rows at a time (the
-    plain formula forms a (q, rows, n, d) array): (largest absolute error,
-    largest plain entry)."""
+def stack_error(torch, ck, got, x, ls, os_, dt, block=2500, x2=None):
+    """K1's stack (or K6's rows x against the columns x2) against its plain
+    version, a block of rows at a time (the plain formula forms a
+    (q, rows, n, d) array): (largest absolute error, largest plain
+    entry)."""
     err = top = 0.0
     for i0 in range(0, x.shape[0], block):
-        want = ck.scaled_kernel_stack_plain(x[i0:i0 + block], x, ls, os_,
+        want = ck.scaled_kernel_stack_plain(x[i0:i0 + block],
+                                            x if x2 is None else x2, ls, os_,
                                             "matern25", dt).float()
         err = max(err, float((got[:, i0:i0 + block].float() - want)
                              .abs().max()))
@@ -3843,10 +3869,10 @@ def composed_spied(torch, replay=None):
                          for c, like, need in zip(replay, ctx.like,
                                                   ctx.needs_input_grad))
 
-    def spy(Ks, H, St, Ydelta, *rest):
+    def spy(Ks, H, St, Ydelta, *rest, **kwargs):
         if replay is not None:
             return Replay.apply(Ks, H, St, Ydelta)
-        ll = orig(Ks, H, St, Ydelta, *rest)
+        ll = orig(Ks, H, St, Ydelta, *rest, **kwargs)
         rec["saved"] = ll.grad_fn.saved_tensors
 
         def hook(grad_inputs, grad_outputs):
@@ -4648,7 +4674,8 @@ def path_l_rank(rank, spec):
     (data 4 × latent 1), each a sharded ``sharded_fit_step`` run with the
     launch counts set to 0 just before and read just after; L1's sharded
     cache and ``predict``, and ``save_orbax``/``load_orbax`` under the
-    group. Loads the kernel library the parent built."""
+    group; then path M (:func:`path_m_rank`) when the spec holds it. Loads
+    the kernel library the parent built."""
     import torch
 
     import projected_lmc_tpu_torch as pl
@@ -4709,6 +4736,8 @@ def path_l_rank(rank, spec):
         out["seconds"][label] = time.perf_counter() - t1
         del model, step
         torch.cuda.empty_cache()
+    if "M" in spec:
+        out["M"] = path_m_rank(torch, pl, ck, spec["M"], dev)
     out["seconds"]["all"] = time.perf_counter() - t0
     return out
 
@@ -4895,9 +4924,15 @@ def path_l_phase(torch, pl, ck, dev, totals):
     print(f"  unsharded references on this card: " + ", ".join(
         f"{k} median step {float(np.median(r['ms'][1:])):.3f} ms, peak "
         f"{r['peak_gib']:.2f} GiB" for k, r in refs.items()))
+    # path M runs in the same spawn: its kernels at a rank's shapes and its
+    # unsharded references first, on this card
+    m_case = m_cases(torch, pl, dev)
+    k7_rows = m_kernel_checks(torch, pl, ck, dev, m_case["M1"])
+    m_refs = m_references(torch, pl, ck, dev, m_case)
 
     with tempfile.TemporaryDirectory(prefix="plmc_ckpt_") as tmp:
-        spec = dict(cases, steps=L_STEPS, ckpt=os.path.join(tmp, "ckpt"))
+        spec = dict(cases, steps=L_STEPS, ckpt=os.path.join(tmp, "ckpt"),
+                    M=m_case)
         t1 = time.perf_counter()
         out = run_ranks(path_l_rank, L_RANKS, (spec,), device=dev.type,
                         timeout=L_TIMEOUT, collective_timeout=300,
@@ -4912,7 +4947,8 @@ def path_l_phase(torch, pl, ck, dev, totals):
           f"start-up and rendezvous {spawn_s - sec['all']:.1f} s, then rank "
           f"0's L1 {sec['L1']:.1f} s (with its cache, predict and "
           f"checkpoint), L2 {sec['L2']:.1f} s, L3 {sec['L3']:.1f} s, each "
-          f"with its groups and model")
+          f"with its groups and model; path M " + ", ".join(
+              f"{k} {v:.1f} s" for k, v in out[0]["M"]["seconds"].items()))
     for label in ("L1", "L2", "L3"):
         want = refs[label]
         k3 = L_K3_A_STEP[label] * L_STEPS + (2 if label == "L1" else 0)
@@ -4973,20 +5009,532 @@ def path_l_phase(torch, pl, ck, dev, totals):
             raise SystemExit("chip_smoke: L1's sharded prediction or "
                              "checkpoint disagrees")
 
+    print(f"path M: the LMC and ICM families under the mesh (the same "
+          f"spawn), M1 the headline LMC n={N} on data {M1_MESHES[0][0]} x "
+          f"latent {M1_MESHES[0][1]} and data {M1_MESHES[1][0]} x latent "
+          f"{M1_MESHES[1][1]} ({M1_STEPS} steps), M2 the matrix-free ICM "
+          f"n={N_H2} ({M2_STEPS} steps), M3 serving (\"lmc_iter\", "
+          f"\"icm_iter\", the dense ICM n={N_M3}), M4 ExactGPModel n={N_B} "
+          f"({M4_STEPS} steps), M5 dryrun_multichip({L_RANKS})")
+    path_m_check(torch, out, m_refs, m_case, totals, note)
     t1 = time.perf_counter()
     dryrun_multichip(L_RANKS, device=dev.type, timeout=L_TIMEOUT)
     dry_s = time.perf_counter() - t1
     one = l_one_rank(pl, ck, cases["L1"], dev)
     rel = abs(one["loss"] - refs["L1"]["losses"][0]) / abs(
         refs["L1"]["losses"][0])
-    print(f"  L4 dryrun_multichip({L_RANKS}) {dry_s:.1f} s; a one-rank "
+    print(f"  L4/M5 dryrun_multichip({L_RANKS}) {dry_s:.1f} s; a one-rank "
           f"{one['backend']} group's dryrun_step on L1's model: loss "
           f"{one['loss']:.6f}, rel {rel:.2e} from the unsharded step "
           f"({L_LOSS_RTOL:.0e}), launches {one['counts']}")
     if not rel <= L_LOSS_RTOL or one["counts"] != expect(K3=1):
         raise SystemExit("chip_smoke: the one-rank group's step disagrees")
     totals["K3"] += one["counts"]["K3"]
-    print(f"  path L took {time.perf_counter() - t0:.1f} s")
+    print(f"  paths L and M took {time.perf_counter() - t0:.1f} s")
+    return k7_rows
+
+
+# -- path M: the LMC and ICM families under the mesh ---------------------------
+
+M1_MESHES = ((2, 2), (4, 1))             # (data, latent): M1's two layouts
+M_MESH = (2, 2)                          # M2–M4 (the ICM's rows split over
+                                         # every rank on either layout)
+M1_STEPS, M2_STEPS, M4_STEPS = 8, 4, 4
+N_M3 = 4_096                             # M3's dense ICM (≤ ICM_DENSE_N_MAX)
+M_R = 2 * MLL_KW["num_probes"] + 1       # the fused backward's factor rank
+# the CG estimator's fp32 gradient limit, card against CPU (phase 3, path H)
+M_CG_GRAD_TOL = 2e-3
+
+
+def _m_model(pl, case, device):
+    """A path-M model on ``device`` (M1 the headline LMC, M2/M3 the ICM, M4
+    path B's ``ExactGPModel``), carrying the case's leaves once
+    :func:`m_cases` has set them."""
+    X, Y = case["X"], case["Y"]
+    if case["kind"] == "lmc":
+        model = make_model(pl, X, Y, device)
+    elif case["kind"] == "icm":
+        model = icm_model(pl, X, Y, device)
+    else:
+        model = pl.ExactGPModel(X, Y, pl.GaussianLikelihood(
+            batch_shape=T, device=device), n_tasks=T, kernel_type="matern",
+            outputscales=True, device=device)
+    if "arrays" in case:
+        pl.load_jax_state(model, case["arrays"])
+    return model
+
+
+def m_cases(torch, pl, dev):
+    """Path M's configurations, each a dict a rank can rebuild, the leaves
+    moved off the init (uniform(−0.3, 0.3)): M1 the headline LMC (n = 10⁴,
+    T = 7, q = 4, d = 4), M2 H2's matrix-free ICM (n = 16,384), M3 the dense
+    ICM at n = 4,096, M4 path B's ``ExactGPModel`` (n = 16,384, T = 7)."""
+    from projected_lmc_tpu_torch.module import keyed_state
+    X, Y = bench_data(N, seed=0)
+    cases = {"M1": dict(kind="lmc", X=X, Y=Y, steps=M1_STEPS,
+                        X_test=bench_data(N_TEST, seed=5)[0])}
+    X, Y = bench_data(N_H2, seed=0)
+    cases["M2"] = dict(kind="icm", X=X, Y=Y, steps=M2_STEPS,
+                       X_test=bench_data(N_TEST, seed=20)[0])
+    X, Y = bench_data(N_M3, seed=2)
+    cases["M3"] = dict(kind="icm", X=X, Y=Y, steps=0,
+                       X_test=bench_data(N_TEST, seed=21)[0])
+    X, Y = bench_data(N_B, seed=5)
+    cases["M4"] = dict(kind="exact", X=X, Y=Y, steps=M4_STEPS)
+    for seed, case in zip((30, 31, 32, 33), cases.values()):
+        model = moved(torch, _m_model(pl, case, dev), seed)
+        case["arrays"] = {k: v.detach().cpu().numpy()
+                          for k, v in keyed_state(model).items()}
+        del model
+    torch.cuda.empty_cache()
+    return cases
+
+
+def m_train(torch, pl, ck, case, dev, mesh=None):
+    """``case["steps"]`` AdamW(1e-2, weight decay 1e-2) steps of the case's
+    MLL (``MLL_KW``; the LMC's and ICM's roots built once, as a 16-step
+    chunk does, the exact model's at every call, as path B), sharded over
+    ``mesh`` by ``sharded_fit_step`` or unsharded, the probes drawn from a
+    generator seeded 0; the launch counts set to 0 just before and read
+    just after. Returns (model, step, the run's record)."""
+    from projected_lmc_tpu_torch import parallel
+    from projected_lmc_tpu_torch.module import trainable_parameters
+    model = _m_model(pl, case, dev)
+    if mesh is not None:
+        parallel.shard_model(model, mesh)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(ck)
+    if case["kind"] == "exact":
+        loss_fn = lambda m: m.mll(generator=gen, **MLL_KW)     # noqa: E731
+    else:
+        rows = None if mesh is None else model._rows(model.train_x.shape[0])
+        with torch.no_grad():
+            roots = model._precond_roots(model.train_x,
+                                         MLL_KW["precond_rank"], rows=rows)
+        loss_fn = lambda m: m.mll(precond_roots=roots,        # noqa: E731
+                                  generator=gen, **MLL_KW)
+    if mesh is not None:
+        step, model, _ = parallel.sharded_fit_step(model, mesh, loss_fn)
+    else:
+        opt = torch.optim.AdamW([p for _, p in trainable_parameters(model)],
+                                lr=1e-2, weight_decay=1e-2)
+
+        def step():
+            opt.zero_grad(set_to_none=False)
+            loss = -loss_fn(model)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+    res = _l_train(torch, model, step, case["steps"],
+                   trainable_parameters(model))
+    res.update(counts=read_counts(ck), peak_gib=_peak_gib(torch, dev))
+    return model, step, res
+
+
+def m_allreduce(torch, mesh, step):
+    """One more step with every world sum of the solvers (``world_sum_``)
+    timed on the host around a synchronize: (that step's ms, the sums' ms,
+    their number)."""
+    own, spans = mesh.world_sum_, []
+
+    def timed_sum(x):
+        out, ms = timed(torch, lambda: own(x))
+        spans.append(ms)
+        return out
+
+    mesh.world_sum_ = timed_sum
+    try:
+        _, ms = timed(torch, lambda: float(step()))
+    finally:
+        del mesh.world_sum_
+    return dict(sum_step_ms=ms, sum_ms=float(sum(spans)), sums=len(spans))
+
+
+def m_serve(torch, pl, ck, cases, dev, mesh=None):
+    """M3, sharded over ``mesh`` or not: the "lmc_iter" cache and
+    ``posterior`` at M1's model, the "icm_iter" cache, ``posterior`` and
+    ``compute_var`` at M2's, and at M3's the dense ICM MLL with its
+    gradients (averaged over the ranks), the "icm" cache, ``posterior`` and
+    ``compute_var``; on 2,500 test points, the start vectors and the
+    ``compute_var`` draws seeded alike. Each part's launch counts."""
+    from projected_lmc_tpu_torch import parallel
+    out = {}
+    for name, label, c in (("lmc_iter", "M1", T), ("icm_iter", "M2", 1),
+                           ("icm", "M3", 0)):
+        case = cases[label]
+        model = _m_model(pl, case, dev)
+        if mesh is not None:
+            parallel.shard_model(model, mesh)
+        n = model.train_x.shape[0]
+        kw = {} if not c else dict(v0=torch.as_tensor(
+            np.random.default_rng(40).standard_normal((n, c)),
+            dtype=torch.float32, device=dev))
+        x = torch.as_tensor(case["X_test"], device=dev)
+        zero_counts(ck)
+        with torch.no_grad():
+            cache, cache_ms = timed(torch,
+                                    lambda: model.precompute_posterior(**kw))
+            pred, pred_ms = timed(torch, lambda: model.posterior(x,
+                                                                 cache=cache))
+            r = dict(kind=cache["kind"], mean=pred.mean.cpu().numpy(),
+                     var=pred.variance.cpu().numpy(), cache_ms=cache_ms,
+                     pred_ms=pred_ms)
+            if model.icm:
+                torch.manual_seed(41)
+                var, r["var_ms"] = timed(torch, lambda: model.compute_var(x))
+                r["compute_var"] = var.cpu().numpy()
+        r["counts"] = read_counts(ck)
+        r["prior_var"] = prior_var_max(torch, model, x)
+        if name == "icm":
+            zero_counts(ck)
+            params = [(k, p) for k, p in model.named_parameters()
+                      if p.requires_grad]
+            loss, r["mll_ms"] = timed(torch, lambda: model.mll())
+            loss.backward()
+            grads = [p.grad for _, p in params]
+            if mesh is not None:
+                mesh.average_(grads)
+            r.update(loss=float(loss.detach()), grads={
+                k: g.cpu().numpy() for (k, _), g in zip(params, grads)},
+                mll_counts=read_counts(ck))
+        out[name] = r
+        del model, cache, pred
+        torch.cuda.empty_cache()
+    return out
+
+
+def path_m_rank(torch, pl, ck, cases, dev):
+    """One rank's path M (in path L's spawn): M1 on both layouts, M2 and M4
+    on data 2 × latent 2, each a ``sharded_fit_step`` run with the launch
+    counts set to 0 just before and read just after, then a step with its
+    world sums timed; M3's sharded serving."""
+    from projected_lmc_tpu_torch import parallel
+    out, seconds = {}, {}
+    for label in ("M1", "M2", "M4"):
+        for layout in (M1_MESHES if label == "M1" else (M_MESH,)):
+            t1 = time.perf_counter()
+            mesh = parallel.make_mesh(L_RANKS, data=layout[0],
+                                      latent=layout[1])
+            model, step, res = m_train(torch, pl, ck, cases[label], dev,
+                                       mesh)
+            res.update(m_allreduce(torch, mesh, step), mesh=dict(mesh.shape))
+            out[(label, layout)] = res
+            del model, step
+            torch.cuda.empty_cache()
+            seconds[f"{label} {layout}"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["M3"] = m_serve(torch, pl, ck, cases, dev, parallel.make_mesh(
+        L_RANKS, data=M_MESH[0], latent=M_MESH[1]))
+    seconds["M3"] = time.perf_counter() - t1
+    out["seconds"] = seconds
+    return out
+
+
+def k7_rows_bound(q, n1, n2, d, r):
+    """K7's row-block form's least time: K7's per-pair count over the
+    block's q·n1·n2 ordered pairs, and its inputs and outputs once."""
+    io = q * (n1 + n2) * r * 4 + (n1 + n2) * d * 4 + q * n1 * (1 + d) * 4
+    return bound_ms(io, q * n1 * n2 * (2 * r + 3 * d + 7 + (1 + 2 * d)))
+
+
+def m_kernel_checks(torch, pl, ck, dev, case):
+    """The kernels at a rank's shapes on M1's two layouts (rank 0's block):
+    K6's (q_l, n_l, n) bf16 block bitwise the rows of K1's stack and
+    against its plain version; K7's row-block form (r = 17) against its
+    plain version at K7's phase-2 limit, bitwise on a repeat and bitwise
+    those rows of K7's square call (each row's sum runs over the same
+    column tiles in the same order), timed beside its plain version with
+    its bound; K3 at the rank's roots block. Returns K7's row-block numbers
+    at M1's (2, 5,000, 10⁴) block."""
+    from projected_lmc_tpu_torch.parallel.mesh import Mesh
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32,      # noqa: E731
+                                  device=dev)
+    model = _m_model(pl, case, dev)
+    x = model.train_x
+    xc = x - x.mean(0)
+    ls = model.covar_module.lengthscale.detach()
+    os_ = torch.ones(Q, dtype=torch.float32, device=dev)
+    del model
+    full = ck.scaled_kernel_stack_sym(xc, ls, os_, KIND, torch.bfloat16,
+                                      device=dev)
+    rng = np.random.default_rng(44)
+    A, Bf = symmetric_factors(rng, t, N, M_R)
+    k7 = None
+    for data, latent in M1_MESHES:
+        mesh = Mesh(data, latent, 0)
+        lo, hi = mesh.latent_range(Q)
+        r0, r1 = mesh.data_range(N)
+        shape = f"({hi - lo},{r1 - r0},{N})"
+        block = ck.scaled_kernel_stack(xc[r0:r1], xc, ls[lo:hi], os_[lo:hi],
+                                       KIND, torch.bfloat16, device=dev)
+        same = torch.equal(block, full[lo:hi, r0:r1])
+        err, top = stack_error(torch, ck, block, xc[r0:r1], ls[lo:hi],
+                               os_[lo:hi], torch.bfloat16, x2=xc)
+        print(f"  M K6 block {shape} bf16 bitwise the rows of K1's stack: "
+              f"{same}")
+        check(f"M K6 scaled_kernel_stack {shape} bf16", err, 2.0 ** -7 * top)
+        if not same:
+            raise SystemExit("chip_smoke: the rank's K6 block is not the rows "
+                             "of K1's stack")
+        del block
+        args = (xc, ls[lo:hi].contiguous(), A[lo:hi, r0:r1].contiguous(),
+                Bf[lo:hi].contiguous(), KIND)
+        run = lambda: ck.lowrank_stationary_reduce(              # noqa: E731
+            *args, device=dev, row_x=xc[r0:r1])
+        got, rep = run(), run()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, rep))
+        want = m_rows_plain(torch, ck, xc[r0:r1], *args)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        square = ck.lowrank_stationary_reduce(
+            xc, ls[lo:hi].contiguous(), A[lo:hi].contiguous(), args[3], KIND,
+            device=dev)
+        rows_of = all(torch.equal(g, w[:, r0:r1])
+                      for g, w in zip(got, square))
+        del square
+        print(f"  M K7 row-block form {shape} r={M_R} repeat bitwise equal: "
+              f"{bitwise}; bitwise those rows of K7's square call: "
+              f"{rows_of}")
+        if not rows_of:
+            raise SystemExit("chip_smoke: K7's row-block form is not the "
+                             "rows of its square call")
+        check(f"M K7 lowrank_stationary_reduce(row_x=) {shape} r={M_R}", err,
+              1e-4 * max(float(w.abs().max()) for w in want))
+        if not bitwise:
+            raise SystemExit("chip_smoke: K7's row-block form is not "
+                             "deterministic")
+        del got, rep, want
+        if (data, latent) == M1_MESHES[0]:
+            k7 = dict(max_abs_err=err, ms=cuda_ms(run, reps=10),
+                      plain_ms=cuda_ms(lambda: m_rows_plain(
+                          torch, ck, xc[r0:r1], *args), reps=2, warmup=1),
+                      bound=k7_rows_bound(hi - lo, r1 - r0, N, D, M_R),
+                      shape=shape)
+            print(f"  M K7 row-block form {shape}: {k7['ms']:.4f} ms, plain "
+                  f"{k7['plain_ms']:.3f} ms, bound {k7['bound'][0]:.4f} ms "
+                  f"({k7['bound'][1]})")
+        idx = np.linspace(0, N - 1, MLL_KW["precond_rank"]).astype(np.int64)
+        k3_shapes(torch, ck, dev, ((x[r0:r1], x[idx]),), ls[lo:hi])
+        torch.cuda.empty_cache()
+    del full
+    torch.cuda.empty_cache()
+    return k7
+
+
+def m_rows_plain(torch, ck, x1, x2, ls, A, Bf, kind, block=1250):
+    """K7's row-block plain version a block of rows at a time (its formula
+    forms a (q, rows, n, d) array)."""
+    rows, wx = [], []
+    for i0 in range(0, x1.shape[0], block):
+        r, w = ck.lowrank_stationary_reduce_rows_plain(
+            x1[i0:i0 + block], x2, ls, A[:, i0:i0 + block], Bf, kind)
+        rows.append(r)
+        wx.append(w)
+    return torch.cat(rows, 1), torch.cat(wx, 1)
+
+
+@contextlib.contextmanager
+def blocked_products(torch, data, latent):
+    """One process computing the stack's products as the ranks of a (data,
+    latent) mesh do: each product (``iterative._stack_matmul``, the ICM's
+    ``_kernel_product``) as one call a rank's block, of the block's shape
+    (cuBLAS picks its order of summation, split-K or not, from the shape),
+    and the ICM's K built a rank's rows at a time (``rows=``), so that
+    K3's backward sums each block apart. A witness of the sharded runs'
+    plumbing: the same arithmetic, no mesh."""
+    from projected_lmc_tpu_torch.models.multitask import MultitaskGPModel
+    from projected_lmc_tpu_torch.ops import iterative as it
+    from projected_lmc_tpu_torch.parallel.mesh import Mesh
+    meshes = [Mesh(data, latent, r) for r in range(data * latent)]
+    own = (it._stack_matmul, it._kernel_product, MultitaskGPModel._block)
+
+    def stack_matmul(Ks, W):
+        single = W.dim() == 2
+        Wt = W[None] if single else W                       # (r, n, q)
+        q, n = Ks.shape[0], Ks.shape[1]
+        out = Wt.new_zeros(Wt.shape[:-2] + (n, q), dtype=torch.float32
+                           if Ks.dtype == torch.bfloat16 else Wt.dtype)
+        for m in meshes:
+            (lo, hi), (r0, r1) = m.latent_range(q), m.data_range(n)
+            out[..., r0:r1, lo:hi] = own[0](
+                Ks[lo:hi, r0:r1].contiguous(), Wt[..., lo:hi])
+        return out[0] if single else out
+
+    def kernel_product(K, V):
+        n = K.shape[0]
+        return torch.cat([own[1](K[r0:r1].contiguous(), V) for r0, r1 in
+                          (m.world_range(n) for m in meshes)], -2)
+
+    def block(self, x, rows, **kw):
+        if rows is not None or not self.icm:
+            return own[2](self, x, rows, **kw)
+        n = x.shape[0]
+        return torch.cat([self.covar_module(x, x, rows=m.world_range(n), **kw)
+                          for m in meshes], -2)
+
+    it._stack_matmul, it._kernel_product = stack_matmul, kernel_product
+    MultitaskGPModel._block = block
+    try:
+        yield
+    finally:
+        it._stack_matmul, it._kernel_product = own[:2]
+        MultitaskGPModel._block = own[2]
+
+
+def m_references(torch, pl, ck, dev, cases):
+    """Path M's unsharded runs on this card (not counted): M1, M2 and M4's
+    steps and M3's serving. The fused cases (M1, M4) run on the full grid
+    (``PLMC_SYM_BUILD=0``: K6 and K7), the kernels the sharded op runs on
+    its blocks; and on the default route (K1 and K2), for the reading
+    :func:`path_m_check` prints. M2 and M4 also with the products of
+    :func:`blocked_products` on their mesh, the witness their sharded runs
+    are held to bit for bit (M1's products give the same bits at its
+    blocks' shapes)."""
+    refs = {}
+    for label in ("M1", "M2", "M4"):
+        fused = cases[label]["kind"] != "icm"
+        runs = [(label, "full" if fused else "default", False)]
+        if fused:
+            runs.append((label + " default", "default", False))
+        if label != "M1":
+            runs.append((label + " blocked", runs[0][1], True))
+        for key, route, blocked in runs:
+            with routed(route), (blocked_products(torch, *M_MESH) if blocked
+                                 else contextlib.nullcontext()):
+                model, _, refs[key] = m_train(torch, pl, ck, cases[label],
+                                              dev)
+            del model
+            torch.cuda.empty_cache()
+    refs["M3"] = m_serve(torch, pl, ck, cases, dev)
+    print(f"  path M unsharded references on this card: " + ", ".join(
+        f"{k} median step {float(np.median(refs[k]['ms'][1:])):.3f} ms, "
+        f"peak {refs[k]['peak_gib']:.2f} GiB" for k in refs if k != "M3")
+        + " (M1 and M4 on the full grid, and on the default route; M2 and "
+        "M4 with their products blocked as the ranks' are)")
+    return refs
+
+
+def _m_against(got, want):
+    """(first loss rel, worst gradient of its leaf's largest entry, worst
+    loss rel) of a run against another."""
+    rel = abs(got["losses"][0] - want["losses"][0]) / abs(want["losses"][0])
+    grad = max(float(np.abs(got["grads"][k] - g).max()
+                     / max(np.abs(g).max(), 1e-30))
+               for k, g in want["grads"].items() if g.size)
+    steps = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                    want["losses"]))
+    return rel, grad, steps
+
+
+M_COUNTS = {"M1": lambda s: expect(K6=s, K7=s, K3=2),
+            "M2": lambda s: expect(K3=s + 2),
+            "M4": lambda s: expect(K6=s, K7=s, K3=2 * s)}
+
+
+def path_m_check(torch, out, refs, cases, totals, note):
+    """Every rank's path M against the unsharded runs: M1, M2 and M4 by
+    ``l_held`` (path L's limits) against one process's same arithmetic (M1
+    the unsharded run on the full grid; M2 and M4 its run with the
+    products blocked as the ranks', :func:`blocked_products`), M2 and M4
+    also against the plain unsharded run at the CG estimator's fp32
+    limits (first loss 1e-5, gradients ``M_CG_GRAD_TOL``, losses 1e-4);
+    their launch counts; M3's predictions at path G's limits, the dense
+    ICM MLL at path L's first-step limits."""
+    for label in ("M1", "M2", "M4"):
+        want = refs.get(label + " blocked", refs[label])
+        if want is not refs[label]:
+            rel, grad, worst = _m_against(want, refs[label])
+            print(f"  {label} unsharded, its products blocked as the ranks' "
+                  f"against as they are (the estimator's own sensitivity to "
+                  f"the order of summation; a reading): first loss rel "
+                  f"{rel:.2e}, worst gradient {grad:.2e} of its largest "
+                  f"entry, losses worst rel {worst:.2e}")
+        steps = cases[label]["steps"]
+        start = {k: cases[label]["arrays"]["." + k] for k in want["params"]}
+        for layout in (M1_MESHES if label == "M1" else (M_MESH,)):
+            for r, o in enumerate(out):
+                got = o["M"][(label, layout)]
+                l_held(f"{label} rank {r} mesh {got['mesh']}", got, want,
+                       start)
+                if want is not refs[label]:
+                    rel, grad, worst = _m_against(got, refs[label])
+                    print(f"  {label} rank {r} against the plain unsharded "
+                          f"run: first loss rel {rel:.2e} ({L_LOSS_RTOL:.0e}),"
+                          f" worst gradient {grad:.2e} of its largest entry "
+                          f"({M_CG_GRAD_TOL:.0e}), losses worst rel "
+                          f"{worst:.2e} ({L_STEPS_RTOL:.0e})")
+                    if not (rel <= L_LOSS_RTOL and grad <= M_CG_GRAD_TOL
+                            and worst <= L_STEPS_RTOL):
+                        raise SystemExit(f"chip_smoke: {label} rank {r} "
+                                         f"disagrees with the plain "
+                                         f"unsharded run")
+                if got["counts"] != M_COUNTS[label](steps):
+                    raise SystemExit(f"chip_smoke: {label} rank {r} launched "
+                                     f"{got['counts']}, not "
+                                     f"{M_COUNTS[label](steps)}")
+                for k, v in got["counts"].items():
+                    totals[k] += v
+            runs = [o["M"][(label, layout)] for o in out]
+            if label + " default" in refs:
+                rel, grad, worst = _m_against(runs[0],
+                                              refs[label + " default"])
+                print(f"  {label} rank 0 mesh {runs[0]['mesh']} against the "
+                      f"unsharded default route (K1 and K2; a reading, not "
+                      f"held): first loss rel {rel:.2e}, worst gradient "
+                      f"{grad:.2e} of its largest entry, losses worst rel "
+                      f"{worst:.2e}")
+            print(f"  {label} data {layout[0]} x latent {layout[1]}: step "
+                  f"median by rank " + " / ".join(
+                      f"{float(np.median(g['ms'][1:])):.3f}" for g in runs)
+                  + f" ms ({note}); unsharded "
+                  f"{float(np.median(refs[label]['ms'][1:])):.3f} ms; peak "
+                  f"memory by rank " + " / ".join(f"{g['peak_gib']:.2f}"
+                                                  for g in runs)
+                  + f" GiB (unsharded {refs[label]['peak_gib']:.2f}); "
+                  f"launches a "
+                  f"rank {runs[0]['counts']}; a step with its world sums "
+                  f"timed: " + " / ".join(
+                      f"{g['sum_ms']:.1f} of {g['sum_step_ms']:.1f} ms in "
+                      f"{g['sums']} sums" for g in runs))
+    want = refs["M3"]
+    for r, o in enumerate(out):
+        got = o["M"]["M3"]
+        for name in ("lmc_iter", "icm_iter", "icm"):
+            g, w = got[name], want[name]
+            mtol = 1e-3 if name.endswith("_iter") else 1e-4
+            errs = [float(np.abs(g["mean"] - w["mean"]).max()
+                          / np.abs(w["mean"]).max()),
+                    float(np.abs(g["var"] - w["var"]).max() / w["prior_var"])]
+            if "compute_var" in w:
+                errs.append(float(np.abs(g["compute_var"] - w["compute_var"])
+                                  .max() / w["prior_var"]))
+            bad = (g["kind"] != name or errs[0] > mtol
+                   or max(errs[1:]) > 1e-3
+                   or any(v for k, v in g["counts"].items() if k != "K3")
+                   or g["counts"]["K3"] < 1)
+            print(f"  M3 rank {r} {name} ({g['kind']}): cache "
+                  f"{g['cache_ms']:.3f} ms, posterior ({N_TEST} points) "
+                  f"{g['pred_ms']:.3f} ms; mean {errs[0]:.2e} of its largest "
+                  f"entry ({mtol:.0e}), variance {max(errs[1:]):.2e} of the "
+                  f"largest prior variance (1e-3); K3 {g['counts']['K3']}")
+            if bad:
+                raise SystemExit(f"chip_smoke: M3's sharded {name} disagrees "
+                                 f"with the unsharded one")
+            totals["K3"] += g["counts"]["K3"]
+        g, w = got["icm"], want["icm"]
+        rel = abs(g["loss"] - w["loss"]) / abs(w["loss"])
+        grad = max(float(np.abs(g["grads"][k] - v).max()
+                         / max(np.abs(v).max(), 1e-30))
+                   for k, v in w["grads"].items())
+        print(f"  M3 rank {r} dense ICM MLL n={N_M3} ({g['mll_ms']:.3f} ms): "
+              f"loss rel {rel:.2e} ({L_LOSS_RTOL:.0e}), worst gradient "
+              f"{grad:.2e} of its largest entry ({L_GRAD_TOL:.0e}), launches "
+              f"{g['mll_counts']}")
+        if not (rel <= L_LOSS_RTOL and grad <= L_GRAD_TOL
+                and g["mll_counts"] == expect(K3=1)):
+            raise SystemExit("chip_smoke: M3's sharded dense ICM MLL "
+                             "disagrees with the unsharded one")
+        totals["K3"] += 1
 
 
 def main() -> int:
@@ -5094,8 +5642,9 @@ def main() -> int:
           f"{L1_MESH[1]}, L2 I3's projected SGPR and L3 the variational ELBO "
           f"n={I2_FULL_N} on data {L2_MESH[0]} x latent {L2_MESH[1]} "
           f"({L_STEPS} sharded steps each against unsharded ones), L4 "
-          f"dryrun_multichip, a one-rank NCCL group and the DCP checkpoint")
-    path_l_phase(torch, pl, ck, dev, totals)
+          f"dryrun_multichip, a one-rank NCCL group and the DCP checkpoint; "
+          f"path M (the LMC and ICM families) in the same spawn")
+    k7_rows = path_l_phase(torch, pl, ck, dev, totals)
 
     meta = [("K1", "scaled_kernel_stack_sym",
              "projected_lmc_tpu/ops/pallas_kernels.py:278"),
@@ -5124,6 +5673,11 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=b, bound_by=by,
             library_ms=None))
+    print(f"  K7's row-block form at M1's {k7_rows['shape']} block: "
+          f"{k7_rows['ms']:.4f} ms (plain {k7_rows['plain_ms']:.3f} ms, "
+          f"bound {k7_rows['bound'][0]:.4f} ms by {k7_rows['bound'][1]}, "
+          f"max_abs_err {k7_rows['max_abs_err']:.3e}); its launches are "
+          f"K7's")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -70,11 +70,17 @@ def _skm_bwd_reductions(kind, x1c, x2c, ls, g):
 
 class _StationaryKernelMatrix(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x1, x2, ls, kind, out_dtype, device):
+    def forward(ctx, x1, x2, ls, kind, out_dtype, device, rows):
         # centred inputs (translation invariance, exact): the backward's
-        # distance expansion stays safe for large-offset features
+        # distance expansion stays safe for large-offset features; a row
+        # block is centred as the whole x1 is, so that its values are
+        # bitwise those rows of the whole matrix
         mu = x1.mean(0)
         x1c, x2c = x1 - mu, x2 - mu
+        ctx.rows = rows
+        if rows is not None:
+            ctx.n1 = x1.shape[0]
+            x1c = x1c[rows[0]:rows[1]]
         if x1c.is_cuda and x1c.dtype != torch.float32:
             raise NotImplementedError(
                 "on the card the dense kernel matrix takes float32 inputs "
@@ -104,17 +110,23 @@ class _StationaryKernelMatrix(torch.autograd.Function):
                      / ls2[:, None, :]).sum(0)
         dx2 = 2.0 * ((cols[..., None] * x2c[None] - Wtx1)
                      / ls2[:, None, :]).sum(0)
+        if ctx.rows is not None:
+            dx1 = torch.nn.functional.pad(
+                dx1, (0, 0, ctx.rows[0], ctx.n1 - ctx.rows[1]))
         return (dx1.to(x1c.dtype), dx2.to(x2c.dtype),
-                dls[:, None, :].to(ls.dtype), None, None, None)
+                dls[:, None, :].to(ls.dtype), None, None, None, None)
 
 
 def stationary_kernel_matrix(x1, x2, ls, kind: str, out_dtype=None,
-                             device="cuda"):
+                             device="cuda", rows=None):
     """K_b = g(|x1/l_b − x2/l_b|²), (B, n, m), for inputs x1 (n, d) and
     x2 (m, d) shared across the lengthscale batch (B, 1, d). Custom backward:
     one elementwise pass over the cotangent plus matvec-sized contractions
-    (the JAX package's ``_skm_bwd``), no autodiff through the profile."""
-    return _StationaryKernelMatrix.apply(x1, x2, ls, kind, out_dtype, device)
+    (the JAX package's ``_skm_bwd``), no autodiff through the profile.
+    ``rows`` (r0, r1): only the rows r0..r1 − 1 of that matrix, bitwise
+    those of the whole (a rank's block under a mesh)."""
+    return _StationaryKernelMatrix.apply(x1, x2, ls, kind, out_dtype, device,
+                                         rows)
 
 
 class Prior:
@@ -174,7 +186,10 @@ class Kernel(Module):
     """Base kernel, batched over ``batch`` functions: ``forward(x1, x2,
     diag, out_dtype)`` on inputs shared by the batch, (n, d) or 1-D for one
     feature, or per batch element, (batch, n, d), gives (batch, n, m), or
-    with ``diag`` the (batch, min(n, m)) diagonal k(x1_i, x2_i)."""
+    with ``diag`` the (batch, min(n, m)) diagonal k(x1_i, x2_i). A dense
+    ``forward`` also takes ``rows=(r0, r1)``: the rows r0..r1 − 1 of that
+    matrix alone, bitwise those of the whole (a rank's row block under a
+    mesh)."""
 
     has_lengthscale = False
 
@@ -204,6 +219,11 @@ class Kernel(Module):
             x1, x2 = (x.expand(self.batch, *x.shape) if x.dim() == 2 else x
                       for x in (x1, x2))
         return x1, x2
+
+    @staticmethod
+    def _rows_of(x1, rows):
+        """x1's rows r0..r1 − 1 (all of x1 when ``rows`` is None)."""
+        return x1 if rows is None else x1[..., rows[0]:rows[1], :]
 
     def prior_log_prob(self):
         """Sum of the hyperparameter priors' log-probabilities."""
@@ -242,7 +262,8 @@ class _StationaryKernel(Kernel):
                 value.expand_as(self.raw_lengthscale)))
         return self
 
-    def forward(self, x1, x2=None, diag: bool = False, out_dtype=None):
+    def forward(self, x1, x2=None, diag: bool = False, out_dtype=None,
+                rows=None):
         """Dense (batch, n, m) on shared inputs through
         :func:`stationary_kernel_matrix` (kernel K3 on the card); the
         diagonal, and per-batch 3-D inputs, in plain torch, as the JAX
@@ -253,11 +274,11 @@ class _StationaryKernel(Kernel):
             n = min(x1.shape[-2], x2.shape[-2])
             d2 = (((x1[..., :n, :] - x2[..., :n, :]) / ls) ** 2).sum(-1)
         elif x1.dim() == 3:       # from direct differences, as K3's plain
-            a, b = x1 / ls, x2 / ls
+            a, b = self._rows_of(x1, rows) / ls, x2 / ls
             d2 = ((a[..., :, None, :] - b[..., None, :, :]) ** 2).sum(-1)
         else:
             return stationary_kernel_matrix(x1, x2, ls, self._kind,
-                                            out_dtype, self.device)
+                                            out_dtype, self.device, rows)
         K = ck.profile(self._kind, d2)
         return K if out_dtype is None else K.to(out_dtype)
 
@@ -299,8 +320,11 @@ class SplineKernel(Kernel):
         self.register_buffer("_dummy", torch.zeros(
             (0,), dtype=dtype, device=resolve_device(device)))
 
-    def forward(self, x1, x2=None, diag: bool = False, out_dtype=None):
+    def forward(self, x1, x2=None, diag: bool = False, out_dtype=None,
+                rows=None):
         x1, x2 = self._inputs(x1, x2)
+        if not diag:
+            x1 = self._rows_of(x1, rows)
         if diag:
             x = x1[..., :min(x1.shape[-2], x2.shape[-2]), :]
             K = (1 + x ** 2 + x ** 3 / 3.0).prod(-1)
@@ -438,8 +462,11 @@ class SpectralMixtureKernel(Kernel):
                              np.maximum(scales, 1e-12),
                              np.maximum(weights, 1e-12))
 
-    def forward(self, x1, x2=None, diag: bool = False, out_dtype=None):
+    def forward(self, x1, x2=None, diag: bool = False, out_dtype=None,
+                rows=None):
         x1, x2 = self._inputs(x1, x2)
+        if not diag:
+            x1 = self._rows_of(x1, rows)
         w = self.mixture_weights                            # (B, Q)
         mu = self.mixture_means[:, :, 0, :]                 # (B, Q, d)
         sig = self.mixture_scales[:, :, 0, :]
@@ -492,8 +519,10 @@ class ScaleKernel(Kernel):
     def lengthscale(self):
         return self.base_kernel.lengthscale
 
-    def forward(self, x1, x2=None, diag: bool = False, out_dtype=None):
-        K = self.base_kernel(x1, x2, diag=diag)
+    def forward(self, x1, x2=None, diag: bool = False, out_dtype=None,
+                rows=None):
+        K = self.base_kernel(x1, x2, diag=diag,
+                             **({} if rows is None else dict(rows=rows)))
         s = self.outputscale
         K = K * (s[:, None] if diag else s[:, None, None])
         return K if out_dtype is None else K.to(out_dtype)
@@ -517,10 +546,12 @@ class AdditiveKernel(Kernel):
         self.kernels = nn.ModuleList(kernels)
         self._setup(kernels[0].batch, None)
 
-    def forward(self, x1, x2=None, diag: bool = False, out_dtype=None):
-        K = self.kernels[0](x1, x2, diag=diag)
+    def forward(self, x1, x2=None, diag: bool = False, out_dtype=None,
+                rows=None):
+        kw = {} if rows is None else dict(rows=rows)
+        K = self.kernels[0](x1, x2, diag=diag, **kw)
         for k in self.kernels[1:]:
-            K = K + k(x1, x2, diag=diag)
+            K = K + k(x1, x2, diag=diag, **kw)
         return K if out_dtype is None else K.to(out_dtype)
 
     def prior_log_prob(self):

@@ -23,8 +23,12 @@ of the task batch (``module.latent_slice``) and the group sums, by
 (T/L, n, n) block (the ranks of one data group hold replicas of it, since
 the n×n factorization is not split by rows), and the SGPR route builds its
 rows' K_xz, (T/L, n/D, m), and sums RᵀR, Rᵀδ, δᵀδ and the trace gap over
-the data group before the m×m Cholesky. ``log_marginal``, ``mll`` and
-``compute_loo`` return the whole batch on every rank; the cache of
+the data group before the m×m Cholesky. The iterative route is the fused
+op with H = I, the T functions its latents: the rank builds its functions'
+rows over the data axis (K6) and runs the row-sharded PCG
+(``ops/fused_mll``); its composed route (a kernel the fused op does not
+take) is ROADMAP A 15 under a mesh and raises. ``log_marginal``, ``mll``
+and ``compute_loo`` return the whole batch on every rank; the cache of
 ``precompute_posterior`` and ``posterior`` hold the rank's latents.
 """
 
@@ -336,11 +340,6 @@ class ExactGPModel(Module):
         if not iterative:
             ll = self.log_marginal(y=y, x=x)
             return (ll.sum() + self.covar_module.prior_log_prob()) / n
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "ExactGPModel's iterative MLL under a mesh is ROADMAP A 14 "
-                "(the row-sharded PCG); pass iterative=False for the dense "
-                "route")
         from .multitask import _fused_stationary_spec
         y_ = self.train_y if y is None else _canon_targets(
             torch.as_tensor(y, dtype=x_.dtype, device=x_.device), self.n_funcs)
@@ -350,8 +349,16 @@ class ExactGPModel(Module):
         St = torch.diag(self.likelihood.noise[..., 0])
         if precond_rank <= 0:
             precond_rank = min(256, n)
+        spec = _fused_stationary_spec(self.covar_module, self.dim)
+        rows = None
+        if self.mesh is not None:
+            if spec is None:
+                raise NotImplementedError(
+                    "ExactGPModel's composed iterative MLL under a mesh is "
+                    "ROADMAP A 15")
+            rows = self.mesh.row_block(n, T)
         with torch.no_grad():
-            roots = self._precond_roots(x_, precond_rank)       # (T, n, m)
+            roots = self._precond_roots(x_, precond_rank, rows=rows)
         m_rank = int(roots.shape[-1])
         if eps is None or xi is None:
             if generator is None:
@@ -360,7 +367,6 @@ class ExactGPModel(Module):
                         device=x_.device)
             eps = torch.randn((num_probes, n, T), **draw)
             xi = torch.randn((num_probes, T, m_rank), **draw)
-        spec = _fused_stationary_spec(self.covar_module, self.dim)
         if spec is None:
             # the composed route: the task kernels' materialized stack
             Ks = self.covar_module(
@@ -372,7 +378,8 @@ class ExactGPModel(Module):
             kind, ls, os_ = spec
             ll = fused_mll.lmc_pcg_log_prob_stationary(
                 x_, ls, os_, H, St, Ydelta, eps, xi, roots, kind,
-                max_cg_iters, cg_tol, matvec_bf16, m_rank, device=x_.device)
+                max_cg_iters, cg_tol, matvec_bf16, m_rank, device=x_.device,
+                rows=rows)
         return (ll + self.covar_module.prior_log_prob()) / n
 
     def lscales(self, unpacked: bool = True):
@@ -530,11 +537,13 @@ class ExactGPModel(Module):
             return sigma2.T.detach(), yminusmu.T.detach()
         return sigma2.T, yminusmu.T
 
-    def _precond_roots(self, x, rank: int, jitter: float = 1e-4):
+    def _precond_roots(self, x, rank: int, jitter: float = 1e-4, rows=None):
         """Nyström roots of the batched task kernels at strided landmarks
-        (ops.iterative.nystrom_roots_from_covar), (T, n, rank)."""
+        (ops.iterative.nystrom_roots_from_covar), (T, n, rank); with
+        ``rows`` (under the mesh) from the rank's rows of K(x, z), gathered
+        whole."""
         return it_ops.nystrom_roots_from_covar(self.covar_module, x, rank,
-                                               jitter)
+                                               jitter, rows)
 
 
 class _DiagMVN(MultivariateNormal):

@@ -30,6 +30,23 @@ SGPR (``n_inducing_points``, both types): Nyström roots R_b = K_xz L_zz⁻ᵀ
 Titsias trace term; the ICM is an LMC of T pseudo-latents, the columns of
 chol(B), sharing one root set. Its cache ("sgpr") is the (q·m)²
 capacitance, its posterior ``woodbury.lmc_sgpr_posterior``.
+
+Under a mesh (``parallel.shard_model``) every rank holds every leaf and
+returns the whole value, by ``parallel.sharded``'s rule. The LMC's rank
+builds its block of the stack, its latents' rows over the data axis (K6 in
+the fused op, the covariance module's K3 on the composed route and in the
+"lmc_iter" cache), and runs the row-sharded PCG of ``ops/iterative``; the
+roots come from its rows of K(x, z) and one gather. The ICM's one kernel
+splits its rows over every rank on the matrix-free route and in
+"icm_iter"; its dense MLL splits the t Cholesky blocks over the ranks and
+keeps K whole, and its "icm" cache (the n×n eigh) is computed whole on
+every rank. ``posterior`` and ``compute_var`` split the test points over
+the ranks (each rank's K3 cross-covariance rows) and gather the mean and
+variance, so that every rank returns the whole (n*, T). ``compute_loo``,
+``kernel_cond`` and the prior (``forward``) are computed whole on every
+rank. The dense Woodbury LMC (its MLL and "lmc" cache, q·n ≤
+``DENSE_QN_MAX``), the SLQ route, the int8 loop and both SGPR routes are
+ROADMAP A 15 under a mesh and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,7 +61,7 @@ from ..kernels import (KERNEL_REGISTRY, AdditiveKernel, ScaleKernel,
                        handle_covar)
 from ..likelihoods import MultitaskGaussianLikelihood
 from ..means import MEAN_REGISTRY
-from ..module import Module
+from ..module import Module, latent_slice
 from ..ops import fused_mll
 from ..ops import iterative as it_ops
 from ..ops import kron as kron_ops
@@ -155,10 +172,37 @@ class MultitaskGPModel(Module):
         else:
             self.inducing_points = None
         self.sgpr_titsias_var = bool(sgpr_titsias_var)
+        self.mesh = None
 
     @property
     def device(self):
         return self.train_x.device
+
+    def _rows(self, n: int):
+        """Under the mesh, this rank's ``parallel.mesh.RowBlock`` of the
+        (q, n, n) stack: the LMC's latents and rows over the data axis, the
+        ICM's one kernel's rows over every rank; None without a mesh."""
+        if self.mesh is None:
+            return None
+        if self.icm:
+            return self.mesh.row_block(n, 1, over="world")
+        return self.mesh.row_block(n, self.n_latents)
+
+    def _block(self, x, rows, **kw):
+        """The stack K(x, x) (q, n, n), or under the mesh the rank's block
+        K(x[r0:r1], x) of its latents (K3 on the card; the LMC's covariance
+        module restricted by ``module.latent_slice``), bitwise those rows
+        of the whole."""
+        if rows is None:
+            return self.covar_module(x, **kw)
+        cm = self.covar_module if self.icm else latent_slice(
+            self.covar_module, rows.lo, rows.hi, self.n_latents)
+        return cm(x, x, rows=(rows.r0, rows.r1), **kw)
+
+    def _refuse_mesh(self, route: str):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"MultitaskGPModel's {route} under a mesh is ROADMAP A 15")
 
     @property
     def icm(self) -> bool:
@@ -236,11 +280,12 @@ class MultitaskGPModel(Module):
         carried as a white task-covariance term (see the JAX model)."""
         return softplus(self.raw_var).sum(0)
 
-    def _precond_roots(self, x, rank: int, jitter: float = 1e-4):
+    def _precond_roots(self, x, rank: int, jitter: float = 1e-4, rows=None):
         """Nyström roots of the latent kernels at strided landmarks,
-        (q, n, rank) (ops.iterative.nystrom_roots_from_covar)."""
+        (q, n, rank) (ops.iterative.nystrom_roots_from_covar); with ``rows``
+        from the rank's rows of K(x, z), gathered whole."""
         return it_ops.nystrom_roots_from_covar(self.covar_module, x, rank,
-                                               jitter)
+                                               jitter, rows)
 
     def mll(self, x=None, y=None, iterative: bool = None, num_probes: int = 10,
             max_cg_iters: int = 256, cg_tol: float = 1e-2, slq_steps: int = 20,
@@ -287,6 +332,7 @@ class MultitaskGPModel(Module):
         n = x.shape[0]
         Ydelta = y.T - self.mean_module(x).T                    # (n, T)
         if self.sgpr:
+            self._refuse_mesh("SGPR MLL")
             roots, H, St, titsias = self._sgpr_structure(x)
             fac = wb_ops.lmc_factors_from_roots(roots, H, St)
             ll = wb_ops.lmc_log_prob(None, H, St, Ydelta, fac=fac) + titsias
@@ -302,10 +348,13 @@ class MultitaskGPModel(Module):
         if iterative is None:
             iterative = self.n_latents * n > self.DENSE_QN_MAX
         if not iterative:
+            self._refuse_mesh("dense Woodbury MLL (q·n ≤ DENSE_QN_MAX)")
             ll = wb_ops.lmc_log_prob(self.covar_module(x), H, St, Ydelta)
             return (ll + self.covar_module.prior_log_prob()) \
                 / (n * self.n_tasks)
         if precond_rank <= 0 or quad_method != "pcg":
+            self._refuse_mesh("CG + SLQ MLL (precond_rank ≤ 0 or "
+                              "quad_method='slq')")
             # CG + SLQ on Rademacher probes over the materialized stack, the
             # preconditioner (precond_rank > 0) from the stack's columns
             if probes is None:
@@ -321,25 +370,28 @@ class MultitaskGPModel(Module):
         eps, xi = self._draw_probes(n, Ydelta.dtype, x.device, eps, xi,
                                     generator, num_probes,
                                     (self.n_latents, min(precond_rank, n)))
+        rows = self._rows(n)
         if precond_roots is None:
             with torch.no_grad():
-                precond_roots = self._precond_roots(x, precond_rank)
+                precond_roots = self._precond_roots(x, precond_rank,
+                                                    rows=rows)
         spec = _fused_stationary_spec(self.covar_module, self.dim)
         if spec is None:
-            # the composed route: any kernel, the (q, n, n) stack
-            # materialized (in bf16 for a bf16 CG loop, its cotangent too)
-            Ks = self.covar_module(
-                x, out_dtype=torch.bfloat16 if matvec_bf16 else None)
+            # the composed route: any kernel, the (q, n, n) stack (the
+            # rank's block under the mesh) materialized (in bf16 for a bf16
+            # CG loop, its cotangent too)
+            Ks = self._block(
+                x, rows, out_dtype=torch.bfloat16 if matvec_bf16 else None)
             ll = it_ops.lmc_pcg_log_prob(
                 Ks, H, St, Ydelta, eps, xi, precond_roots, max_cg_iters,
-                cg_tol, matvec_bf16, precond_rank, matvec_int8)
+                cg_tol, matvec_bf16, precond_rank, matvec_int8, rows=rows)
             return (ll + self.covar_module.prior_log_prob()) \
                 / (n * self.n_tasks)
         kind, ls, os_ = spec
         ll = fused_mll.lmc_pcg_log_prob_stationary(
             x, ls, os_, H, St, Ydelta, eps, xi, precond_roots, kind,
             max_cg_iters, cg_tol, matvec_bf16, precond_rank, matvec_int8,
-            device=x.device)
+            device=x.device, rows=rows)
         return (ll + self.covar_module.prior_log_prob()) / (n * self.n_tasks)
 
     def _draw_probes(self, n, dtype, device, eps, xi, generator, num_probes,
@@ -365,28 +417,29 @@ class MultitaskGPModel(Module):
             iterative = n > self.ICM_DENSE_N_MAX
         if not iterative:
             return kron_ops.icm_log_prob_chol(self.covar_module(x)[0], B, St,
-                                              Ydelta)
+                                              Ydelta, mesh=self.mesh)
         # above the dense ceiling the t parallel (n, n) Choleskys are
         # O(t·n²) memory; the estimator is exact for any SPD preconditioner,
         # so a default Nyström rank is always safe
         if precond_rank <= 0:
             precond_rank = min(256, n)
+        rows = self._rows(n)
         if precond_roots is not None:
             roots = precond_roots[0] if precond_roots.dim() == 3 \
                 else precond_roots
         else:
             with torch.no_grad():
-                roots = self._precond_roots(x, precond_rank)[0]
+                roots = self._precond_roots(x, precond_rank, rows=rows)[0]
         # the probes' rank is the roots' (stale roots may have another)
         m_rank = int(roots.shape[-1])
         eps, xi = self._draw_probes(n, Ydelta.dtype, x.device, eps, xi,
                                     generator, num_probes,
                                     (m_rank, self.n_tasks))
-        K = self.covar_module(
-            x, out_dtype=torch.bfloat16 if matvec_bf16 else None)[0]
+        K = self._block(
+            x, rows, out_dtype=torch.bfloat16 if matvec_bf16 else None)[0]
         return it_ops.icm_pcg_log_prob(K, B, St, Ydelta, eps, xi, roots,
                                        max_cg_iters, cg_tol, matvec_bf16,
-                                       m_rank)
+                                       m_rank, rows=rows)
 
     # -- posterior ---------------------------------------------------------------
     def precompute_posterior(self, iterative: bool = None,
@@ -412,8 +465,14 @@ class MultitaskGPModel(Module):
         from ``generator``.
 
         SGPR (both types): the Woodbury factors of the low-rank roots and α
-        ("sgpr")."""
+        ("sgpr").
+
+        Under a mesh: "lmc_iter" and "icm_iter" on the rank's row block
+        (the PCG and the power iteration row-sharded, their start vector
+        rank 0's draw), "icm" whole on every rank; the cache is whole and
+        the same on every rank."""
         if self.sgpr:
+            self._refuse_mesh("\"sgpr\" cache")
             roots, H, St, _ = self._sgpr_structure(self.train_x)
             fac = wb_ops.lmc_factors_from_roots(roots, H, St)
             return dict(kind="sgpr", fac=fac,
@@ -428,19 +487,22 @@ class MultitaskGPModel(Module):
         H, St = self._mixing()
         if iterative is None:
             iterative = self.n_latents * n > self.DENSE_QN_MAX
-        Ks = self.covar_module(x)
         if not iterative:
-            fac = wb_ops.lmc_factors(Ks, H, St)
+            self._refuse_mesh("dense Woodbury \"lmc\" cache (q·n ≤ "
+                              "DENSE_QN_MAX)")
+            fac = wb_ops.lmc_factors(self.covar_module(x), H, St)
             return dict(kind="lmc", fac=fac, alpha=wb_ops.lmc_solve(Ydelta, fac),
                         H=H, Sigma_t=St)
-        roots = self._precond_roots(x, precond_rank)
+        rows = self._rows(n)
+        Ks = self._block(x, rows)
+        roots = self._precond_roots(x, precond_rank, rows=rows)
         minv = it_ops.nystrom_precond(Ks, H, St, precond_rank, roots=roots)
-        Md = torch.clamp(it_ops._jacobi_diag(Ks, H, St), min=1e-10)
+        # M⁻¹ is given, so the Jacobi diagonal is never read
         alpha = it_ops.batched_pcg(
-            lambda V: it_ops.lmc_matvec(Ks, H, St, V), Ydelta[None], Md,
-            max_iters=max_cg_iters, tol=cg_tol, minv=minv)[0]
+            lambda V: it_ops.lmc_matvec(Ks, H, St, V, rows), Ydelta[None],
+            None, max_iters=max_cg_iters, tol=cg_tol, minv=minv)[0]
         c = it_ops.residual_spectral_bound(Ks, roots, H, v0=v0,
-                                           generator=generator)
+                                           generator=generator, rows=rows)
         eye = torch.eye(self.n_tasks, dtype=St.dtype, device=St.device)
         fac_up = wb_ops.lmc_factors_from_roots(roots, H, St + c * eye)
         return dict(kind="lmc_iter", alpha=alpha, H=H, Sigma_t=St, fac=fac_up)
@@ -450,25 +512,26 @@ class MultitaskGPModel(Module):
         x = self.train_x
         n = x.shape[0]
         Ydelta = self._train_delta()
-        K = self.covar_module(x)[0]
         B = self.task_covar_matrix()
         St = self.likelihood.task_covariance()
         if iterative is None:
             iterative = n > self.ICM_DENSE_N_MAX
         if not iterative:
-            fac = kron_ops.icm_eig_factors(K, B, St)
+            fac = kron_ops.icm_eig_factors(self.covar_module(x)[0], B, St)
             alpha = kron_ops.icm_solve(Ydelta, fac)
             return dict(kind="icm", fac=fac, alpha=alpha, B=B, Sigma_t=St)
+        rows = self._rows(n)
+        K = self._block(x, rows)[0]
         m_rank = min(precond_rank if precond_rank > 0 else 256, n)
-        roots = it_ops.nystrom_roots_from_kernels(K[None], m_rank)[0]
+        roots = it_ops.nystrom_roots_from_kernels(K[None], m_rank,
+                                                  rows=rows)[0]
         minv = it_ops._icm_nystrom_parts(K, B, St, m_rank, roots=roots)[3]
-        Md = torch.clamp(torch.outer(torch.diagonal(K), torch.diagonal(B))
-                         + torch.diagonal(St)[None, :], min=1e-10)
+        # M⁻¹ is given, so the Jacobi diagonal is never read
         alpha = it_ops.batched_pcg(
-            lambda V: it_ops.icm_matvec(K, B, St, V), Ydelta[None], Md,
-            max_iters=max_cg_iters, tol=cg_tol, minv=minv)[0]
+            lambda V: it_ops.icm_matvec(K, B, St, V, rows), Ydelta[None],
+            None, max_iters=max_cg_iters, tol=cg_tol, minv=minv)[0]
         c = it_ops.icm_residual_spectral_bound(K, roots, B, v0=v0,
-                                               generator=generator)
+                                               generator=generator, rows=rows)
         eye = torch.eye(self.n_tasks, dtype=St.dtype, device=St.device)
         parts = it_ops.icm_whitened_parts(None, B, St + c * eye, m_rank,
                                           roots=roots)
@@ -482,13 +545,31 @@ class MultitaskGPModel(Module):
         use the true Σt, the "lmc_iter" and "icm_iter" corrections the
         inflated factors. "sgpr": the test points' Nyström roots (K3's
         (q, n*, m)) through ``woodbury.lmc_sgpr_posterior``, with the
-        low-rank gap when ``sgpr_titsias_var``."""
+        low-rank gap when ``sgpr_titsias_var``. Under a mesh the test points
+        split over the ranks and the mean and variance are gathered (one
+        ``all_reduce``): every rank returns the whole (n*, T)."""
         if cache is None:
             cache = self.precompute_posterior()
         x_star = _as_inputs(x_star, self.train_x)
         if cache["kind"] == "sgpr":
+            self._refuse_mesh("SGPR posterior")
             return self._sgpr_posterior(x_star, cache, observed)
-        Kstars = self.covar_module(x_star, self.train_x)        # (q, n*, n)
+        if self.mesh is None:
+            return _MeanVarMT(*self._posterior_parts(x_star, cache, observed))
+        ns, T = x_star.shape[0], self.n_tasks
+        s0, s1 = self.mesh.world_range(ns)
+        both = self.mesh.gather_world(torch.cat(self._posterior_parts(
+            x_star, cache, observed, (s0, s1)), -1), s0, s1, ns)
+        return _MeanVarMT(both[:, :T], both[:, T:])
+
+    def _posterior_parts(self, x_star, cache, observed, rows=None):
+        """(mean, variance diagonal), each (n*, T), at x_star, or at its
+        rows r0..r1 − 1 alone for ``rows`` = (r0, r1) (the cross-covariance
+        rows bitwise those of the whole)."""
+        kw = {} if rows is None else dict(rows=rows)
+        Kstars = self.covar_module(x_star, self.train_x, **kw)  # (q, n*, n)
+        if rows is not None:
+            x_star = x_star[rows[0]:rows[1]]
         kss = self.covar_module(x_star, diag=True)              # (q, n*)
         mean_star = self.mean_module(x_star).T
         if cache["kind"] in ("icm", "icm_iter"):
@@ -502,13 +583,13 @@ class MultitaskGPModel(Module):
             else:
                 var = it_ops.icm_nystrom_posterior_variance(
                     Kstars[0], kss[0], B, St, cache, noise=observed)
-            return _MeanVarMT(mean, var)
+            return mean, var
         mean = wb_ops.lmc_posterior_mean(Kstars, cache["H"], cache["alpha"],
                                          mean_star)
         var = wb_ops.lmc_posterior_variance(
             Kstars, kss, cache["H"], cache["Sigma_t"], cache["fac"],
             noise=observed)
-        return _MeanVarMT(mean, var)
+        return mean, var
 
     def _sgpr_posterior(self, x_star, cache, observed):
         roots = self._nystrom_roots(x_star)                     # (k, n*, m)

@@ -74,6 +74,7 @@ def library() -> ctypes.CDLL:
         "plmc_scaled_stack": [P] * 5 + [I] * 6 + [P],
         "plmc_quantized_stack": [P] * 4 + [I] * 8 + [P],
         "plmc_lowrank_reduce": [P] * 8 + [I] * 5 + [P],
+        "plmc_lowrank_reduce_rows": [P] * 10 + [I] * 6 + [P],
         "plmc_reduce_runs": [I],
         "plmc_max_features": [],
         "plmc_reduce_width": [I, I],

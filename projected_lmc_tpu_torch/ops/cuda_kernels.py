@@ -550,6 +550,17 @@ scaled_kernel_stack.launches = 0
 lowrank_stationary_reduce_plain = lowrank_stationary_reduce_sym_plain
 
 
+def lowrank_stationary_reduce_rows_plain(x1, x2, lengthscale, A, Bf,
+                                         kind: str):
+    """K7's row-block form, plain: rows (q, n1) and wx (q, n1, d) of
+    W_b = (A_b Bf_bᵀ) ⊙ g′(d²(x1, x2)_b) for A (q, n1, r) with x1 and Bf
+    (q, n2, r) with x2 — the dense formula on the rectangle, whose rows are
+    those of the square formula on x = x2 at x1 = x2[lo:hi]."""
+    d2 = _sqdist_scaled(x1, x2, lengthscale)
+    W = torch.matmul(A, Bf.transpose(-1, -2)) * dprofile(kind, d2)
+    return W.sum(-1), torch.matmul(W, x2)
+
+
 def reduce_scratch_shapes(q: int, n: int, d: int, r: int):
     """Shapes of K7's two fp32 scratch buffers, as the kernel library sizes
     them: the pack of the factors, (q, nt, floats of one tile's pack), and
@@ -562,7 +573,8 @@ def reduce_scratch_shapes(q: int, n: int, d: int, r: int):
             (q, nt, lib.plmc_reduce_runs(nt), 1 + d, tile))
 
 
-def lowrank_stationary_reduce(x, lengthscale, A, Bf, kind: str, device="cuda"):
+def lowrank_stationary_reduce(x, lengthscale, A, Bf, kind: str, device="cuda",
+                              row_x=None):
     """K7. rows (q, n) and wx (q, n, d) of W_b = (A_b Bf_bᵀ) ⊙ g′(d²_b) over
     the full grid, for any factors (A Bfᵀ need not be symmetric).
 
@@ -579,7 +591,18 @@ def lowrank_stationary_reduce(x, lengthscale, A, Bf, kind: str, device="cuda"):
     template parameter, g′ takes the card's rsqrt and ex2; the sums run on
     x/l, wx = l · Σ W (x/l). Each run's row sums go to their own slot, and
     a last kernel sums a row tile's slots in run order: no float atomics,
-    the same bits on every run."""
+    the same bits on every run.
+
+    ``row_x`` (n1, d) gives the row-block form, a rank's rows of the grid
+    under a mesh: rows (q, n1) and wx (q, n1, d) of W = (A Bfᵀ) ⊙ g′ over the
+    rows ``row_x`` (with A (q, n1, r)) against all of ``x`` (with Bf
+    (q, n, r)). The same kernel walks row tiles packed from (row_x, A) and
+    runs of column tiles packed from (x, Bf), with the square call's slots
+    and their ordered sum (``reduce_rows_scratch_shapes``); it counts as a
+    launch of K7."""
+    if row_x is not None:
+        return _lowrank_reduce_rows(row_x, x, lengthscale, A, Bf, kind,
+                                    device)
     dev = check_device(device, x, lengthscale, A, Bf)
     if dev.type == "cpu":
         return lowrank_stationary_reduce_plain(x, lengthscale, A, Bf, kind)
@@ -599,6 +622,50 @@ def lowrank_stationary_reduce(x, lengthscale, A, Bf, kind: str, device="cuda"):
 
 
 lowrank_stationary_reduce.launches = 0
+
+
+def reduce_rows_scratch_shapes(q: int, n1: int, n2: int, d: int, r: int):
+    """Shapes of the row-block form's three fp32 scratch buffers: the packs
+    of the row tiles and of the column tiles, (q, nt1, P) and (q, nt2, P),
+    and the slots, (q, nt1, runs of the nt2 column tiles, 1+d, tile)."""
+    lib = _build.library()
+    tile = lib.plmc_tile_size()
+    nt1, nt2 = -(-n1 // tile), -(-n2 // tile)
+    floats = lib.plmc_reduce_pack_floats(r, d)
+    return ((q, nt1, floats), (q, nt2, floats),
+            (q, nt1, lib.plmc_reduce_runs(nt2), 1 + d, tile))
+
+
+def _lowrank_reduce_rows(x1, x2, lengthscale, A, Bf, kind, device):
+    """K7's row-block form (``lowrank_stationary_reduce(row_x=)``)."""
+    dev = check_device(device, x1, x2, lengthscale, A, Bf)
+    if dev.type == "cpu":
+        return lowrank_stationary_reduce_rows_plain(x1, x2, lengthscale, A,
+                                                    Bf, kind)
+    n1, n2 = x1.shape[0], x2.shape[0]
+    d = _features(x2)
+    q, _, r = A.shape
+    _require("row_x", x1, (n1, d))
+    _require("x", x2, (n2, d))
+    _require("A", A, (q, n1, r))
+    _require("Bf", Bf, (q, n2, r))
+    width = reduce_width(d)
+    ls2 = _lengthscale_2d(lengthscale, q, d)
+    x1, ls = pad_features(x1, ls2, width)
+    x2, _ = pad_features(x2, ls2, width)
+    p1_shape, p2_shape, slots_shape = reduce_rows_scratch_shapes(
+        q, n1, n2, width, r)
+    pack1 = torch.empty(p1_shape, dtype=torch.float32, device=x1.device)
+    pack2 = torch.empty(p2_shape, dtype=torch.float32, device=x1.device)
+    slots = torch.empty(slots_shape, dtype=torch.float32, device=x1.device)
+    rows = torch.empty((q, n1), dtype=torch.float32, device=x1.device)
+    wx = torch.empty((q, n1, width), dtype=torch.float32, device=x1.device)
+    _launch("plmc_lowrank_reduce_rows", x1.data_ptr(), x2.data_ptr(),
+            ls.data_ptr(), A.data_ptr(), Bf.data_ptr(), pack1.data_ptr(),
+            pack2.data_ptr(), slots.data_ptr(), rows.data_ptr(),
+            wx.data_ptr(), q, n1, n2, r, width, _kind_id(kind), _stream(x1))
+    lowrank_stationary_reduce.launches += 1
+    return rows, _drop_padding(wx, d)
 
 
 # -- K8: int8 kernel stack -----------------------------------------------------

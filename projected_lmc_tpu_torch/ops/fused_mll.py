@@ -30,6 +30,19 @@ int8 × int8 → int32, and the backward takes the stack route. With
 (``lowrank_stationary_reduce``) gives the reductions, always on the stack
 route.
 
+Under a mesh (``rows``, a ``parallel.mesh.RowBlock``) a rank builds only
+its block of the stack, its latents' rows r0..r1 − 1 against all n points:
+K6 (``scaled_kernel_stack``) on (xc[r0:r1], xc), bitwise those rows of K1's
+stack. The CG products sum the ranks' rows over the world
+(``iterative.lmc_matvec``); the backward takes K7's row-block form
+(``lowrank_stationary_reduce(row_x=)``) for its rows' reductions and the
+block product for its rows of KR, gathers those whole in ONE world
+``all_reduce`` and runs one process's formulas on them (``_rows_products``),
+so that every rank carries the whole gradient, summed in one process's
+order, and the backward's one collective lies on the loss's chain. The
+int8 stack and the "kr"/"krs" routes are ROADMAP A 15 under a mesh, and
+raise.
+
 Scope: symmetric training evaluations of a bare or Scale-wrapped stationary
 kernel (RBF / Matérn) over all input features. The input locations get no
 gradient (training data is constant).
@@ -106,13 +119,32 @@ def _lowrank_reduce_kr(xc, ls, os_, A, Bf, kind, Ks=None, device="cuda"):
                                                device=device)
 
 
+def _refuse_under_mesh(matvec_int8: bool, n: int):
+    """The int8 stack and the K4/K5 backward routes have no row-block form
+    yet: under a mesh they raise rather than fall back. (The mesh always
+    builds on the full grid: ``PLMC_SYM_BUILD`` does not apply.)"""
+    if matvec_int8:
+        raise NotImplementedError("the fused MLL's int8 stack under a mesh "
+                                  "is ROADMAP A 15")
+    if os.environ.get("PLMC_KR_STREAM") == "1" or _use_kr_fused(n):
+        raise NotImplementedError("the fused MLL's \"kr\" and \"krs\" "
+                                  "backward routes under a mesh are ROADMAP "
+                                  "A 15; unset PLMC_KR_FUSED/PLMC_KR_STREAM")
+
+
 class _FusedStationaryLogProb(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ls, os_, H, St, Ydelta, eps, xi, roots, kind,
                 max_cg_iters, cg_tol, matvec_bf16, precond_rank, matvec_int8,
-                device):
+                device, rows):
         # translation-invariant centering (exact), as kernels._skm_fwd
         xc = x - x.mean(0)
+        ctx.rows = rows
+        if rows is not None:
+            return _FusedStationaryLogProb._rows_forward(
+                ctx, xc, ls, os_, H, St, Ydelta, eps, xi, roots, kind,
+                max_cg_iters, cg_tol, matvec_bf16, precond_rank, matvec_int8,
+                device, rows)
         sym = _sym_build()
         kscale = None
         if matvec_int8:
@@ -140,6 +172,25 @@ class _FusedStationaryLogProb(torch.autograd.Function):
         return ll
 
     @staticmethod
+    def _rows_forward(ctx, xc, ls, os_, H, St, Ydelta, eps, xi, roots, kind,
+                      max_cg_iters, cg_tol, matvec_bf16, precond_rank,
+                      matvec_int8, device, rows):
+        """The forward on the rank's block: K6 on (xc[r0:r1], xc) for its
+        latents, the row-sharded PCG."""
+        _refuse_under_mesh(matvec_int8, xc.shape[0])
+        lo, hi = rows.lo, rows.hi
+        Ks = ck.scaled_kernel_stack(
+            xc[rows.r0:rows.r1], xc, ls[lo:hi].contiguous(),
+            os_[lo:hi].contiguous(), kind,
+            torch.bfloat16 if matvec_bf16 else None, device=device)
+        ll, (alpha, W, Ztilde) = it._pcg_fwd_impl(
+            Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
+            matvec_bf16, precond_rank, rows=rows)
+        ctx.save_for_backward(xc, ls, os_, Ks, H, alpha, W, Ztilde)
+        ctx.kind, ctx.device = kind, device
+        return ll
+
+    @staticmethod
     def backward(ctx, g):
         xc, ls, os_, Ks, H, alpha, W, Zt = ctx.saved_tensors
         s = max(W.shape[0], 1)
@@ -155,7 +206,10 @@ class _FusedStationaryLogProb(torch.autograd.Function):
                           (-g / (4 * s)) * WHq], -1) * os_[:, None, None]
 
         Afac, Bfac = Afac.contiguous(), Bfac.contiguous()
-        if ctx.route == "stack":
+        if ctx.rows is not None:
+            KR, rows, wx = _rows_products(ctx, xc, ls, Ks, Ah, WH, ZH, Afac,
+                                          Bfac, alpha)
+        elif ctx.route == "stack":
             # ONE batched stack product serves dH and the outputscale gradient
             R3 = torch.cat([Ah[None], WH, ZH], 0)
             if Ks.dtype == torch.int8:
@@ -198,13 +252,40 @@ class _FusedStationaryLogProb(torch.autograd.Function):
             dls = dls.sum(-1, keepdim=True)
         dls = (dls / (lsq * lsq * lsq))[:, None, :].to(ls.dtype)
         return (None, dls, dos, dH, dSt, dY, None, None, None, None, None,
-                None, None, None, None, None)
+                None, None, None, None, None, None)
+
+
+def _rows_products(ctx, xc, ls, Ks, Ah, WH, ZH, Afac, Bfac, alpha):
+    """The backward's products on the rank's block, gathered whole: K7's
+    row-block form for its rows' (rows, wx) and the block product for its
+    rows of KR, written into one zero buffer and summed over the world in
+    ONE call. The backward then runs one process's formulas on the whole
+    products, so that dls = −4(Σ rows·x² − Σ wx·x), which cancels, sums in
+    one process's order."""
+    rows = ctx.rows
+    lo, hi, r0, r1 = rows.lo, rows.hi, rows.r0, rows.r1
+    part_rows, part_wx = ck.lowrank_stationary_reduce(
+        xc, ls[lo:hi].contiguous(), Afac[lo:hi, r0:r1].contiguous(),
+        Bfac[lo:hi].contiguous(), ctx.kind, device=ctx.device,
+        row_x=xc[r0:r1])
+    R3 = torch.cat([Ah[None], WH, ZH], 0)
+    part_KR = it._stack_matmul(Ks, R3[..., lo:hi])         # (1+2s, n_l, q_l)
+    q, n, d, r = rows.q, rows.n, part_wx.shape[-1], R3.shape[0]
+    buf = alpha.new_zeros(q * n * (1 + d) + r * n * q)
+    full_rows = buf[:q * n].view(q, n)
+    full_wx = buf[q * n:q * n * (1 + d)].view(q, n, d)
+    full_KR = buf[q * n * (1 + d):].view(r, n, q)
+    full_rows[lo:hi, r0:r1] = part_rows
+    full_wx[lo:hi, r0:r1] = part_wx
+    full_KR[:, r0:r1, lo:hi] = part_KR
+    rows.mesh.world_sum_(buf)
+    return full_KR, full_rows, full_wx
 
 
 def lmc_pcg_log_prob_stationary(x, ls, os_, H, St, Ydelta, eps, xi, roots,
                                 kind, max_cg_iters=32, cg_tol=1e-2,
                                 matvec_bf16=False, precond_rank=256,
-                                matvec_int8=False, device="cuda"):
+                                matvec_int8=False, device="cuda", rows=None):
     """log N(vec(Y); 0, Σ_b os_b K_b(x; ls_b) ⊗ h_b h_bᵀ + I ⊗ Σt), the stack
     built inside the op.
 
@@ -216,9 +297,12 @@ def lmc_pcg_log_prob_stationary(x, ls, os_, H, St, Ydelta, eps, xi, roots,
     products keep fp32 results). ``matvec_int8`` (over ``matvec_bf16``)
     builds the int8 stack and runs every stack product int8 × int8 → int32
     (operator noise ~1% relative; a training-tolerance mode). All tensors
-    lie on ``device``."""
+    lie on ``device``. ``rows`` (a
+    ``parallel.mesh.RowBlock``): the rank builds and multiplies its block of
+    the stack only, and every rank returns the whole value and, in the
+    backward, the whole gradient; the given ``roots`` are whole."""
     check_device(device, x, ls, os_, H, St, Ydelta, eps, xi, roots)
     return _FusedStationaryLogProb.apply(
         x.detach(), ls, os_, H, St, Ydelta, eps, xi, roots, kind,
         int(max_cg_iters), float(cg_tol), bool(matvec_bf16),
-        int(precond_rank), bool(matvec_int8), device)
+        int(precond_rank), bool(matvec_int8), device, rows)

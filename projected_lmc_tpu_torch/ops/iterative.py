@@ -13,6 +13,21 @@ preconditioner, PCG estimator and posterior variance.
 package left to XLA, so it goes to torch/cuBLAS (fp32 without TF32 on the
 card, see ``utils.device``). The int8 stack's product, int8 × int8 → int32
 in JAX, goes to ``torch._int_mm`` on the card's int8 tensor cores.
+
+Under a mesh (``rows``, a ``parallel.mesh.RowBlock``) a rank holds only
+its row block of the stack, (q_l, n_l, n): the LMC's latents lo..hi − 1
+and rows r0..r1 − 1, or the ICM's kernel's rows. Every product of the stack
+is the rank's rows, zero-padded and summed over the world in one
+``all_reduce`` before any sum over the latents or tasks
+(``RowBlock.gather_product``, ``RowBlock.sum_rows``); the CG state, the
+probes and the preconditioner stay whole and the same on every rank, so
+that their scalars agree bit for bit and every rank takes the same
+branches. The
+Nyström roots come from the rank's rows and one gather. A backward
+gathers its block's products whole in one packed ``all_reduce``, then
+runs one process's formulas on them, and scales the cotangent of the
+rank's block by ``rows.grad_scale`` (``parallel/sharded.py`` states the
+rule).
 """
 
 from __future__ import annotations
@@ -57,10 +72,17 @@ def _stack_matmul(Ks, W):
     return out[0] if single else out
 
 
-def lmc_matvec(Ks, H, St, V):
+def lmc_matvec(Ks, H, St, V, rows=None):
     """Σ · vec(V) in matrix form: Σ_b K_b (V h_b) h_bᵀ + V Σt.
-    V (..., n, T); Ks (q, n, n); H (T, q); St (T, T)."""
-    Z = _stack_matmul(Ks, V @ H)
+    V (..., n, T); Ks (q, n, n); H (T, q); St (T, T). With ``rows`` Ks is
+    the rank's (q_l, n_l, n) block, and its rows' products are gathered
+    over the world before the sum over the latents: every rank returns the
+    whole (..., n, T)."""
+    W = V @ H
+    if rows is None:
+        Z = _stack_matmul(Ks, W)
+    else:
+        Z = rows.gather_product(_stack_matmul(Ks, W[..., rows.lo:rows.hi]))
     return Z.to(V.dtype) @ H.T + V @ St
 
 
@@ -149,36 +171,50 @@ def _roots_from_blocks(Kzz, Kxz, jitter):
     return torch.einsum("bnk,bmk->bnm", Kxz, Linv)
 
 
-def nystrom_roots_from_kernels(Ks, rank: int = 256, jitter: float = 1e-4):
+def nystrom_roots_from_kernels(Ks, rank: int = 256, jitter: float = 1e-4,
+                               rows=None):
     """Strided-landmark Nyström roots R_b with R_b R_bᵀ ≈ K_b, (q, n, rank),
-    sliced from a materialized stack (bf16 stacks up-cast to fp32)."""
+    sliced from a materialized stack (bf16 stacks up-cast to fp32). With
+    ``rows``, Ks is the rank's row block: its landmark columns are gathered
+    whole, (q, n, rank), and every rank factors the same blocks."""
     idx = torch.as_tensor(_landmarks(Ks.shape[-1], rank), device=Ks.device,
                           dtype=torch.long)
     dt = torch.float32 if Ks.dtype == torch.bfloat16 else Ks.dtype
     Knm = Ks[:, :, idx].to(dt)
+    if rows is not None:
+        Knm = rows.gather(Knm)
     return _roots_from_blocks(Knm[:, idx, :], Knm, jitter)
 
 
-def nystrom_roots_from_covar(covar, x, rank: int, jitter: float = 1e-4):
+def nystrom_roots_from_covar(covar, x, rank: int, jitter: float = 1e-4,
+                             rows=None):
     """Strided-landmark Nyström roots evaluated directly from a batched
-    kernel callable's (b, m, m) and (b, n, m) blocks, (b, n, rank)."""
+    kernel callable's (b, m, m) and (b, n, m) blocks, (b, n, rank). With
+    ``rows`` the rank evaluates its rows of K(x, z) for every latent, and
+    the roots are gathered whole on every rank (no gradient), the same
+    bits as one process's."""
     idx = torch.as_tensor(_landmarks(x.shape[0], rank), device=x.device,
                           dtype=torch.long)
     z = x[idx]
-    return _roots_from_blocks(covar(z), covar(x, z), jitter)
+    if rows is None:
+        return _roots_from_blocks(covar(z), covar(x, z), jitter)
+    with torch.no_grad():
+        return rows.gather_rows(_roots_from_blocks(
+            covar(z), covar(x, z, rows=(rows.r0, rows.r1)), jitter))
 
 
 def _nystrom_precond_parts(Ks, H, St, rank: int, jitter: float = 1e-4,
-                           roots=None):
+                           roots=None, rows=None):
     """Pieces of the Nyström preconditioner M = Σ_b Q_b ⊗ h_b h_bᵀ + I ⊗ Σt:
     roots R (q, n, m), Lt = chol(Σt), the apply M⁻¹ and logdet M (exact, by
-    the determinant lemma through the capacitance Cholesky)."""
-    q, n, _ = Ks.shape
-    R = nystrom_roots_from_kernels(Ks, rank, jitter) if roots is None else roots
+    the determinant lemma through the capacitance Cholesky). Ks is only
+    read when ``roots`` is None (the rank's row block with ``rows``)."""
+    R = nystrom_roots_from_kernels(Ks, rank, jitter, rows) if roots is None \
+        else roots
     # roots of a bf16 stack are fp32; the solver works in Σt's dtype (JAX
     # promotes the same way)
     R = R.to(St.dtype)
-    m = R.shape[-1]
+    q, n, m = R.shape
     t = St.shape[0]
     Lt = cholesky_nan(St)
     St_inv = torch.cholesky_solve(
@@ -295,7 +331,8 @@ def _tridiag_quadrature(diag, off):
 
 
 def _pcg_fwd_impl(Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
-                  matvec_bf16, precond_rank, matvec_int8=False, kscale=None):
+                  matvec_bf16, precond_rank, matvec_int8=False, kscale=None,
+                  rows=None):
     """log N(vec(Y); 0, Σ) from one batched PCG pass (the forward of
     ``iterative.lmc_pcg_log_prob``): probes z = eps·chol(Σt)ᵀ + Σ_b (R_b ξ_b)
     h_bᵀ ~ N(0, M), logdet Σ = logdet M + Lanczos quadrature of the
@@ -304,16 +341,22 @@ def _pcg_fwd_impl(Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
     ``matvec_int8`` (over ``matvec_bf16``) runs the CG products through
     :func:`lmc_matvec_int8`: on a pre-quantised int8 stack ``Ks`` (q, N, N),
     which may carry zero padding beyond n, with its scales ``kscale`` (q,),
-    or on ``Ks`` quantised here by :func:`quantize_stack_int8`."""
+    or on ``Ks`` quantised here by :func:`quantize_stack_int8`. With
+    ``rows`` Ks is the rank's row block and the products are summed over
+    the world (no int8 loop)."""
     n, t = Ydelta.shape
-    Kn = Ks[:, :n, :n]                          # an int8 stack's padding off
+    if rows is not None and matvec_int8:
+        raise NotImplementedError("the int8 CG loop under a mesh is ROADMAP "
+                                  "A 15")
+    # an int8 stack's padding off
+    Kn = Ks if rows is not None else Ks[:, :n, :n]
     if Ks.dtype == torch.int8 and roots is None:
         # fallback only: the roots Cholesky is fp32-sensitive
         roots = nystrom_roots_from_kernels(
             Kn.to(torch.float32) * kscale[:, None, None], min(precond_rank, n))
     R, Lt, minv, logdet_M = _nystrom_precond_parts(
         Kn, H, St, precond_rank,
-        roots=roots.detach() if roots is not None else None)
+        roots=roots.detach() if roots is not None else None, rows=rows)
     z1 = torch.einsum("snt,ut->snu", eps, Lt)
     t2 = torch.einsum("bnk,sbk->snb", R, xi)
     z = z1 + t2 @ H.T
@@ -327,7 +370,7 @@ def _pcg_fwd_impl(Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
         matvec = lambda V: lmc_matvec_int8(Kq, ks_, H, St, V)  # noqa: E731
     else:
         Kmv = Ks.to(torch.bfloat16) if matvec_bf16 else Ks
-        matvec = lambda V: lmc_matvec(Kmv, H, St, V)        # noqa: E731
+        matvec = lambda V: lmc_matvec(Kmv, H, St, V, rows)  # noqa: E731
     B = torch.cat([Ydelta[None], z], 0)                     # (1+s, n, T)
     X, alphas, betas, active, rz0 = pcg_with_tridiag(
         matvec, B, minv, max_cg_iters, cg_tol)
@@ -339,7 +382,7 @@ def _pcg_fwd_impl(Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
     return ll, (alpha, W, minv(z))
 
 
-def _lmc_hutchinson_bwd(Ks, H, alpha, W, Z, g):
+def _lmc_hutchinson_bwd(Ks, H, alpha, W, Z, g, rows=None):
     """The estimators' backward (the JAX package's ``_bwd_impl``): the
     cotangents (dK, dH, dΣt, dY) of ll for Σ = Σ_b K_b ⊗ h_b h_bᵀ + I ⊗ Σt
     from dll/dΣ = ½(ααᵀ − Σ⁻¹), Σ⁻¹ ≈ (1/2s) Σ_i (w_i z_iᵀ + z_i w_iᵀ),
@@ -348,11 +391,20 @@ def _lmc_hutchinson_bwd(Ks, H, alpha, W, Z, g):
     dK is dense, (q, n, n) in the stack's dtype (a bf16 stack carries a
     bf16 cotangent), one batched GEMM of rank 1 + 2s per latent; dH streams
     the stack once, in one product with the 1 + 2s right-hand sides
-    α h_b, W h_b and Z h_b."""
+    α h_b, W h_b and Z h_b. With ``rows``: dK is the rank's block, scaled
+    by ``rows.grad_scale``, and the block's rows of the product are
+    gathered whole in one call (``RowBlock.gather_product``), so that dH
+    sums in one process's order."""
     s = max(W.shape[0], 1)
     Ah, WH, ZH = alpha @ H, W @ H, Z @ H                # (n, q), (s, n, q)
-    dK = _lmc_dk(Ah, WH, ZH, g).to(Ks.dtype)
-    KR = _stack_matmul(Ks, torch.cat([Ah[None], WH, ZH], 0)).to(alpha.dtype)
+    R3 = torch.cat([Ah[None], WH, ZH], 0)
+    if rows is None:
+        dK = _lmc_dk(Ah, WH, ZH, g).to(Ks.dtype)
+        KR = _stack_matmul(Ks, R3).to(alpha.dtype)
+    else:
+        dK = (_lmc_dk(Ah, WH, ZH, g, rows) * rows.grad_scale).to(Ks.dtype)
+        KR = rows.gather_product(_stack_matmul(
+            Ks, R3[..., rows.lo:rows.hi]).to(alpha.dtype))
     KAh, KWH, KZH = KR[0], KR[1:1 + s], KR[1 + s:]
     dH_s = 0.5 * (torch.einsum("snt,snb->tb", Z, KWH)
                   + torch.einsum("snt,snb->tb", W, KZH))
@@ -362,15 +414,19 @@ def _lmc_hutchinson_bwd(Ks, H, alpha, W, Z, g):
     return dK, dH, dSt, -g * alpha
 
 
-def _lmc_dk(Ah, WH, ZH, g):
+def _lmc_dk(Ah, WH, ZH, g, rows=None):
     """The estimators' dense dK, (q, n, n):
     g·[½ (αh_b)(αh_b)ᵀ − ¼/s Σ_i ((W_i h_b)(Z_i h_b)ᵀ + (Z_i h_b)(W_i h_b)ᵀ)]
-    as one batched GEMM of rank 1 + 2s per latent."""
+    as one batched GEMM of rank 1 + 2s per latent; with ``rows`` the rank's
+    (q_l, n_l, n) block of it."""
     s = max(WH.shape[0], 1)
     lat = lambda A: A.permute(2, 1, 0)                  # noqa: E731 (q, n, s)
     left = torch.cat([(0.5 * g) * Ah.T[..., None], (-0.25 / s * g) * lat(WH),
                       (-0.25 / s * g) * lat(ZH)], 2)
     right = torch.cat([Ah.T[..., None], lat(ZH), lat(WH)], 2)
+    if rows is not None:
+        left = left[rows.lo:rows.hi, rows.r0:rows.r1]
+        right = right[rows.lo:rows.hi]
     return torch.bmm(left, right.transpose(1, 2))
 
 
@@ -465,22 +521,24 @@ class _LmcPcgLogProb(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
-                matvec_bf16, precond_rank, matvec_int8):
+                matvec_bf16, precond_rank, matvec_int8, rows):
         ll, (alpha, W, Zt) = _pcg_fwd_impl(
             Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
-            matvec_bf16, precond_rank, matvec_int8)
+            matvec_bf16, precond_rank, matvec_int8, rows=rows)
         ctx.save_for_backward(Ks, H, alpha, W, Zt)
+        ctx.rows = rows
         return ll
 
     @staticmethod
     def backward(ctx, g):
-        return _lmc_hutchinson_bwd(*ctx.saved_tensors, g) + (None,) * 8
+        return _lmc_hutchinson_bwd(*ctx.saved_tensors, g,
+                                   rows=ctx.rows) + (None,) * 9
 
 
 def lmc_pcg_log_prob(Ks, H, St, Ydelta, eps, xi, roots=None,
                      max_cg_iters: int = 32, cg_tol: float = 1e-2,
                      matvec_bf16: bool = False, precond_rank: int = 256,
-                     matvec_int8: bool = False):
+                     matvec_int8: bool = False, rows=None):
     """log N(vec(Y); 0, Σ_b K_b ⊗ h_b h_bᵀ + I ⊗ Σt) from ONE batched PCG
     pass over the materialized stack Ks (q, n, n) (bf16 for a bf16 CG
     loop; its cotangent is then bf16 too): probes z = eps·chol(Σt)ᵀ +
@@ -488,13 +546,15 @@ def lmc_pcg_log_prob(Ks, H, St, Ydelta, eps, xi, roots=None,
     (q, n, m) (from the stack when None), and logdet Σ = logdet M + Lanczos
     quadrature of the CG coefficients. eps (s, n, T), xi (s, q, m).
     ``matvec_int8`` (over ``matvec_bf16``) runs the CG loop on the stack
-    quantized to int8; the backward reads the unquantized stack."""
+    quantized to int8; the backward reads the unquantized stack. With
+    ``rows`` (a ``parallel.mesh.RowBlock``) Ks is the rank's (q_l, n_l, n)
+    block and every rank returns the whole value."""
     if roots is not None:
         roots = roots.detach()
     return _LmcPcgLogProb.apply(
         Ks, H, St, Ydelta, eps.detach(), xi.detach(), roots,
         int(max_cg_iters), float(cg_tol), bool(matvec_bf16),
-        int(precond_rank), bool(matvec_int8))
+        int(precond_rank), bool(matvec_int8), rows)
 
 
 # -- the matrix-free LMC posterior (models.multitask, "lmc_iter") -------------
@@ -506,18 +566,18 @@ def _jacobi_diag(Ks, H, St):
 
 
 def nystrom_precond(Ks, H, St, rank: int = 128, jitter: float = 1e-4,
-                    roots=None):
+                    roots=None, rows=None):
     """The apply M⁻¹ for M = Σ_b Q_b ⊗ h_b h_bᵀ + I ⊗ Σt, Q_b the rank-
     ``rank`` Nyström approximations of the K_b (strided landmarks), or the
     given ``roots`` (q, n, m)."""
-    return _nystrom_precond_parts(Ks, H, St, rank, jitter, roots)[2]
+    return _nystrom_precond_parts(Ks, H, St, rank, jitter, roots, rows)[2]
 
 
 def batched_pcg(matvec, B, Md, max_iters: int = 256, tol: float = 1e-4,
                 minv=None):
     """Preconditioned CG for r simultaneous (n, T)-shaped right-hand sides
     B (r, n, T); Md (n, T) a positive diagonal (the Jacobi preconditioner
-    unless ``minv`` is given). Returns X with Σ X_k = B_k.
+    unless ``minv`` is given; None with it). Returns X with Σ X_k = B_k.
 
     Stops, as the JAX ``while_loop`` does, before the first iteration at
     which every right-hand side has a relative residual ≤ ``tol``, or after
@@ -556,24 +616,38 @@ def batched_pcg(matvec, B, Md, max_iters: int = 256, tol: float = 1e-4,
     return X
 
 
+def _start_vector(shape, generator, like, rows):
+    """A standard normal draw from ``generator``; under a mesh, rank 0's
+    draw on every rank."""
+    v0 = torch.randn(shape, generator=generator, dtype=like.dtype,
+                     device=like.device)
+    if rows is not None:
+        rows.mesh.broadcast_([v0])
+    return v0
+
+
 def residual_spectral_bound(Ks, roots, H, n_iters: int = 12, v0=None,
-                            generator=None):
+                            generator=None, rows=None):
     """Power-iteration estimate of λmax of the Nyström residual operator
     R(V) = Σ_b (K_b − R_b R_bᵀ)(V h_b) h_bᵀ, clamped at 0: the inflation c
     that makes M + c·I bound Σ from above (a conservative posterior
     variance). The start vector is ``v0`` (n, T), or a standard normal
-    draw from ``generator`` when ``v0`` is None."""
+    draw from ``generator`` when ``v0`` is None (rank 0's under a mesh,
+    where Ks is the rank's row block and ``rows`` sums its products)."""
     n, t = Ks.shape[-1], H.shape[0]
 
     def resid_mv(V):
         W = V @ H                                           # (n, q)
         RtW = torch.einsum("bnk,nb->bk", roots, W)
         QW = torch.einsum("bnk,bk->nb", roots, RtW)
-        return (_stack_matmul(Ks, W) - QW) @ H.T
+        if rows is None:
+            KW = _stack_matmul(Ks, W)
+        else:
+            KW = rows.gather_product(_stack_matmul(Ks, W[:, rows.lo:rows.hi]))
+        return (KW - QW) @ H.T
 
     if v0 is None:
-        v0 = torch.randn((n, t), generator=generator, dtype=Ks.dtype,
-                         device=Ks.device)
+        v0 = _start_vector((n, t), generator, Ks, rows)
     v = v0 / torch.sqrt((v0 * v0).sum())
     for _ in range(n_iters):
         w = resid_mv(v)
@@ -600,15 +674,20 @@ def _kernel_product(K, V):
     Vr = V[None] if single else V                       # (r, n, t)
     r, n, t = Vr.shape
     W = Vr.permute(1, 0, 2).reshape(1, n, r * t)
-    out = _bf16_stack_bmm(K[None], W)[0].reshape(n, r, t).permute(1, 0, 2)
+    out = _bf16_stack_bmm(K[None], W)[0].reshape(K.shape[0], r, t).permute(
+        1, 0, 2)
     return out[0] if single else out
 
 
-def icm_matvec(K, B, St, V):
+def icm_matvec(K, B, St, V, rows=None):
     """(K ⊗ B + I ⊗ Σt) · vec(V) in matrix form, K V B + V Σt, for V
     (..., n, t): one (n, n) stream a call (half of it with K pre-cast to
-    bf16, the product fp32)."""
-    return _kernel_product(K, V).to(V.dtype) @ B + V @ St
+    bf16, the product fp32). With ``rows`` K is the rank's (n_l, n) rows,
+    whose product K V is gathered over the world before it meets B."""
+    KV = _kernel_product(K, V)
+    if rows is not None:
+        KV = rows.sum_rows(KV)
+    return KV.to(V.dtype) @ B + V @ St
 
 
 def _eigh_fixed_signs(A):
@@ -622,7 +701,7 @@ def _eigh_fixed_signs(A):
     return w, V * torch.where(top < 0, -1.0, 1.0).to(V.dtype)
 
 
-def icm_whitened_parts(K, B, St, rank: int, roots=None):
+def icm_whitened_parts(K, B, St, rank: int, roots=None, rows=None):
     """Factors of M = Q ⊗ B + I ⊗ Σt, Q = R Rᵀ (rank-m Nyström root of K).
     With B̃ = Lt⁻¹ B Lt⁻ᵀ = Vb Γ Vbᵀ and P = Lt Vb,
 
@@ -630,9 +709,9 @@ def icm_whitened_parts(K, B, St, rank: int, roots=None):
 
     Returns dict(R, gam, P, P_inv, C_inv (t, m, m), logdet_M); Vb's signs
     are fixed (:func:`_eigh_fixed_signs`). ``K`` may be None when ``roots``
-    (n, m) are given."""
-    R = nystrom_roots_from_kernels(K[None], rank)[0] if roots is None \
-        else roots
+    (n, m) are given (with ``rows``, the rank's rows of K)."""
+    R = nystrom_roots_from_kernels(K[None], rank, rows=rows)[0] \
+        if roots is None else roots
     n, m = R.shape
     t = St.shape[-1]
     Lt = cholesky_nan(St)
@@ -654,10 +733,10 @@ def icm_whitened_parts(K, B, St, rank: int, roots=None):
                 logdet_M=logdet_M)
 
 
-def _icm_nystrom_parts(K, B, St, rank: int, roots=None):
+def _icm_nystrom_parts(K, B, St, rank: int, roots=None, rows=None):
     """(R, P, gam, the apply M⁻¹, logdet M) for M = Q ⊗ B + I ⊗ Σt: t
     independent rank-m Woodbury solves in the whitened eigenbasis."""
-    parts = icm_whitened_parts(K, B, St, rank, roots=roots)
+    parts = icm_whitened_parts(K, B, St, rank, roots=roots, rows=rows)
     R, gam, P, P_inv, C_inv = (parts[k] for k in ("R", "gam", "P", "P_inv",
                                                   "C_inv"))
 
@@ -704,53 +783,61 @@ class _IcmPcgLogProb(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, K, B, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
-                matvec_bf16, precond_rank):
+                matvec_bf16, precond_rank, rows):
         n, t = Ydelta.shape
         R, P, gam, minv, logdet_M = _icm_nystrom_parts(
-            K, B, St, precond_rank, roots=roots)
+            K, B, St, precond_rank, roots=roots, rows=rows)
         u = eps + torch.einsum("nm,smj->snj", R,
                                xi * torch.sqrt(gam)[None, None, :])
         z = u @ P.T
         Kmv = K.to(torch.bfloat16) if matvec_bf16 else K
         Brhs = torch.cat([Ydelta[None], z], 0)              # (1+s, n, t)
         X, alphas, betas, active, rz0 = pcg_with_tridiag(
-            lambda V: icm_matvec(Kmv, B, St, V), Brhs, minv, max_cg_iters,
-            cg_tol)
+            lambda V: icm_matvec(Kmv, B, St, V, rows), Brhs, minv,
+            max_cg_iters, cg_tol)
         alpha, W = X[0], X[1:]
         quad = (Ydelta * alpha).sum()
         logquad = _tridiag_logquad(alphas[:, 1:], betas[:, 1:],
                                    active[:, 1:])
         logdet = logdet_M + (rz0[1:] * logquad).mean()
         ctx.save_for_backward(K, B, alpha, W, minv(z))
+        ctx.rows = rows
         return -0.5 * (quad + logdet + n * t * math.log(2 * math.pi))
 
     @staticmethod
     def backward(ctx, g):
         K, B, alpha, W, Zt = ctx.saved_tensors
-        dK = _icm_pcg_dk(alpha, B, W, Zt, g).to(K.dtype)
-        dB, dSt = _icm_pcg_dtasks(K, alpha, W, Zt, g)
+        dK = _icm_pcg_dk(alpha, B, W, Zt, g, ctx.rows).to(K.dtype)
+        dB, dSt = _icm_pcg_dtasks(K, alpha, W, Zt, g, ctx.rows)
         return (dK, dB.to(B.dtype), dSt, -g * alpha, None, None, None, None,
-                None, None, None)
+                None, None, None, None)
 
 
-def _icm_pcg_dk(alpha, B, W, Zt, g):
+def _icm_pcg_dk(alpha, B, W, Zt, g, rows=None):
     """The estimator's dK, dense (n, n), as one GEMM:
-    g·[½ (αB)αᵀ − ¼/s Σ_i ((w_iB) z̃_iᵀ + (z̃_iB) w_iᵀ)] (never reads K)."""
+    g·[½ (αB)αᵀ − ¼/s Σ_i ((w_iB) z̃_iᵀ + (z̃_iB) w_iᵀ)] (never reads K);
+    with ``rows`` the rank's (n_l, n) rows of it, times
+    ``rows.grad_scale``."""
     s = max(W.shape[0], 1)
     n = alpha.shape[0]
     flat = lambda A: A.permute(1, 0, 2).reshape(n, -1)      # noqa: E731
     left = torch.cat([0.5 * (alpha @ B), (-0.25 / s) * flat(W @ B),
                       (-0.25 / s) * flat(Zt @ B)], 1)
     right = torch.cat([alpha, flat(Zt), flat(W)], 1)
-    return g * (left @ right.T)
+    if rows is None:
+        return g * (left @ right.T)
+    return (g * rows.grad_scale) * (left[rows.r0:rows.r1] @ right.T)
 
 
-def _icm_pcg_dtasks(K, alpha, W, Zt, g):
+def _icm_pcg_dtasks(K, alpha, W, Zt, g, rows=None):
     """The estimator's (dB, dΣt), K streamed once (one product with the
-    1 + 2s right-hand sides α, w_i, z̃_i)."""
+    1 + 2s right-hand sides α, w_i, z̃_i). With ``rows`` K is the rank's
+    rows, whose product is gathered whole in one call."""
     s = max(W.shape[0], 1)
     KR = _kernel_product(K, torch.cat([alpha[None], W, Zt], 0)).to(
         alpha.dtype)
+    if rows is not None:
+        KR = rows.sum_rows(KR)
     Ka, KW, KZ = KR[0], KR[1:1 + s], KR[1 + s:]
     dB = (0.5 * alpha.T @ Ka
           - (0.25 / s) * (torch.einsum("snt,snu->tu", W, KZ)
@@ -762,35 +849,39 @@ def _icm_pcg_dtasks(K, alpha, W, Zt, g):
 
 def icm_pcg_log_prob(K, B, St, Ydelta, eps, xi, roots=None,
                      max_cg_iters: int = 32, cg_tol: float = 1e-2,
-                     matvec_bf16: bool = False, precond_rank: int = 256):
+                     matvec_bf16: bool = False, precond_rank: int = 256,
+                     rows=None):
     """log N(vec(Y); 0, K ⊗ B + I ⊗ Σt) from ONE batched PCG pass:
     K (n, n) data kernel (bf16 for a bf16 matvec), B (t, t), Σt (t, t),
     Ydelta (n, t); eps (s, n, t) and xi (s, m, t) standard normals, m the
     roots' rank (``precond_rank`` when ``roots`` is None). Probes
     z = (eps + R·(ξ·√γ))·Pᵀ have covariance exactly M; logdet Σ = logdet M
-    + Lanczos quadrature of the preconditioned tridiagonals."""
+    + Lanczos quadrature of the preconditioned tridiagonals. With ``rows``
+    (a ``parallel.mesh.RowBlock`` over the world) K is the rank's (n_l, n)
+    rows and every rank returns the whole value."""
     if roots is not None:
         roots = roots.detach()
     return _IcmPcgLogProb.apply(K, B, St, Ydelta, eps, xi, roots,
                                 int(max_cg_iters), float(cg_tol),
-                                bool(matvec_bf16), int(precond_rank))
+                                bool(matvec_bf16), int(precond_rank), rows)
 
 
 def icm_residual_spectral_bound(K, roots, B, n_iters: int = 12, v0=None,
-                                generator=None):
+                                generator=None, rows=None):
     """λmax bound of the ICM Nyström residual (K − R Rᵀ) ⊗ B, which
     factorizes as λmax(K − R Rᵀ) · λmax(B): power iteration on the n×n
     residual alone (one K stream an iteration), started at ``v0`` (n, 1) or
-    a standard normal draw from ``generator``, times the exact t×t
-    eigenvalue; each factor clamped at 0."""
+    a standard normal draw from ``generator`` (rank 0's under a mesh, where
+    K is the rank's rows), times the exact t×t eigenvalue; each factor
+    clamped at 0."""
     n = K.shape[-1]
 
     def resid_mv(v):
-        return K @ v - roots @ (roots.T @ v)
+        Kv = K @ v if rows is None else rows.sum_rows(K @ v)
+        return Kv - roots @ (roots.T @ v)
 
     if v0 is None:
-        v0 = torch.randn((n, 1), generator=generator, dtype=K.dtype,
-                         device=K.device)
+        v0 = _start_vector((n, 1), generator, K, rows)
     v = v0 / torch.sqrt((v0 * v0).sum())
     for _ in range(n_iters):
         w = resid_mv(v)

@@ -12,6 +12,13 @@ only the t×t factor and factors the t blocks γ_j K + I by one batched
 Cholesky; its backward is analytic (no gradient ever passes through
 ``eigh``). Every contraction is a plain product that the JAX package left
 to XLA, so it goes to torch/cuBLAS.
+
+Under a mesh (``icm_log_prob_chol(mesh=)``) the forward's t Cholesky
+blocks split over the ranks (``Mesh.world_range``: T = 7 on 4 ranks is
+2/2/2/1) and their partial quadratic forms and log-determinants are summed
+in one ``all_reduce``; every rank holds the whole K and runs the whole
+backward, its n×n ``eigh`` included (no distributed eigensolver), so every
+rank carries the whole gradient.
 """
 
 from __future__ import annotations
@@ -79,19 +86,27 @@ class _IcmLogProbChol(torch.autograd.Function):
     eigenvalues are harmless)."""
 
     @staticmethod
-    def forward(ctx, K, B, Sigma_t, Ydelta, jitter, chol_bf16, chol_block):
+    def forward(ctx, K, B, Sigma_t, Ydelta, jitter, chol_bf16, chol_block,
+                mesh):
         n, t = Ydelta.shape
         Rt, gam, V = _whitened_task_eig(B, Sigma_t)
         W = solve_triangular(Rt, Ydelta.T, lower=True).T     # Y Rt^{-T}
         Z = W @ V                                            # (n, t)
+        # the rank's blocks j0..j1 − 1 (all t without a mesh)
+        j0, j1 = (0, t) if mesh is None else mesh.world_range(t)
         eye = _eye(n, K)
-        A = gam[:, None, None] * (K + jitter * eye)[None] + eye[None]
+        A = gam[j0:j1, None, None] * (K + jitter * eye)[None] + eye[None]
         L = cholesky_bf16_blocked(A, chol_block) if chol_bf16 \
-            else safe_cholesky(A)                            # (t, n, n)
+            else safe_cholesky(A, agree=None if mesh is None
+                               else mesh.world_any)         # (t, n, n)
         del A
-        sol = solve_triangular(L, Z.T[..., None], lower=True)[..., 0]
+        sol = solve_triangular(L, Z.T[j0:j1, :, None], lower=True)[..., 0]
         quad = (sol * sol).sum()
-        logdet = n * logdet_from_chol(Rt) + logdet_from_chol(L).sum()
+        logdet_L = logdet_from_chol(L).sum()
+        if mesh is not None:
+            parts = mesh.world_sum_(torch.stack([quad, logdet_L]))
+            quad, logdet_L = parts[0], parts[1]
+        logdet = n * logdet_from_chol(Rt) + logdet_L
         ctx.save_for_backward(K, B, Sigma_t, Ydelta)
         ctx.jitter = jitter
         return -0.5 * (quad + logdet + n * t * math.log(2 * math.pi))
@@ -124,11 +139,12 @@ class _IcmLogProbChol(torch.autograd.Function):
         dB = ((0.5 * g) * (A.T @ Kj @ A - MB)).to(B.dtype)
         dSt = ((0.5 * g) * (A.T @ A - MS)).to(Sigma_t.dtype)
         dY = (-g * A).to(Ydelta.dtype)
-        return dK, dB, dSt, dY, None, None, None
+        return dK, dB, dSt, dY, None, None, None, None
 
 
 def icm_log_prob_chol(K, B, Sigma_t, Ydelta, jitter: float = 1e-8,
-                      chol_bf16: bool = False, chol_block: int = 1024):
+                      chol_bf16: bool = False, chol_block: int = 1024,
+                      mesh=None):
     """log N(vec(Y); 0, K⊗B + I⊗Σt) by the batched Cholesky — the training
     variant of :func:`icm_log_prob`, with its analytic backward:
 
@@ -140,9 +156,11 @@ def icm_log_prob_chol(K, B, Sigma_t, Ydelta, jitter: float = 1e-8,
     Cholesky with bf16 trailing updates (``ops/blocked_cholesky``, blocks of
     ``chol_block``): opt-in, for well-conditioned operators (condition
     ≲ 250), as its noise is a ~4e-3 perturbation of the operator. The
-    backward stays the exact analytic one, as in the JAX package."""
+    backward stays the exact analytic one, as in the JAX package. With
+    ``mesh`` the rank factors its share of the t blocks (the value is the
+    same on every rank); K, B, Σt and Y are whole on every rank."""
     return _IcmLogProbChol.apply(K, B, Sigma_t, Ydelta, float(jitter),
-                                 bool(chol_bf16), int(chol_block))
+                                 bool(chol_bf16), int(chol_block), mesh)
 
 
 def icm_solve(Ydelta, fac):

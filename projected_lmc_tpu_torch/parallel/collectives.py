@@ -81,6 +81,14 @@ def block(x, index, group, size: int):
     return _Block.apply(x, index, group, size)
 
 
+def sum_(x, group):
+    """``x`` replaced in place by its sum over ``group``, outside autograd:
+    the products of a row-sharded solver, whose adjoint its op writes
+    itself. Returns ``x``."""
+    dist.all_reduce(x, group=group)
+    return x
+
+
 def any_of(flag, group) -> bool:
     """True if ``flag`` (a bool tensor) is true on any rank of ``group``."""
     t = flag.to(torch.int32).reshape(1)

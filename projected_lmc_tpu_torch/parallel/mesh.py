@@ -8,7 +8,12 @@ Two axes, as in the JAX package:
     (q/L, n, n) block).
   * ``data``: rows of the training set. On the SGPR route and in the
     variational ELBO each rank of a data group builds its rows' K_xz with
-    K3 and the Gram and row sums are summed over the group.
+    K3 and the Gram and row sums are summed over the group. In the LMC's
+    matrix-free solvers a rank holds the rows r0..r1 − 1 of its latents'
+    kernel stack, (q/L, n/D, n) (:class:`RowBlock`), and every product of
+    the stack is one sum over the world of the ranks' zero-padded rows.
+    The ICM has one kernel, so its rows split over ALL ranks of the mesh,
+    (n/(D·L), n) a rank.
 
 The JAX package places the leaves (:func:`model_shardings`) and lets XLA
 partition the computation. PyTorch has no partitioner, so here the mesh is
@@ -82,6 +87,37 @@ class Mesh:
         """(lo, hi): this rank's rows lo..hi − 1 of n."""
         return self._range(n, self.shape["data"], self.data_index)
 
+    def world_range(self, n: int):
+        """(lo, hi): this rank's rows lo..hi − 1 of n split over every rank
+        of the mesh in rank order (the ICM's rows, the test points of a
+        sharded posterior)."""
+        return self._range(n, self.size, self.rank)
+
+    def row_block(self, n: int, q: int = 1, over: str = "data"):
+        """This rank's :class:`RowBlock` of a (q, n, n) stack: its latents
+        and its rows over the data axis (``over="data"``, the LMC), or one
+        kernel's rows over every rank (``over="world"``, the ICM)."""
+        return RowBlock(self, n, q, over)
+
+    def world_sum_(self, x):
+        """``x`` replaced in place by its sum over every rank, outside
+        autograd (a zero-padded buffer into which each rank wrote its rows
+        and latents: one call sums both). Returns ``x``."""
+        g = self.group("world")
+        return x if g is None else col.sum_(x, g)
+
+    def world_any(self, flag) -> bool:
+        """True if ``flag`` holds on any rank of the mesh."""
+        g = self.group("world")
+        return bool(flag) if g is None else col.any_of(flag, g)
+
+    def gather_world(self, x, lo: int, hi: int, total: int, dim: int = 0):
+        """The whole of a tensor whose rows lo..hi − 1 along ``dim`` this
+        rank holds and the other ranks the rest (:meth:`world_range`),
+        differentiable."""
+        g = self.group("world")
+        return x if g is None else col.gather(x, lo, hi, total, g, dim)
+
     def latent_sum(self, x):
         """Σ over the latent group, differentiable."""
         g = self.group("latent")
@@ -119,6 +155,75 @@ class Mesh:
         """Each tensor replaced by its mean over all ranks, in place."""
         if self.group("world") is not None:
             col.average_(list(tensors), self.group("world"))
+
+
+class RowBlock:
+    """A rank's part of a (q, n, n) kernel stack under a mesh: latents
+    lo..hi − 1 of q and rows r0..r1 − 1 of n, the stack's block
+    (hi − lo, r1 − r0, n). The LMC's rows split over the data axis and its
+    latents over the latent axis; the ICM's one kernel (q = 1) splits its
+    rows over every rank.
+
+    The solvers keep their state (the CG vectors, the preconditioner) whole
+    and the same on every rank; only the stack and its products are split.
+    :meth:`sum_rows`, :meth:`gather_product` and the gathers are the one
+    collective of a product: the rank's rows written into a zero buffer,
+    summed over the world in place, outside autograd (the ops write their
+    own backward). A product is gathered before any sum over the latents
+    or tasks, so that every rank finishes it in one process's order and
+    the replicated state stays what one process computes.
+    ``grad_scale`` is the world size: the factor by which an op scales the
+    cotangent of the rank's block, the adjoint of its forward's world sum
+    under ``parallel.sharded``'s rule (the gradients averaged over the
+    ranks then give the sum of the blocks' terms)."""
+
+    def __init__(self, mesh: "Mesh", n: int, q: int = 1, over: str = "data"):
+        self.mesh, self.n, self.q = mesh, int(n), int(q)
+        if over == "data":
+            self.lo, self.hi = mesh.latent_range(self.q)
+            self.r0, self.r1 = mesh.data_range(self.n)
+            self.owns_rows = mesh.latent_index == 0
+        elif over == "world":
+            self.lo, self.hi = 0, self.q
+            self.r0, self.r1 = mesh.world_range(self.n)
+            self.owns_rows = True
+        else:
+            raise ValueError(f"a row block is over 'data' or 'world', not "
+                             f"{over!r}")
+        self.grad_scale = mesh.size
+
+    def sum_rows(self, part):
+        """(..., n, C): the rank's rows (..., r1 − r0, C) placed at r0..r1 − 1
+        of a zero buffer, summed over the world (over the latents' ranks
+        and the rows' ranks in one call)."""
+        full = part.new_zeros(part.shape[:-2] + (self.n, part.shape[-1]))
+        full[..., self.r0:self.r1, :] = part
+        return self.mesh.world_sum_(full)
+
+    def gather(self, part):
+        """(q, n, ...): the rank's (hi − lo, r1 − r0, ...) block of a
+        latent-batched tensor, gathered whole on every rank."""
+        full = part.new_zeros((self.q, self.n) + tuple(part.shape[2:]))
+        full[self.lo:self.hi, self.r0:self.r1] = part
+        return self.mesh.world_sum_(full)
+
+    def gather_product(self, part):
+        """(..., n, q): the rank's rows and latents (..., r1 − r0, hi − lo)
+        of a product of the stack, gathered whole on every rank (before any
+        sum over the latents, which every rank then takes in one process's
+        order)."""
+        full = part.new_zeros(part.shape[:-2] + (self.n, self.q))
+        full[..., self.r0:self.r1, self.lo:self.hi] = part
+        return self.mesh.world_sum_(full)
+
+    def gather_rows(self, part):
+        """(q, n, ...): the rank's rows (q, r1 − r0, ...) for ALL q latents,
+        gathered whole; of the ranks that hold the same rows (a latent
+        group, on the data axis) only the group's first writes them."""
+        full = part.new_zeros((part.shape[0], self.n) + tuple(part.shape[2:]))
+        if self.owns_rows:
+            full[:, self.r0:self.r1] = part
+        return self.mesh.world_sum_(full)
 
 
 def make_mesh(n_devices: int = None, latent: int = None,
@@ -239,23 +344,26 @@ def shard_model(model, mesh: Mesh, n_latents: int = None):
     (``projected_lmc_mll(model)`` is then the full MLL on every rank).
     Returns ``model``.
 
-    Takes ``ExactGPModel`` (``ProjectedGPModel`` with it) on its dense and
-    SGPR routes and ``VariationalMultitaskGPModel``. The LMC and ICM
-    families (``MultitaskGPModel``) and ``ExactGPModel``'s iterative route
-    wait for ROADMAP A 14, and raise ``NotImplementedError``."""
+    Takes ``ExactGPModel`` (``ProjectedGPModel`` with it) on its dense,
+    SGPR and fused iterative routes, ``VariationalMultitaskGPModel``, and
+    ``MultitaskGPModel``: the LMC's fused and composed PCG MLLs and its
+    "lmc_iter" cache, the ICM's dense and matrix-free MLLs and its "icm"
+    and "icm_iter" caches, and their posteriors. The routes left to
+    ROADMAP A 15 raise ``NotImplementedError`` naming it (the models'
+    docstrings list them)."""
     from ..models.exact import ExactGPModel
     from ..models.multitask import MultitaskGPModel
     from ..models.variational import VariationalMultitaskGPModel
-    if isinstance(model, MultitaskGPModel):
-        raise NotImplementedError(
-            "MultitaskGPModel (the LMC and ICM families) under a mesh is "
-            "ROADMAP A 14: its row-sharded PCG is not written yet")
-    if not isinstance(model, (ExactGPModel, VariationalMultitaskGPModel)):
+    if not isinstance(model, (ExactGPModel, VariationalMultitaskGPModel,
+                              MultitaskGPModel)):
         raise TypeError(f"shard_model takes an ExactGPModel, a "
-                        f"ProjectedGPModel or a VariationalMultitaskGPModel, "
-                        f"not {type(model).__name__}")
+                        f"ProjectedGPModel, a MultitaskGPModel or a "
+                        f"VariationalMultitaskGPModel, not "
+                        f"{type(model).__name__}")
     q = _n_latents(model, n_latents)
-    if q < mesh.shape["latent"]:
+    # the ICM's one kernel splits by rows over every rank: no latent batch
+    icm = isinstance(model, MultitaskGPModel) and model.icm
+    if not icm and q < mesh.shape["latent"]:
         raise ValueError(f"{q} latents cannot cover a latent axis of "
                          f"{mesh.shape['latent']}")
     tensors = list(model.parameters()) + list(model.buffers())

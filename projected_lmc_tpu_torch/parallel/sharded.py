@@ -32,6 +32,27 @@ model method keeps:
     leave fp32 noise that AdamW's first step scales up to the learning
     rate. The averaged gradient is the same sum either way.
   * **Optimizer.** AdamW then runs identically on every rank.
+  * **Row-sharded solvers** (the LMC and ICM families, ``ops/iterative``).
+    The CG state is replicated: every rank runs the whole PCG on the whole
+    (1+s, n, T) vectors, with the same probes (given, or drawn from a
+    generator seeded alike), so that their scalars and branches agree bit
+    for bit. Only the kernel stack and its products are sharded: a rank
+    holds its block (its latents' rows over the data axis; the ICM's rows
+    over every rank, ``mesh.RowBlock``), and each product is its rows
+    zero-padded and summed over the world in one ``all_reduce`` outside
+    autograd, before any sum over the latents or tasks, which every rank
+    then takes in one process's order; the Nyström roots are gathered the
+    same way from the ranks' rows of K(x, z). The replicated state is then
+    the bits one process computes wherever the block's products are. Such an op writes its own backward: it gathers its block's
+    products whole in ONE packed ``all_reduce`` (the fused op's K7 rows,
+    wx and stack product; the ICM's and the Hutchinson backward's stack
+    product) and runs one process's formulas on them, so that every rank
+    carries the whole gradient of the replicated leaves, summed in one
+    process's order; and it scales the cotangent of the rank's
+    own block of the stack by the world size, the adjoint of the forward's
+    world sum under the averaging above (the kernel's leaves then receive
+    the sum of the blocks' terms). The one collective of a backward lies
+    on the loss's chain.
 
 Summing the gradients instead of averaging them, or letting the backward
 of a group sum pass its gradient through unchanged, counts the replicated

@@ -1,6 +1,12 @@
 """The port's sharded models on 4 gloo ranks (CPU, float64, a mesh of data
-2 × latent 2 laid over two 'hosts' of two ranks) against the JAX package's
-unsharded and sharded results, and against the unsharded port.
+2 × latent 2 laid over two 'hosts' of two ranks, and one of data 4 ×
+latent 1) against the JAX package's unsharded and sharded results, and
+against the unsharded port: the projected, SGPR and variational models,
+and the LMC and ICM families' row-sharded PCG (the fused and composed LMC
+MLLs, the ICM's matrix-free and dense MLLs, ``ExactGPModel``'s iterative
+MLL, the "lmc_iter", "icm" and "icm_iter" caches, ``compute_var``, one
+AdamW step). JAX's probes are fed to the port, and the ICM's JAX's
+eigenbasis of the whitened task covariance (``tests/test_torch_icm.py``).
 
 One module-scoped fixture spawns the ranks once (``parallel.launch``,
 ``spawn``, a ``file://`` rendezvous in a fresh directory, one torch thread
@@ -19,7 +25,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from projected_lmc_tpu.likelihoods import GaussianLikelihood as JaxLik
 from projected_lmc_tpu.mlls import projected_lmc_mll as jax_mll
+from projected_lmc_tpu.models.exact import ExactGPModel as JaxExact
+from projected_lmc_tpu.models.multitask import MultitaskGPModel as JaxMT
 from projected_lmc_tpu.models.projected import ProjectedGPModel as JaxProj
 from projected_lmc_tpu.models.variational import \
     VariationalMultitaskGPModel as JaxVar
@@ -33,6 +42,7 @@ sys.path.insert(0, str(Path(__file__).parent))
 import torch_parallel_ranks  # noqa: E402
 
 from projected_lmc_tpu_torch.entry import dryrun_multichip  # noqa: E402
+from projected_lmc_tpu_torch.module import jax_key  # noqa: E402
 from projected_lmc_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 
 PLMC = dict(init_lmc_coeffs=True, kernel_type="matern", BDN=False,
@@ -94,6 +104,126 @@ def _jax_loss_and_grads(jm, loss):
 JAX_LOSS = {"exact": jax_mll, "sgpr": jax_mll,
             "variational": lambda m: m.elbo()}
 
+# the LMC and ICM families: n, tasks, latents, probes, Nyström rank
+MT_N, MT_T, MT_Q, MT_S, MT_RANK = 48, 4, 2, 4, 16
+MT_MLL = dict(iterative=True, max_cg_iters=200, cg_tol=1e-12,
+              precond_rank=MT_RANK, num_probes=MT_S)
+MT_CACHE = dict(iterative=True, precond_rank=8)
+# the mixing factors from the seeded normal draw, not the SVD init (every
+# leaf is moved and carried over anyway)
+MT_MODELS = {
+    "lmc": dict(n_tasks=MT_T, n_latents=MT_Q, model_type="LMC",
+                kernel_type="matern", mean_type="constant",
+                init_lmc_coeffs=False),
+    "composed": dict(n_tasks=MT_T, n_latents=MT_Q, model_type="LMC",
+                     kernel_type="matern", mean_type="constant",
+                     decomp=[[0], [1]], init_lmc_coeffs=False),
+    "icm": dict(n_tasks=MT_T, n_latents=MT_Q, model_type="ICM",
+                kernel_type="matern", mean_type="constant",
+                init_lmc_coeffs=False),
+    "exact_iter": dict(kernel_type="matern", outputscales=True,
+                       mean_type="constant"),
+}
+
+
+def _jax_probes(key, xi_shape):
+    """The eps (S, n, T) and xi the JAX models draw from ``key``."""
+    k1, k2 = jax.random.split(key)
+    return (np.asarray(jax.random.normal(k1, (MT_S, MT_N, MT_T),
+                                         jnp.float64)),
+            np.asarray(jax.random.normal(k2, xi_shape, jnp.float64)))
+
+
+def _jax_eigenbasis(jm):
+    """JAX's eigenpairs of the ICM's whitened task covariance
+    Lt⁻¹ B Lt⁻ᵀ, in which both packages draw the ICM probes."""
+    B = np.asarray(jm.task_covar_matrix())
+    Lt = np.linalg.cholesky(np.asarray(jm.likelihood.task_covariance()))
+    Li = np.linalg.inv(Lt)
+    Bt = Li @ B @ Li.T
+    w, V = jnp.linalg.eigh(jnp.asarray(0.5 * (Bt + Bt.T)))
+    return np.asarray(w), np.asarray(V)
+
+
+def _multitask_cases():
+    """(JAX models, cases): the LMC on both mesh layouts (fused) and its
+    one AdamW step, the composed LMC, the ICM's matrix-free and dense MLLs,
+    ``ExactGPModel``'s iterative MLL, the "lmc_iter", "icm_iter" and "icm"
+    caches."""
+    X, Y, X_test = _data(MT_N, MT_T, MT_Q, 2, 5)
+    jax_models, cases = {}, {}
+    for name, args in MT_MODELS.items():
+        if name == "exact_iter":
+            jm = JaxExact(X, Y, JaxLik(batch_shape=MT_T, dtype=jnp.float64),
+                          n_tasks=MT_T, **args)
+        else:
+            jm = JaxMT(X, Y, **args)
+        jm, arrays = _moved(jm, 20 + len(cases))
+        jax_models[name] = jm
+        cases[name] = dict(check="multitask", X=X, Y=Y, X_test=X_test,
+                           args=args, arrays=arrays, mll=MT_MLL,
+                           family="exact" if name == "exact_iter" else "mt",
+                           layouts=[(2, 2)])
+    key = jax.random.PRNGKey(0)
+    cases["lmc"]["layouts"] = [(2, 2), (4, 1)]
+    for name in ("lmc", "composed"):
+        cases[name]["eps"], cases[name]["xi"] = _jax_probes(
+            key, (MT_S, MT_Q, MT_RANK))
+    cases["exact_iter"]["eps"], cases["exact_iter"]["xi"] = _jax_probes(
+        key, (MT_S, MT_T, MT_RANK))
+    cases["icm"]["eps"], cases["icm"]["xi"] = _jax_probes(
+        jax.random.PRNGKey(5), (MT_S, MT_RANK, MT_T))
+    cases["icm"]["eig"] = _jax_eigenbasis(jax_models["icm"])
+    # the ICM's dense MLL; the caches with their start vectors (JAX's
+    # draws from PRNGKey(0))
+    cases["icm_dense"] = dict(cases["icm"], mll=None, cache={})
+    cases["icm_dense"].pop("eps"), cases["icm_dense"].pop("xi")
+    v0 = lambda c: np.asarray(jax.random.normal(                # noqa: E731
+        jax.random.PRNGKey(0), (MT_N, c), jnp.float64))
+    cases["lmc"].update(cache=MT_CACHE, v0=v0(MT_T))
+    cases["icm"].update(cache=MT_CACHE, v0=v0(1))
+    cases["multitask_step"] = dict(cases["lmc"], check="multitask_step")
+    jax_models["icm_dense"] = jax_models["icm"]
+    return jax_models, cases
+
+
+def _jax_multitask_references(jax_models, cases):
+    """JAX's loss and gradients for each multitask case, its caches'
+    predictions and ``compute_var``, and one LMC step on its 8-device
+    mesh."""
+    keys = {"lmc": jax.random.PRNGKey(0), "composed": jax.random.PRNGKey(0),
+            "exact_iter": jax.random.PRNGKey(0), "icm": jax.random.PRNGKey(5)}
+    refs = {}
+    for name, jm in jax_models.items():
+        case = cases[name]
+        if case["mll"] is None:
+            loss = lambda m: m.mll()                        # noqa: E731
+        else:
+            loss = (lambda key: lambda m: m.mll(key=key, **MT_MLL))(
+                keys[name])
+        value, grads = _jax_loss_and_grads(jm, loss)
+        refs[name] = dict(loss=value, grads=grads)
+        if "cache" in case:
+            kw = case["cache"]
+
+            def side(m, x, kw=kw):
+                c = m.precompute_posterior(**kw)
+                p = m.posterior(x, cache=c, observed=True)
+                out = [p.mean, p.variance]
+                if m.model_type == "ICM":
+                    out.append(m.compute_var(x))
+                return out
+            got = jax.jit(side)(jm, jnp.asarray(case["X_test"]))
+            refs[name].update(zip(("mean", "var", "compute_var"),
+                                  (np.asarray(a) for a in got)))
+    step, params, opt, static = jax_sharded_fit_step(
+        jax_models["lmc"], jax_make_mesh(8),
+        lambda m: m.mll(key=keys["lmc"], **MT_MLL), lr=1e-2)
+    params, _, loss = step(params, opt, static)
+    refs["multitask_step"] = dict(loss=float(loss), params={
+        k: np.asarray(v) for k, v in _keyed_leaves(params) if np.size(v)})
+    return refs
+
 
 def _jax_references(jax_models, cases):
     """JAX's values for every case (jitted: its eager calls take seconds
@@ -115,6 +245,7 @@ def _jax_references(jax_models, cases):
     params, _, loss = step(params, opt, static)
     refs["step"] = dict(loss=float(loss), params={
         k: np.asarray(v) for k, v in _keyed_leaves(params) if np.size(v)})
+    refs.update(_jax_multitask_references(jax_models["multitask"], cases))
     return refs
 
 
@@ -139,6 +270,8 @@ def world(tmp_path_factory):
                          arrays=arrays)
     cases["checkpoint"] = dict(cases["exact"], check="checkpoint",
                                path=str(tmp_path_factory.mktemp("dcp")))
+    jax_models["multitask"], mt_cases = _multitask_cases()
+    cases.update(mt_cases)
     with ThreadPoolExecutor(1) as pool:
         refs = pool.submit(_jax_references, jax_models, cases)
         results = run_ranks(torch_parallel_ranks.run, 4, (cases,),
@@ -247,8 +380,99 @@ def test_checkpoint_round_trip_under_the_group(world):
         assert r["checkpoint"]["max_diff"] == 0.0
 
 
+MT_LOSS_CASES = [("lmc", (2, 2)), ("lmc", (4, 1)), ("composed", (2, 2)),
+                 ("icm", (2, 2)), ("icm_dense", (2, 2)),
+                 ("exact_iter", (2, 2))]
+
+
+def _close_to(got, want, rtol, atol_frac=0.0, what=""):
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=atol_frac * np.abs(want).max(),
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("case, layout", MT_LOSS_CASES)
+def test_sharded_multitask_mll_and_gradients_match_jax(world, case, layout):
+    """The row-sharded MLL (the fused LMC on data 2 × latent 2 and data 4 ×
+    latent 1, the composed LMC, the ICM's matrix-free and dense MLLs,
+    ``ExactGPModel``'s iterative MLL) and its gradients, averaged over the
+    ranks, against JAX's and the unsharded port's: loss rtol 1e-10,
+    gradients rtol 1e-7 and atol 1e-10 (the unsharded parity tests')."""
+    _, results, refs = world
+    want = refs[case]
+    for r in results:
+        got = r[case][layout]
+        for loss in (got["loss_sharded"], got["loss_unsharded"]):
+            np.testing.assert_allclose(loss, want["loss"], rtol=1e-10)
+        # the port's names as JAX's key paths (kernels.0 → kernels[0])
+        sharded, unsharded = ({jax_key(k)[1:]: g for k, g in
+                               got[f"grads_{side}"].items()}
+                              for side in ("sharded", "unsharded"))
+        assert sorted(sharded) == sorted(unsharded) == sorted(want["grads"])
+        assert len(want["grads"]) >= 4
+        for k, g in want["grads"].items():
+            for other in (sharded, unsharded):
+                np.testing.assert_allclose(other[k], g, rtol=1e-7,
+                                           atol=1e-10, err_msg=k)
+            np.testing.assert_allclose(sharded[k], unsharded[k], rtol=1e-7,
+                                       atol=1e-10, err_msg=k)
+
+
+@pytest.mark.parametrize("case, kind", [("lmc", "lmc_iter"),
+                                        ("icm", "icm_iter"),
+                                        ("icm_dense", "icm")])
+def test_sharded_multitask_cache_and_posterior_match_jax(world, case, kind):
+    """The sharded "lmc_iter", "icm_iter" and "icm" caches, ``posterior``
+    on the test points split over the ranks and gathered, and the ICM's
+    ``compute_var``, against JAX's and the unsharded port's (1e-8 of the
+    largest entry, as the unsharded matrix-free posterior tests)."""
+    _, results, refs = world
+    want = refs[case]
+    names = ("mean", "var") + (("compute_var",) if "icm" in kind else ())
+    for r in results:
+        got = r[case]
+        assert got["sharded"]["kind"] == got["unsharded"]["kind"] == kind
+        for name in names:
+            for side in ("sharded", "unsharded"):
+                _close_to(got[side][name], want[name], 1e-8, 1e-8,
+                          f"{side} {name}")
+
+
+def test_sharded_multitask_step_matches_unsharded_and_jax(world):
+    """One sharded AdamW step of the LMC's iterative MLL against one
+    unsharded port step and JAX's ``sharded_fit_step`` on its 8-device
+    mesh, at the projected step's limits."""
+    _, results, refs = world
+    loss, jax_params = (refs["multitask_step"]["loss"],
+                        refs["multitask_step"]["params"])
+    for r in results:
+        got = r["multitask_step"]
+        np.testing.assert_allclose(got["loss_sharded"], loss, rtol=1e-10)
+        np.testing.assert_allclose(got["loss_unsharded"], loss, rtol=1e-10)
+        assert sorted(got["params_sharded"]) == sorted(jax_params)
+        for k, v in jax_params.items():
+            np.testing.assert_allclose(got["params_sharded"][k], v,
+                                       rtol=1e-4, atol=1e-8, err_msg=k)
+            np.testing.assert_allclose(got["params_sharded"][k],
+                                       got["params_unsharded"][k],
+                                       rtol=1e-4, atol=1e-8, err_msg=k)
+
+
 def test_dryrun_multichip_on_four_cpu_ranks(capsys):
+    """JAX's dry run on four CPU ranks: the projected SGPR and exact steps,
+    the LMC-iterative and ICM-iterative steps, the sharded prediction and
+    the ICM's ``compute_var``, every value finite and the variance
+    positive."""
     dryrun_multichip(4, device="cpu", timeout=240)
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith("dryrun_multichip(4) OK: mesh={'data': 2, "
                            "'latent': 2} backend=gloo")
+    values = dict(kv.split("=")
+                  for kv in line.split("backend=gloo ")[1].split())
+    assert sorted(values) == ["exact_loss", "icm_iter_loss",
+                              "lmc_iter_loss", "sgpr_loss",
+                              "sharded_icm_var_mean",
+                              "sharded_predict_mean"]
+    assert all(np.isfinite(float(v)) for v in values.values())
+    assert float(values["sharded_icm_var_mean"]) > 0

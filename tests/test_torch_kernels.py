@@ -109,6 +109,38 @@ class TestPlainVersionsAgainstPallas:
 
     @pytest.mark.parametrize("kind", ["matern25", "rbf", "matern15",
                                       "matern05"])
+    @pytest.mark.parametrize("lo, hi", [(0, 70), (37, 130)])
+    def test_lowrank_reduce_row_block(self, kind, lo, hi):
+        """K7's row-block form (a rank's rows under a mesh): its plain
+        version on rows lo..hi − 1 (x1 = x[lo:hi] with A's rows, against all
+        of x with Bf) equals those rows of the square plain version exactly,
+        and those rows of JAX's ``lowrank_stationary_reduce`` in interpret
+        mode at K2's tolerance above (factors with no symmetry)."""
+        rng = np.random.default_rng(8)
+        n, d, B, r = 130, 2, 3, 5
+        x = rng.uniform(-1, 1, (n, d)).astype(np.float32)
+        ls = rng.uniform(0.5, 1.5, (B, 1, d)).astype(np.float32)
+        A = rng.standard_normal((B, n, r)).astype(np.float32)
+        Bf = rng.standard_normal((B, n, r)).astype(np.float32)
+        rows_j, wx_j = pk.lowrank_stationary_reduce(
+            jnp.asarray(x), jnp.asarray(ls), jnp.asarray(A), jnp.asarray(Bf),
+            kind, interpret=True)
+        rows, wx = ck.lowrank_stationary_reduce(
+            t32(x), t32(ls), t32(A[:, lo:hi]), t32(Bf), kind, device=CPU,
+            row_x=t32(x[lo:hi]))
+        assert rows.shape == (B, hi - lo) and wx.shape == (B, hi - lo, d)
+        rows_sq, wx_sq = ck.lowrank_stationary_reduce(
+            t32(x), t32(ls), t32(A), t32(Bf), kind, device=CPU)
+        assert torch.equal(rows, rows_sq[:, lo:hi])
+        assert torch.equal(wx, wx_sq[:, lo:hi])
+        rtol = 5e-3 if kind == "matern05" else 1e-3
+        np.testing.assert_allclose(rows.numpy(), np.asarray(rows_j)[:, lo:hi],
+                                   rtol=rtol, atol=5e-3)
+        np.testing.assert_allclose(wx.numpy(), np.asarray(wx_j)[:, lo:hi],
+                                   rtol=rtol, atol=5e-3)
+
+    @pytest.mark.parametrize("kind", ["matern25", "rbf", "matern15",
+                                      "matern05"])
     def test_kernel_matrix(self, kind):
         rng = np.random.default_rng(6)
         x1 = rng.uniform(-1, 1, (140, 4)).astype(np.float32)

@@ -1,7 +1,7 @@
 """The port's mesh layer in one process (no spawn): the sharding report
 leaf for leaf against the JAX package's on its 8-device mesh, the mesh's
-axis rule and ranges, a layout's collectives, the errors of the families
-whose sharded compute waits for ROADMAP A 14 and of a missing card,
+axis rule and ranges, a layout's collectives, the errors of the routes
+whose sharded compute waits for ROADMAP A 15 and of a missing card,
 ``latent_slice``, the DCP checkpoints and ``entry``."""
 
 import importlib.util
@@ -141,17 +141,47 @@ def test_layout_collectives_raise_and_trivial_axes_pass():
     assert torch.equal(one.gather_latents(t, 0, 3, 3), t)
 
 
-def test_shard_model_refuses_what_waits_for_a14():
-    model = _multitask(pl, "LMC", device="cpu")
-    with pytest.raises(NotImplementedError, match="A 14"):
-        parallel.shard_model(model, make_mesh(1))
-    X, Y = make_data(n=24, p=2)
-    exact = pl.ExactGPModel(X, Y, pl.GaussianLikelihood(batch_shape=2,
-                                                        device="cpu"),
-                            n_tasks=2, device="cpu")
-    parallel.shard_model(exact, make_mesh(1))
-    with pytest.raises(NotImplementedError, match="A 14"):
-        exact.mll(iterative=True)
+ITER = dict(iterative=True, precond_rank=8, num_probes=2, max_cg_iters=8)
+A15_ROUTES = {
+    "LMC dense Woodbury MLL": ("LMC", {}, lambda m: m.mll()),
+    "LMC \"lmc\" cache": ("LMC", {}, lambda m: m.precompute_posterior()),
+    "LMC CG + SLQ MLL": ("LMC", {}, lambda m: m.mll(iterative=True)),
+    "LMC int8 loop": ("LMC", {},
+                      lambda m: m.mll(matvec_int8=True, **ITER)),
+    "LMC SGPR MLL": ("LMC", dict(n_inducing_points=6), lambda m: m.mll()),
+    "ICM SGPR cache": ("ICM", dict(n_inducing_points=6),
+                       lambda m: m.precompute_posterior()),
+    "ExactGPModel composed iterative MLL": (
+        "exact", dict(decomp=[[0], [1]]), lambda m: m.mll(**ITER)),
+    "fused \"kr\" backward": ("LMC", {}, lambda m: m.mll(**ITER)),
+}
+
+
+@pytest.mark.parametrize("route", sorted(A15_ROUTES))
+def test_shard_model_takes_the_lmc_and_icm_and_routes_left_raise(
+        monkeypatch, route):
+    """``shard_model`` takes the LMC and the ICM (``MultitaskGPModel``) and
+    ``ExactGPModel``; each route that ROADMAP A 15 leaves unsharded raises
+    ``NotImplementedError`` naming it under a mesh, never computing
+    without its shard."""
+    family, kw, call = A15_ROUTES[route]
+    if family == "exact":
+        X, Y = make_data(n=24, p=2)
+        X = np.concatenate([X, X[::-1]], 1)
+        model = pl.ExactGPModel(X, Y, pl.GaussianLikelihood(
+            batch_shape=2, dtype=torch.float64, device="cpu"), n_tasks=2,
+            device="cpu", **kw)
+    else:
+        X, Y = make_data(n=24)
+        model = pl.MultitaskGPModel(X, Y[:, :4], n_tasks=4, n_latents=2,
+                                    model_type=family, kernel_type="matern",
+                                    device="cpu", **kw)
+    if route.startswith("fused"):
+        monkeypatch.setenv("PLMC_KR_FUSED", "1")
+    assert parallel.shard_model(model, make_mesh(1)) is model
+    assert model.mesh is not None
+    with pytest.raises(NotImplementedError, match="A 15"):
+        call(model)
     with pytest.raises(TypeError):
         parallel.shard_model(torch.nn.Linear(2, 2), make_mesh(1))
 

@@ -1,8 +1,11 @@
 """What each rank of ``tests/test_torch_distributed.py``'s spawned world
-runs: the port on a (data 2, latent 2) mesh of 4 gloo ranks on the CPU,
-in float64, beside the unsharded port on the same leaves. Imports neither
-JAX nor the JAX package (the test process holds those and compares); the
-ranks return numpy arrays."""
+runs: the port on a (data 2, latent 2) mesh of 4 gloo ranks on the CPU
+(and a (data 4, latent 1) mesh for the cases that name it), in float64,
+beside the unsharded port on the same leaves. Imports neither JAX nor the
+JAX package (the test process holds those and compares); the ranks return
+numpy arrays."""
+
+import contextlib
 
 import torch
 
@@ -144,16 +147,127 @@ def _layout(mesh):
         make_mesh_shape=dict(make_mesh(4).shape))
 
 
+def _multitask_model(case):
+    """The case's ``MultitaskGPModel`` or ``ExactGPModel`` on the CPU,
+    carrying its leaves."""
+    import projected_lmc_tpu_torch as pl
+    if case["family"] == "exact":
+        T = case["Y"].shape[1]
+        m = pl.ExactGPModel(case["X"], case["Y"], pl.GaussianLikelihood(
+            batch_shape=T, dtype=torch.float64, device="cpu"), n_tasks=T,
+            device="cpu", **case["args"])
+    else:
+        m = pl.MultitaskGPModel(case["X"], case["Y"], device="cpu",
+                                **case["args"])
+    return pl.load_jax_state(m, case["arrays"])
+
+
+@contextlib.contextmanager
+def _eigenbasis(case):
+    """The ICM probes' eigenbasis: the case's (JAX's) eigenpairs of the
+    whitened task covariance in place of the port's sign-fixed ones, for
+    that matrix only (the test process computed them)."""
+    from projected_lmc_tpu_torch.ops import iterative as it
+    if "eig" not in case:
+        yield
+        return
+    own = it._eigh_fixed_signs
+    w, V = (torch.tensor(a) for a in case["eig"])
+
+    def jax_eigh(A):
+        if A.shape == V.shape and torch.allclose(A, (V * w) @ V.T,
+                                                 rtol=1e-10, atol=1e-12):
+            return w, V
+        return own(A)
+
+    it._eigh_fixed_signs = jax_eigh
+    try:
+        yield
+    finally:
+        it._eigh_fixed_signs = own
+
+
+def _multitask(case, mesh, meshes):
+    """The LMC/ICM (or ``ExactGPModel``'s iterative) MLL with its
+    gradients, sharded on each of the case's mesh layouts, beside the
+    unsharded port; then, with a "cache" entry, the sharded cache and
+    ``posterior`` (and the ICM's ``compute_var``)."""
+    eps, xi = (None if case.get(k) is None else torch.tensor(case[k])
+               for k in ("eps", "xi"))
+
+    def loss_fn(m):
+        if case["mll"] is None:
+            return m.mll()
+        return m.mll(eps=eps, xi=xi, **case["mll"])
+
+    out = {}
+    with _eigenbasis(case):
+        for layout in case["layouts"]:
+            _, out[layout] = _loss_and_grads(
+                lambda: _multitask_model(case), loss_fn, meshes[layout])
+        if "cache" not in case:
+            return out
+        from projected_lmc_tpu_torch.parallel import shard_model
+        x = torch.tensor(case["X_test"])
+        kw = dict(case["cache"])
+        if case.get("v0") is not None:
+            kw["v0"] = torch.tensor(case["v0"])
+        for label, model in (("unsharded", _multitask_model(case)),
+                             ("sharded", shard_model(_multitask_model(case),
+                                                     mesh))):
+            with torch.no_grad():
+                cache = model.precompute_posterior(**kw)
+                pred = model.posterior(x, cache=cache, observed=True)
+                out[label] = dict(kind=cache["kind"], mean=_np(pred.mean),
+                                  var=_np(pred.variance))
+                if model.icm:
+                    out[label]["compute_var"] = _np(model.compute_var(x))
+    return out
+
+
+def _multitask_step(case, mesh):
+    """One sharded AdamW step of the LMC's MLL beside one unsharded step."""
+    from projected_lmc_tpu_torch.module import keyed_state, \
+        trainable_parameters
+    from projected_lmc_tpu_torch.parallel import sharded_fit_step
+    eps, xi = torch.tensor(case["eps"]), torch.tensor(case["xi"])
+
+    def loss_fn(m):
+        return m.mll(eps=eps, xi=xi, **case["mll"])
+
+    ref = _multitask_model(case)
+    opt = torch.optim.AdamW([p for _, p in trainable_parameters(ref)],
+                            lr=1e-2, weight_decay=1e-2)
+    loss_u = -loss_fn(ref)
+    loss_u.backward()
+    opt.step()
+    step, model, _ = sharded_fit_step(_multitask_model(case), mesh, loss_fn,
+                                      lr=1e-2)
+    loss_s = step()
+    trained = {n for n, _ in trainable_parameters(model)}
+    return dict(
+        loss_unsharded=float(loss_u.detach()), loss_sharded=float(loss_s),
+        params_unsharded={k: _np(v) for k, v in keyed_state(ref).items()
+                          if k[1:] in trained},
+        params_sharded={k: _np(v) for k, v in keyed_state(model).items()
+                        if k[1:] in trained})
+
+
 CHECKS = {"projected": _projected, "variational": _variational,
-          "step": _step, "checkpoint": _checkpoint}
+          "step": _step, "checkpoint": _checkpoint,
+          "multitask_step": _multitask_step}
 
 
 def run(rank, cases):
     """Every check on this rank: {case name: its results}, plus the layout
     under "layout"."""
-    from projected_lmc_tpu_torch.parallel import make_global_mesh
+    from projected_lmc_tpu_torch.parallel import make_global_mesh, make_mesh
     mesh = make_global_mesh(latent=2)
     out = {"layout": _layout(mesh)}
+    meshes = {(2, 2): mesh, (4, 1): make_mesh(4, data=4, latent=1)}
     for name, case in cases.items():
-        out[name] = CHECKS[case["check"]](case, mesh)
+        if case["check"] == "multitask":
+            out[name] = _multitask(case, mesh, meshes)
+        else:
+            out[name] = CHECKS[case["check"]](case, mesh)
     return out
