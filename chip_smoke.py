@@ -5,7 +5,8 @@ Run from the repository root on a machine with one NVIDIA card (H100):
 
     python3 chip_smoke.py
 
-Phases, each printing its own line(s); any failure raises and exits non-zero:
+(``python3 chip_smoke.py --only M`` builds the kernels and runs path M
+alone, without the kernels line and the result line.) Phases, each printing its own line(s); any failure raises and exits non-zero:
 
   1. the card's name and power limit (nvidia-smi) and the kernel build time
      (nvcc of ``projected_lmc_tpu_torch/csrc/stationary.cu``);
@@ -217,6 +218,20 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
      against its plain version, bitwise on a repeat, timed with its bound;
      K3 at the roots' block. Step times, peak memory a rank, the time in
      the world sums; each rank's K3, K6 and K7 launches go into the totals.
+     The routes that once raised under a mesh, each held at path L's
+     limits to one process's same arithmetic: M6 the dense Woodbury LMC
+     (n = 1,024, q·n = 4,096) with its "lmc" cache; M7 CG + SLQ on M1's
+     model (2 steps); M8 the int8 stack (K8's block on (x[r0:r1], x)); M9
+     the "kr" and "krs" backward (PLMC_KR_FUSED=1, PLMC_KR_STREAM=1)
+     through K4's and K5's row-block forms, bitwise a one-rank mesh's run;
+     M10 the LMC and ICM SGPR (n = 44,480, d = 21, m = 500, data 4 ×
+     latent 1) with their "sgpr" caches; M11 ``ExactGPModel``'s composed
+     route with J1's additive kernel; M12 ``fit`` bitwise
+     ``sharded_fit_step``, every rank's leaves equal. K4's and K5's
+     row-block forms are checked against their plain versions and for
+     bitwise repeats at M1's (2, 5,000, 10⁴) block, where they are timed
+     with their bounds, and at ``M_KR_BRANCHES`` (d = 21 padded to 32, n1
+     below a tile, rows not on 16 bytes), K5 on bf16 and fp32 blocks.
 
 Every training run sets the launch counts to 0 just before it and reads
 them just after. The last lines are one JSON object with every kernel's
@@ -1069,10 +1084,12 @@ def wrappers(ck):
             "K5": ck.lowrank_stationary_reduce_sym_krs,
             "K6": ck.scaled_kernel_stack,
             "K7": ck.lowrank_stationary_reduce,
-            "K8": ck.quantized_kernel_stack}
+            "K8": ck.quantized_kernel_stack,
+            "K4r": ck.lowrank_stationary_reduce_rows_kr,
+            "K5r": ck.lowrank_stationary_reduce_rows_krs}
 
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K4r", "K5r")
 
 
 def expect(**launches):
@@ -4674,8 +4691,9 @@ def path_l_rank(rank, spec):
     (data 4 × latent 1), each a sharded ``sharded_fit_step`` run with the
     launch counts set to 0 just before and read just after; L1's sharded
     cache and ``predict``, and ``save_orbax``/``load_orbax`` under the
-    group; then path M (:func:`path_m_rank`) when the spec holds it. Loads
-    the kernel library the parent built."""
+    group; then path M (:func:`path_m_rank`) when the spec holds it. A
+    spec without L1–L3 runs path M alone. Loads the kernel library the
+    parent built."""
     import torch
 
     import projected_lmc_tpu_torch as pl
@@ -4688,7 +4706,7 @@ def path_l_rank(rank, spec):
     _build.library()
     out = {"backend": parallel.distributed.backend(), "device": str(dev),
            "seconds": {}}
-    for label in ("L1", "L2", "L3"):
+    for label in (lb for lb in ("L1", "L2", "L3") if lb in spec):
         t1 = time.perf_counter()
         case = spec[label]
         mesh = parallel.make_mesh(L_RANKS, data=case["mesh"][0],
@@ -4927,7 +4945,7 @@ def path_l_phase(torch, pl, ck, dev, totals):
     # path M runs in the same spawn: its kernels at a rank's shapes and its
     # unsharded references first, on this card
     m_case = m_cases(torch, pl, dev)
-    k7_rows = m_kernel_checks(torch, pl, ck, dev, m_case["M1"])
+    m_rows = m_kernel_checks(torch, pl, ck, dev, m_case["M1"])
     m_refs = m_references(torch, pl, ck, dev, m_case)
 
     with tempfile.TemporaryDirectory(prefix="plmc_ckpt_") as tmp:
@@ -5014,8 +5032,16 @@ def path_l_phase(torch, pl, ck, dev, totals):
           f"latent {M1_MESHES[0][1]} and data {M1_MESHES[1][0]} x latent "
           f"{M1_MESHES[1][1]} ({M1_STEPS} steps), M2 the matrix-free ICM "
           f"n={N_H2} ({M2_STEPS} steps), M3 serving (\"lmc_iter\", "
-          f"\"icm_iter\", the dense ICM n={N_M3}), M4 ExactGPModel n={N_B} "
-          f"({M4_STEPS} steps), M5 dryrun_multichip({L_RANKS})")
+          f"\"icm_iter\", the dense ICM n={N_M3}, M6's \"lmc\" and M10's "
+          f"\"sgpr\"), M4 ExactGPModel n={N_B} ({M4_STEPS} steps), M5 "
+          f"dryrun_multichip({L_RANKS}), M6 the dense Woodbury LMC n={N_M6} "
+          f"({M6_STEPS} steps), M7 CG + SLQ n={N} ({M7_STEPS} steps), M8 the "
+          f"int8 stack ({M8_STEPS} steps), M9 the \"kr\" and \"krs\" "
+          f"routes ({M9_STEPS} steps each), M10 the LMC and ICM SGPR n={I3_N} "
+          f"d={I_D} m={I_M} on data {M10_MESH[0]} x latent {M10_MESH[1]} "
+          f"({M10_STEPS} steps each), M11 ExactGPModel's composed route "
+          f"n={N} ({M11_STEPS} steps), M12 fit against sharded_fit_step "
+          f"({M12_STEPS} steps)")
     path_m_check(torch, out, m_refs, m_case, totals, note)
     t1 = time.perf_counter()
     dryrun_multichip(L_RANKS, device=dev.type, timeout=L_TIMEOUT)
@@ -5031,7 +5057,29 @@ def path_l_phase(torch, pl, ck, dev, totals):
         raise SystemExit("chip_smoke: the one-rank group's step disagrees")
     totals["K3"] += one["counts"]["K3"]
     print(f"  paths L and M took {time.perf_counter() - t0:.1f} s")
-    return k7_rows
+    return m_rows
+
+
+def path_m_phase(torch, pl, ck, dev, totals):
+    """Path M alone (``chip_smoke.py --only M``): its kernels at a rank's
+    shapes and its unsharded references on this card, then one spawn of
+    path L's ranks with path M's spec alone, held by :func:`path_m_check`.
+    Returns :func:`m_kernel_checks`'s rows."""
+    from projected_lmc_tpu_torch.parallel.launch import run_ranks
+    t0 = time.perf_counter()
+    m_case = m_cases(torch, pl, dev)
+    m_rows = m_kernel_checks(torch, pl, ck, dev, m_case["M1"])
+    m_refs = m_references(torch, pl, ck, dev, m_case)
+    out = run_ranks(path_l_rank, L_RANKS, (dict(M=m_case),),
+                    device=dev.type, timeout=L_TIMEOUT, collective_timeout=300,
+                    threads=max(1, (os.cpu_count() or 1) // L_RANKS))
+    note = "ranks sharing one card: not a speed-up" \
+        if len({o["device"] for o in out}) < L_RANKS else "a card a rank"
+    print(f"  {L_RANKS} ranks over {out[0]['backend']}; path M " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in out[0]["M"]["seconds"].items()))
+    path_m_check(torch, out, m_refs, m_case, totals, note)
+    print(f"  path M took {time.perf_counter() - t0:.1f} s")
+    return m_rows
 
 
 # -- path M: the LMC and ICM families under the mesh ---------------------------
@@ -5041,6 +5089,11 @@ M_MESH = (2, 2)                          # M2–M4 (the ICM's rows split over
                                          # every rank on either layout)
 M1_STEPS, M2_STEPS, M4_STEPS = 8, 4, 4
 N_M3 = 4_096                             # M3's dense ICM (≤ ICM_DENSE_N_MAX)
+N_M6 = 1_024                             # M6: q·n = 4,096 = DENSE_QN_MAX
+M6_STEPS, M7_STEPS, M8_STEPS, M9_STEPS = 4, 2, 4, 4
+M10_STEPS, M11_STEPS, M12_STEPS = 4, 4, 8
+M10_MESH = (4, 1)                        # the SGPR rows split over every rank
+M9_ROUTES = ("kr", "krs")
 M_R = 2 * MLL_KW["num_probes"] + 1       # the fused backward's factor rank
 # the CG estimator's fp32 gradient limit, card against CPU (phase 3, path H)
 M_CG_GRAD_TOL = 2e-3
@@ -5055,10 +5108,14 @@ def _m_model(pl, case, device):
         model = make_model(pl, X, Y, device)
     elif case["kind"] == "icm":
         model = icm_model(pl, X, Y, device)
+    elif case["kind"].startswith("sgpr"):
+        model = sgpr_models(pl, X, Y, device, I_M)[case["kind"][5:]]
     else:
+        # path B's ExactGPModel; M11's with J1's additive kernel
         model = pl.ExactGPModel(X, Y, pl.GaussianLikelihood(
             batch_shape=T, device=device), n_tasks=T, kernel_type="matern",
-            outputscales=True, device=device)
+            outputscales=True, device=device,
+            **(dict(decomp=J_DECOMP) if case["kind"] == "exact_add" else {}))
     if "arrays" in case:
         pl.load_jax_state(model, case["arrays"])
     return model
@@ -5081,74 +5138,115 @@ def m_cases(torch, pl, dev):
                        X_test=bench_data(N_TEST, seed=21)[0])
     X, Y = bench_data(N_B, seed=5)
     cases["M4"] = dict(kind="exact", X=X, Y=Y, steps=M4_STEPS)
-    for seed, case in zip((30, 31, 32, 33), cases.values()):
+    X, Y = bench_data(N_M6, seed=6)
+    cases["M6"] = dict(kind="lmc", X=X, Y=Y, steps=M6_STEPS, mll={},
+                       X_test=bench_data(N_TEST, seed=23)[0])
+    X, Y = bench_data(I3_N, seed=7, d=I_D)
+    Xt = bench_data(N_TEST, seed=24, d=I_D)[0]
+    for name in ("LMC", "ICM"):
+        cases[f"M10 {name}"] = dict(kind=f"sgpr_{name}", X=X, Y=Y,
+                                    steps=M10_STEPS, mll={}, X_test=Xt,
+                                    mesh=M10_MESH)
+    X, Y = bench_data(N, seed=8)
+    cases["M11"] = dict(kind="exact_add", X=X, Y=Y, steps=M11_STEPS)
+    for seed, case in enumerate(cases.values(), 30):
         model = moved(torch, _m_model(pl, case, dev), seed)
         case["arrays"] = {k: v.detach().cpu().numpy()
                           for k, v in keyed_state(model).items()}
         del model
+    # M7–M9 and M12 train M1's model: CG + SLQ at mll()'s defaults (J2's
+    # route), path C's int8 stack, and M1's step on the "kr" and "krs"
+    # backward routes
+    cases["M7"] = dict(cases["M1"], steps=M7_STEPS, mll={})
+    cases["M8"] = dict(cases["M1"], steps=M8_STEPS, mll=INT8_KW)
+    for route in M9_ROUTES:
+        cases[f"M9 {route}"] = dict(cases["M1"], steps=M9_STEPS, route=route)
     torch.cuda.empty_cache()
     return cases
 
 
 def m_train(torch, pl, ck, case, dev, mesh=None):
     """``case["steps"]`` AdamW(1e-2, weight decay 1e-2) steps of the case's
-    MLL (``MLL_KW``; the LMC's and ICM's roots built once, as a 16-step
-    chunk does, the exact model's at every call, as path B), sharded over
-    ``mesh`` by ``sharded_fit_step`` or unsharded, the probes drawn from a
-    generator seeded 0; the launch counts set to 0 just before and read
-    just after. Returns (model, step, the run's record)."""
+    MLL (:func:`m_loss`), sharded over ``mesh`` by ``sharded_fit_step`` or
+    unsharded, the probes drawn from a generator seeded 0, under the
+    case's backward ``route`` if it names one; the launch counts set to 0
+    just before and read just after. Returns (model, step, the run's
+    record)."""
     from projected_lmc_tpu_torch import parallel
     from projected_lmc_tpu_torch.module import trainable_parameters
-    model = _m_model(pl, case, dev)
-    if mesh is not None:
-        parallel.shard_model(model, mesh)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    torch.cuda.reset_peak_memory_stats(dev)
-    zero_counts(ck)
-    if case["kind"] == "exact":
-        loss_fn = lambda m: m.mll(generator=gen, **MLL_KW)     # noqa: E731
-    else:
-        rows = None if mesh is None else model._rows(model.train_x.shape[0])
-        with torch.no_grad():
-            roots = model._precond_roots(model.train_x,
-                                         MLL_KW["precond_rank"], rows=rows)
-        loss_fn = lambda m: m.mll(precond_roots=roots,        # noqa: E731
-                                  generator=gen, **MLL_KW)
-    if mesh is not None:
-        step, model, _ = parallel.sharded_fit_step(model, mesh, loss_fn)
-    else:
-        opt = torch.optim.AdamW([p for _, p in trainable_parameters(model)],
-                                lr=1e-2, weight_decay=1e-2)
+    with (routed(case["route"]) if "route" in case
+          else contextlib.nullcontext()):
+        model = _m_model(pl, case, dev)
+        if mesh is not None:
+            parallel.shard_model(model, mesh)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts(ck)
+        loss_fn = m_loss(torch, case, model, gen, mesh)
+        if mesh is not None:
+            step, model, _ = parallel.sharded_fit_step(model, mesh, loss_fn)
+        else:
+            opt = torch.optim.AdamW(
+                [p for _, p in trainable_parameters(model)], lr=1e-2,
+                weight_decay=1e-2)
 
-        def step():
-            opt.zero_grad(set_to_none=False)
-            loss = -loss_fn(model)
-            loss.backward()
-            opt.step()
-            return loss.detach()
-    res = _l_train(torch, model, step, case["steps"],
-                   trainable_parameters(model))
-    res.update(counts=read_counts(ck), peak_gib=_peak_gib(torch, dev))
+            def step():
+                opt.zero_grad(set_to_none=False)
+                loss = -loss_fn(model)
+                loss.backward()
+                opt.step()
+                return loss.detach()
+        res = _l_train(torch, model, step, case["steps"],
+                       trainable_parameters(model))
+        res.update(counts=read_counts(ck), peak_gib=_peak_gib(torch, dev))
     return model, step, res
+
+
+def m_loss(torch, case, model, gen, mesh=None):
+    """The case's MLL, ``case["mll"]`` (``MLL_KW`` unless given), the probes
+    drawn from ``gen``; on the LMC's and ICM's PCG routes with the Nyström
+    roots built once (from the rank's rows under ``mesh``), as a 16-step
+    chunk does; the exact model rebuilds its own at every call, as path
+    B."""
+    kw = case.get("mll", MLL_KW)
+    if case["kind"] not in ("lmc", "icm") or not kw.get("precond_rank"):
+        return lambda m: m.mll(generator=gen, **kw)
+    rows = None if mesh is None else model._rows(model.train_x.shape[0])
+    with torch.no_grad():
+        roots = model._precond_roots(model.train_x, kw["precond_rank"],
+                                     rows=rows)
+    return lambda m: m.mll(precond_roots=roots, generator=gen, **kw)
 
 
 def m_allreduce(torch, mesh, step):
     """One more step with every world sum of the solvers (``world_sum_``)
-    timed on the host around a synchronize: (that step's ms, the sums' ms,
-    their number)."""
-    own, spans = mesh.world_sum_, []
+    and every forward one of the SGPR's partial sums (``world_sum``; its
+    backward's is not seen) timed on the host around a synchronize: (that
+    step's ms, the sums' ms, their number)."""
+    spans = []
 
-    def timed_sum(x):
-        out, ms = timed(torch, lambda: own(x))
-        spans.append(ms)
-        return out
+    def timed_sum(own):
+        def call(x):
+            out, ms = timed(torch, lambda: own(x))
+            spans.append(ms)
+            return out
+        return call
 
-    mesh.world_sum_ = timed_sum
+    names = ("world_sum_", "world_sum")
+    for name in names:
+        setattr(mesh, name, timed_sum(getattr(mesh, name)))
     try:
         _, ms = timed(torch, lambda: float(step()))
     finally:
-        del mesh.world_sum_
+        for name in names:
+            delattr(mesh, name)
     return dict(sum_step_ms=ms, sum_ms=float(sum(spans)), sums=len(spans))
+
+
+# (the cache's name, the case, the start vector's columns)
+M_SERVED = (("lmc_iter", "M1", T), ("icm_iter", "M2", 1), ("icm", "M3", 0),
+            ("lmc", "M6", 0), ("sgpr LMC", "M10 LMC", 0),
+            ("sgpr ICM", "M10 ICM", 0))
 
 
 def m_serve(torch, pl, ck, cases, dev, mesh=None):
@@ -5156,12 +5254,13 @@ def m_serve(torch, pl, ck, cases, dev, mesh=None):
     ``posterior`` at M1's model, the "icm_iter" cache, ``posterior`` and
     ``compute_var`` at M2's, and at M3's the dense ICM MLL with its
     gradients (averaged over the ranks), the "icm" cache, ``posterior`` and
-    ``compute_var``; on 2,500 test points, the start vectors and the
-    ``compute_var`` draws seeded alike. Each part's launch counts."""
+    ``compute_var``; M6's dense "lmc" cache and M10's "sgpr" caches (LMC,
+    ICM) with their ``posterior``; on 2,500 test points, the start vectors
+    and the ``compute_var`` draws seeded alike. Each part's launch
+    counts."""
     from projected_lmc_tpu_torch import parallel
     out = {}
-    for name, label, c in (("lmc_iter", "M1", T), ("icm_iter", "M2", 1),
-                           ("icm", "M3", 0)):
+    for name, label, c in M_SERVED:
         case = cases[label]
         model = _m_model(pl, case, dev)
         if mesh is not None:
@@ -5180,7 +5279,7 @@ def m_serve(torch, pl, ck, cases, dev, mesh=None):
             r = dict(kind=cache["kind"], mean=pred.mean.cpu().numpy(),
                      var=pred.variance.cpu().numpy(), cache_ms=cache_ms,
                      pred_ms=pred_ms)
-            if model.icm:
+            if model.icm and not model.sgpr:
                 torch.manual_seed(41)
                 var, r["var_ms"] = timed(torch, lambda: model.compute_var(x))
                 r["compute_var"] = var.cpu().numpy()
@@ -5204,25 +5303,74 @@ def m_serve(torch, pl, ck, cases, dev, mesh=None):
     return out
 
 
+def m_layouts(label, cases):
+    """The (data, latent) layouts a path-M case runs on."""
+    if label == "M1":
+        return M1_MESHES
+    return (cases[label].get("mesh", M_MESH),)
+
+
+def m_fit(torch, pl, ck, case, dev, mesh):
+    """M12: ``training.fit`` (``M12_STEPS`` steps in one chunk, a constant
+    learning rate of 1e-2, weight decay 1e-2) on M1's model sharded over
+    ``mesh``, then ``M12_STEPS`` steps of ``sharded_fit_step`` (the same
+    AdamW) from the same leaves; the probes from a generator seeded 0 and
+    the roots built once, each run alike. Each run's losses, final leaves
+    and launch counts (set to 0 just before the run, read just after)."""
+    from projected_lmc_tpu_torch import parallel
+    from projected_lmc_tpu_torch.module import keyed_state
+    out = {}
+    for name in ("fit", "step"):
+        model = parallel.shard_model(_m_model(pl, case, dev), mesh)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        zero_counts(ck)
+        loss_fn = m_loss(torch, case, model, gen, mesh)
+        t0 = time.perf_counter()
+        if name == "fit":
+            _, info = pl.fit(model, loss_fn, n_iter=M12_STEPS,
+                             schedule=lambda i: 1e-2, scan_steps=M12_STEPS,
+                             device=dev)
+            losses = [float(v) for v in info["losses"]]
+        else:
+            step, model, _ = parallel.sharded_fit_step(model, mesh, loss_fn)
+            losses = [float(step()) for _ in range(M12_STEPS)]
+        torch.cuda.synchronize(dev)
+        out[name] = dict(losses=losses, counts=read_counts(ck),
+                         seconds=time.perf_counter() - t0,
+                         leaves={k: v.detach().cpu().numpy() for k, v in
+                                 keyed_state(model).items()})
+        del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def path_m_rank(torch, pl, ck, cases, dev):
-    """One rank's path M (in path L's spawn): M1 on both layouts, M2 and M4
-    on data 2 × latent 2, each a ``sharded_fit_step`` run with the launch
-    counts set to 0 just before and read just after, then a step with its
-    world sums timed; M3's sharded serving."""
+    """One rank's path M (in path L's spawn): M1 on both layouts, M2, M4,
+    M6–M9 and M11 on data 2 × latent 2 and M10 on data 4 × latent 1, each
+    a ``sharded_fit_step`` run with the launch counts set to 0 just before
+    and read just after, then a step with its world sums timed; M12's
+    ``fit`` and ``sharded_fit_step``; M3's sharded serving."""
     from projected_lmc_tpu_torch import parallel
     out, seconds = {}, {}
-    for label in ("M1", "M2", "M4"):
-        for layout in (M1_MESHES if label == "M1" else (M_MESH,)):
+    for label in ("M1", "M2", "M4") + M_NEW:
+        for layout in m_layouts(label, cases):
             t1 = time.perf_counter()
             mesh = parallel.make_mesh(L_RANKS, data=layout[0],
                                       latent=layout[1])
             model, step, res = m_train(torch, pl, ck, cases[label], dev,
                                        mesh)
-            res.update(m_allreduce(torch, mesh, step), mesh=dict(mesh.shape))
+            with (routed(cases[label]["route"]) if "route" in cases[label]
+                  else contextlib.nullcontext()):
+                res.update(m_allreduce(torch, mesh, step),
+                           mesh=dict(mesh.shape))
             out[(label, layout)] = res
             del model, step
             torch.cuda.empty_cache()
             seconds[f"{label} {layout}"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["M12"] = m_fit(torch, pl, ck, cases["M1"], dev, parallel.make_mesh(
+        L_RANKS, data=M_MESH[0], latent=M_MESH[1]))
+    seconds["M12"] = time.perf_counter() - t1
     t1 = time.perf_counter()
     out["M3"] = m_serve(torch, pl, ck, cases, dev, parallel.make_mesh(
         L_RANKS, data=M_MESH[0], latent=M_MESH[1]))
@@ -5245,8 +5393,10 @@ def m_kernel_checks(torch, pl, ck, dev, case):
     plain version at K7's phase-2 limit, bitwise on a repeat and bitwise
     those rows of K7's square call (each row's sum runs over the same
     column tiles in the same order), timed beside its plain version with
-    its bound; K3 at the rank's roots block. Returns K7's row-block numbers
-    at M1's (2, 5,000, 10⁴) block."""
+    its bound; K3 at the rank's roots block; at the first layout's block,
+    M8's K8 block and M9's row-block K4 and K5 (:func:`m_kr_rows_checks`).
+    Returns the kernel-line rows of K7's, K4's and K5's row-block forms
+    (``K7r``, ``K4r``, ``K5r``) at M1's (2, 5,000, 10⁴) block."""
     from projected_lmc_tpu_torch.parallel.mesh import Mesh
     t = lambda a: torch.as_tensor(a, dtype=torch.float32,      # noqa: E731
                                   device=dev)
@@ -5313,12 +5463,162 @@ def m_kernel_checks(torch, pl, ck, dev, case):
             print(f"  M K7 row-block form {shape}: {k7['ms']:.4f} ms, plain "
                   f"{k7['plain_ms']:.3f} ms, bound {k7['bound'][0]:.4f} ms "
                   f"({k7['bound'][1]})")
+            rows = m_kr_rows_checks(torch, ck, t, rng, xc, ls, lo, hi, r0,
+                                    r1, A, Bf)
+            m_k8_block_check(torch, ck, xc, ls, lo, hi, r0, r1)
         idx = np.linspace(0, N - 1, MLL_KW["precond_rank"]).astype(np.int64)
         k3_shapes(torch, ck, dev, ((x[r0:r1], x[idx]),), ls[lo:hi])
         torch.cuda.empty_cache()
     del full
     torch.cuda.empty_cache()
-    return k7
+    rows["K7r"] = k7
+    return rows
+
+
+def kr_rows_bounds(q, n1, n2, d, r):
+    """K4's and K5's row-block forms' least times: K7's per-pair count over
+    the block's q·n1·n2 ordered pairs plus one KA multiply-add a pair at the
+    tensor cores' bf16 rate (the function's one product, as the square
+    bound counts it); K5's without the exp and with the bf16 block read.
+    Inputs (x1, x2, l, os, Bf's rows, A's columns) and outputs (rows, wx,
+    KA) once."""
+    pairs = q * n1 * n2
+    io = q * (n1 + n2) * r * 4 + (n1 + n2) * d * 4 + q * (d + 1) * 4 \
+        + q * n1 * (1 + d + r) * 4
+    ops = 2 * r + 3 * d + 7 + (1 + 2 * d)
+    return (bound_ms(io, pairs * ops, pairs * 2 * r),
+            bound_ms(io + pairs * 2, pairs * (ops - 1), pairs * 2 * r))
+
+
+def m_kr_rows_checks(torch, ck, t, rng, xc, ls, lo, hi, r0, r1, A, Bf):
+    """M9's kernels at rank 0's block of M1's data 2 × latent 2 layout,
+    (2, 5,000, 10⁴), r = 17, os ≠ 1: K4's row-block form, and K5's on the
+    rank's bf16 K6 block, each against its plain version at K4's phase-2
+    limits (``check_kr``), bitwise on a repeat, timed by CUDA events beside
+    its plain version, with its bound. Returns their kernel-line rows."""
+    os_ = t(rng.uniform(0.5, 2.0, Q))
+    lsl, osl = ls[lo:hi].contiguous(), os_[lo:hi].contiguous()
+    args = (xc[r0:r1], xc, lsl, osl, Bf[lo:hi, r0:r1].contiguous(),
+            A[lo:hi].contiguous())
+    block = ck.scaled_kernel_stack(xc[r0:r1], xc, lsl, osl, KIND,
+                                   torch.bfloat16, device=xc.device)
+    shape = f"({hi - lo},{r1 - r0},{N})"
+    bounds = kr_rows_bounds(hi - lo, r1 - r0, N, D, M_R)
+    rows = {}
+    for key, Ks, bound in (("K4r", None, bounds[0]),
+                           ("K5r", block, bounds[1])):
+        extra = () if Ks is None else (Ks,)
+        fn = ck.lowrank_stationary_reduce_rows_kr if Ks is None \
+            else ck.lowrank_stationary_reduce_rows_krs
+        run = lambda: fn(*args, *extra, KIND, device=xc.device)  # noqa: E731
+
+        def plain(b=1250):
+            """The plain version a block of rows at a time."""
+            parts = []
+            plain_fn = ck.lowrank_stationary_reduce_rows_kr_plain \
+                if Ks is None else ck.lowrank_stationary_reduce_rows_krs_plain
+            for i0 in range(0, r1 - r0, b):
+                sub = (args[0][i0:i0 + b],) + args[1:4] + (
+                    args[4][:, i0:i0 + b],) + args[5:]
+                parts.append(plain_fn(*sub, *(() if Ks is None else (
+                    Ks[:, i0:i0 + b],)), KIND))
+            return tuple(torch.cat(p, 1) for p in zip(*parts))
+
+        got, again = run(), run()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"  M {key} row-block form {shape} r={M_R} repeat bitwise "
+              f"equal: {bitwise}")
+        if not bitwise:
+            raise SystemExit(f"chip_smoke: {key} is not deterministic")
+        err = check_kr(f"M {key} {shape} r={M_R}", got, plain())
+        del got, again
+        rows[key] = dict(max_abs_err=err, ms=cuda_ms(run, reps=10),
+                         plain_ms=cuda_ms(plain, reps=1, warmup=1),
+                         bound=bound, shape=shape)
+        print(f"  M {key} row-block form {shape}: {rows[key]['ms']:.4f} ms, "
+              f"plain {rows[key]['plain_ms']:.3f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]})")
+        torch.cuda.empty_cache()
+    del block
+    m_kr_rows_branches(torch, ck, t, rng)
+    return rows
+
+
+# (d, n1, n2) of the row-block K4/K5 branches M1's block does not reach:
+# d = 21 at the padded width 32, 16-byte loads of bf16 and fp32 blocks;
+# n1 below one tile, n2 % 8 = 5 (element loads of both); n2 % 8 = 4 (fp32
+# rows on 16 bytes, bf16 rows not)
+M_KR_BRANCHES = ((21, 1000, 2000), (4, 37, 1237), (3, 100, 1236))
+
+
+def m_kr_rows_branches(torch, ck, t, rng):
+    """K4's and K5's row-block forms on ``M_KR_BRANCHES``, q = 2, r = 17,
+    os ≠ 1, K5 on a bf16 and on an fp32 K6 block: each against its plain
+    version (``check_kr``) and bitwise on a repeat."""
+    q = 2
+    for d, n1, n2 in M_KR_BRANCHES:
+        x2 = t(rng.standard_normal((n2, d)))
+        x1 = t(rng.standard_normal((n1, d)))
+        ls = t(rng.uniform(0.5, 2.0, (q, 1, d)))
+        os_ = t(rng.uniform(0.5, 2.0, q))
+        A, Bf = (t(rng.standard_normal((q, n, M_R))) for n in (n2, n1))
+        args = (x1, x2, ls, os_, Bf, A)
+        runs = [("K4r", None)] + [
+            (f"K5r {str(dt)[6:]} block", ck.scaled_kernel_stack(
+                x1, x2, ls, os_, KIND, dt, device=x1.device))
+            for dt in (torch.bfloat16, torch.float32)]
+        for label, Ks in runs:
+            if Ks is None:
+                run = lambda: ck.lowrank_stationary_reduce_rows_kr(  # noqa
+                    *args, KIND, device=x1.device)
+                want = ck.lowrank_stationary_reduce_rows_kr_plain(*args,
+                                                                   KIND)
+            else:
+                run = lambda: ck.lowrank_stationary_reduce_rows_krs(  # noqa
+                    *args, Ks, KIND, device=x1.device)
+                want = ck.lowrank_stationary_reduce_rows_krs_plain(
+                    *args, Ks, KIND)
+            got, again = run(), run()
+            shape = f"({q},{n1},{n2}) d={d}"
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"  M {label} row-block form {shape} repeat bitwise "
+                  f"equal: {bitwise}")
+            if not bitwise:
+                raise SystemExit(f"chip_smoke: {label} is not deterministic")
+            check_kr(f"M {label} {shape} r={M_R}", got, want)
+            del got, again, want
+        del runs
+        torch.cuda.empty_cache()
+
+
+def m_k8_block_check(torch, ck, xc, ls, lo, hi, r0, r1):
+    """M8's K8 block, the rank's rows (x[r0:r1], x) padded to the int8
+    product's shape: bitwise those rows of the whole symmetric stack with
+    zero padding, and against its plain version (``check_counts``)."""
+    from projected_lmc_tpu_torch.ops import iterative as it
+    lsl, nl = ls[lo:hi].contiguous(), r1 - r0
+    pad = (it.int8_width(nl), it.int8_width(N))
+    block = ck.quantized_kernel_stack(xc[r0:r1], xc, lsl, KIND, padded_to=pad,
+                                      device=xc.device)
+    whole = ck.quantized_kernel_stack(xc, xc, lsl, KIND,
+                                      padded_to=(it.int8_width(N),) * 2,
+                                      device=xc.device)
+    same = torch.equal(block[:, :nl, :N], whole[:, r0:r1, :N]) and not bool(
+        block[:, nl:].any() or block[..., N:].any())
+    del whole
+    shape = f"({hi - lo},{nl},{N}) padded to {pad}"
+    print(f"  M K8 block {shape} bitwise the rows of the symmetric stack, "
+          f"zero padded: {same}")
+    if not same:
+        raise SystemExit("chip_smoke: the rank's K8 block is not the rows of "
+                         "the symmetric stack")
+    plain = torch.cat([ck.quantized_kernel_stack_plain(
+        xc[r0 + i:min(r0 + i + 1250, r1)], xc, lsl, KIND)
+        for i in range(0, nl, 1250)], 1)
+    check_counts(f"M K8 quantized_kernel_stack {shape}", block[:, :nl, :N],
+                 plain)
+    del block, plain
+    torch.cuda.empty_cache()
 
 
 def m_rows_plain(torch, ck, x1, x2, ls, A, Bf, kind, block=1250):
@@ -5339,14 +5639,18 @@ def blocked_products(torch, data, latent):
     latent) mesh do: each product (``iterative._stack_matmul``, the ICM's
     ``_kernel_product``) as one call a rank's block, of the block's shape
     (cuBLAS picks its order of summation, split-K or not, from the shape),
-    and the ICM's K built a rank's rows at a time (``rows=``), so that
-    K3's backward sums each block apart. A witness of the sharded runs'
-    plumbing: the same arithmetic, no mesh."""
+    and the ICM's K built a rank's rows at a time (``rows=``), and
+    ``ExactGPModel``'s composed stack a rank's block at a time, so that
+    K3's backward (and a Scale kernel's bf16 sum) runs on each block apart.
+    A witness of the sharded runs' plumbing: the same arithmetic, no
+    mesh."""
+    from projected_lmc_tpu_torch.models.exact import ExactGPModel
     from projected_lmc_tpu_torch.models.multitask import MultitaskGPModel
     from projected_lmc_tpu_torch.ops import iterative as it
     from projected_lmc_tpu_torch.parallel.mesh import Mesh
     meshes = [Mesh(data, latent, r) for r in range(data * latent)]
-    own = (it._stack_matmul, it._kernel_product, MultitaskGPModel._block)
+    own = (it._stack_matmul, it._kernel_product, MultitaskGPModel._block,
+           ExactGPModel._block)
 
     def stack_matmul(Ks, W):
         single = W.dim() == 2
@@ -5372,18 +5676,30 @@ def blocked_products(torch, data, latent):
         return torch.cat([self.covar_module(x, x, rows=m.world_range(n), **kw)
                           for m in meshes], -2)
 
+    def exact_block(self, x, rows, **kw):
+        if rows is not None:
+            return own[3](self, x, rows, **kw)
+        n, T = x.shape[0], self.n_funcs
+        return torch.cat([torch.cat([
+            own[3](self, x, m.row_block(n, T), **kw) for m in meshes
+            if m.latent_index == li], -2) for li in range(latent)], 0)
+
     it._stack_matmul, it._kernel_product = stack_matmul, kernel_product
-    MultitaskGPModel._block = block
+    MultitaskGPModel._block, ExactGPModel._block = block, exact_block
     try:
         yield
     finally:
         it._stack_matmul, it._kernel_product = own[:2]
-        MultitaskGPModel._block = own[2]
+        MultitaskGPModel._block, ExactGPModel._block = own[2:]
+
+
+M_NEW = ("M6", "M7", "M8") + tuple(f"M9 {r}" for r in M9_ROUTES) + (
+    "M10 LMC", "M10 ICM", "M11")
 
 
 def m_references(torch, pl, ck, dev, cases):
-    """Path M's unsharded runs on this card (not counted): M1, M2 and M4's
-    steps and M3's serving. The fused cases (M1, M4) run on the full grid
+    """Path M's unsharded runs on this card (not counted): M1, M2, M4 and
+    M6–M11's steps, M12's ``fit`` on a one-rank mesh and M3's serving. The fused cases (M1, M4) run on the full grid
     (``PLMC_SYM_BUILD=0``: K6 and K7), the kernels the sharded op runs on
     its blocks; and on the default route (K1 and K2), for the reading
     :func:`path_m_check` prints. M2 and M4 also with the products of
@@ -5405,12 +5721,37 @@ def m_references(torch, pl, ck, dev, cases):
                                               dev)
             del model
             torch.cuda.empty_cache()
+    # M6–M11: the plain unsharded run; M7 and M11 (a fp32 Jacobi CG and a
+    # bf16 composed stack) also with their products blocked as the ranks',
+    # M8 on the full grid (K7 in the backward, as the ranks' int8 stack),
+    # M9 on a one-rank mesh in this process (the row-block K4 and K5 on the
+    # whole stack), their witnesses
+    from projected_lmc_tpu_torch import parallel
+    for label in M_NEW:
+        case = cases[label]
+        with routed("full") if label == "M8" else contextlib.nullcontext():
+            model, _, refs[label] = m_train(torch, pl, ck, case, dev)
+        del model
+        if label in ("M7", "M11"):
+            with blocked_products(torch, *M_MESH):
+                model, _, refs[label + " witness"] = m_train(
+                    torch, pl, ck, case, dev)
+            del model
+        if label.startswith("M9"):
+            model, _, refs[label + " witness"] = m_train(
+                torch, pl, ck, case, dev, parallel.make_mesh(1))
+            del model
+        torch.cuda.empty_cache()
+    refs["M12"] = m_fit(torch, pl, ck, cases["M1"], dev,
+                        parallel.make_mesh(1))
     refs["M3"] = m_serve(torch, pl, ck, cases, dev)
     print(f"  path M unsharded references on this card: " + ", ".join(
         f"{k} median step {float(np.median(refs[k]['ms'][1:])):.3f} ms, "
-        f"peak {refs[k]['peak_gib']:.2f} GiB" for k in refs if k != "M3")
-        + " (M1 and M4 on the full grid, and on the default route; M2 and "
-        "M4 with their products blocked as the ranks' are)")
+        f"peak {refs[k]['peak_gib']:.2f} GiB" for k in refs
+        if k not in ("M3", "M12"))
+        + " (M1, M4 and M8 on the full grid, M1 and M4 also on the default "
+        "route; M2, M4, M7 and M11 also with their products blocked as the "
+        "ranks' are; M9 also on a one-rank mesh)")
     return refs
 
 
@@ -5428,43 +5769,80 @@ def _m_against(got, want):
 
 M_COUNTS = {"M1": lambda s: expect(K6=s, K7=s, K3=2),
             "M2": lambda s: expect(K3=s + 2),
-            "M4": lambda s: expect(K6=s, K7=s, K3=2 * s)}
+            "M4": lambda s: expect(K6=s, K7=s, K3=2 * s),
+            "M6": lambda s: expect(K3=s),
+            "M7": lambda s: expect(K3=s),
+            "M8": lambda s: expect(K8=s, K7=s, K3=2),
+            "M9 kr": lambda s: expect(K6=s, K4r=s, K3=2),
+            "M9 krs": lambda s: expect(K6=s, K5r=s, K3=2),
+            # K(z, z) and the rank's rows of K(x, z)
+            "M10 LMC": lambda s: expect(K3=2 * s),
+            "M10 ICM": lambda s: expect(K3=2 * s),
+            # each additive group: K(z, z), the rows of K(x, z), the block
+            "M11": lambda s: expect(K3=6 * s)}
+# held bitwise against their witness: the same arithmetic on every rank
+M_BITWISE = ("M1", "M8") + tuple(f"M9 {r}" for r in M9_ROUTES)
+# against the plain run, the later losses' limit where it is not path L's
+# L_STEPS_RTOL: M11's Scale kernels sum their outputscale gradients over the
+# bf16 stack in bf16, so the plain run and the blocked witness (bitwise the
+# sharded run) part by 5.69e-4 in the losses once AdamW has taken those
+# gradients (an H100 80GB HBM3 at 700 W, PERF.md §6); held at the CG
+# estimator's gradient limit
+M_STEPS_RTOL = {"M11": M_CG_GRAD_TOL}
 
 
 def path_m_check(torch, out, refs, cases, totals, note):
-    """Every rank's path M against the unsharded runs: M1, M2 and M4 by
-    ``l_held`` (path L's limits) against one process's same arithmetic (M1
-    the unsharded run on the full grid; M2 and M4 its run with the
-    products blocked as the ranks', :func:`blocked_products`), M2 and M4
-    also against the plain unsharded run at the CG estimator's fp32
-    limits (first loss 1e-5, gradients ``M_CG_GRAD_TOL``, losses 1e-4);
-    their launch counts; M3's predictions at path G's limits, the dense
-    ICM MLL at path L's first-step limits."""
-    for label in ("M1", "M2", "M4"):
-        want = refs.get(label + " blocked", refs[label])
+    """Every rank's path M against the unsharded runs: each case by
+    ``l_held`` (path L's limits) against one process's same arithmetic, its
+    witness (M1 and M8 the unsharded run on the full grid; M2, M4, M7 and
+    M11 the run with its products blocked as the ranks'; M9 the run on a
+    one-rank mesh; M6 and M10 the plain run), M1, M8 and M9 also bitwise in
+    every loss and the first step's leaves; the cases with another witness
+    also against the plain unsharded run at the CG estimator's fp32 limits
+    (first loss 1e-5, gradients ``M_CG_GRAD_TOL``, losses 1e-4, M11's
+    ``M_STEPS_RTOL``); their
+    launch counts; M12's ``fit`` bitwise against ``sharded_fit_step`` and
+    every rank's leaves equal; M3's, M6's and M10's predictions at path G's
+    limits, the dense ICM MLL at path L's first-step limits."""
+    from projected_lmc_tpu_torch.module import jax_key
+    for label in ("M1", "M2", "M4") + M_NEW:
+        want = refs.get(label + " witness",
+                        refs.get(label + " blocked", refs[label]))
         if want is not refs[label]:
             rel, grad, worst = _m_against(want, refs[label])
-            print(f"  {label} unsharded, its products blocked as the ranks' "
-                  f"against as they are (the estimator's own sensitivity to "
-                  f"the order of summation; a reading): first loss rel "
-                  f"{rel:.2e}, worst gradient {grad:.2e} of its largest "
-                  f"entry, losses worst rel {worst:.2e}")
+            print(f"  {label} unsharded, its witness against the plain run "
+                  f"(the estimator's own sensitivity to the order of "
+                  f"summation; a reading): first loss rel {rel:.2e}, worst "
+                  f"gradient {grad:.2e} of its largest entry, losses worst "
+                  f"rel {worst:.2e}")
         steps = cases[label]["steps"]
-        start = {k: cases[label]["arrays"]["." + k] for k in want["params"]}
-        for layout in (M1_MESHES if label == "M1" else (M_MESH,)):
+        start = {k: cases[label]["arrays"][jax_key(k)]
+                 for k in want["params"]}
+        for layout in m_layouts(label, cases):
             for r, o in enumerate(out):
                 got = o["M"][(label, layout)]
                 l_held(f"{label} rank {r} mesh {got['mesh']}", got, want,
                        start)
+                if label in M_BITWISE:
+                    same = got["losses"] == want["losses"] and all(
+                        np.array_equal(got["params"][k], v)
+                        for k, v in want["params"].items())
+                    print(f"  {label} rank {r} mesh {got['mesh']} bitwise its "
+                          f"witness in every loss and the first step's "
+                          f"leaves: {same}")
+                    if not same:
+                        raise SystemExit(f"chip_smoke: {label} rank {r} is "
+                                         f"not bitwise its witness")
                 if want is not refs[label]:
                     rel, grad, worst = _m_against(got, refs[label])
+                    steps_tol = M_STEPS_RTOL.get(label, L_STEPS_RTOL)
                     print(f"  {label} rank {r} against the plain unsharded "
                           f"run: first loss rel {rel:.2e} ({L_LOSS_RTOL:.0e}),"
                           f" worst gradient {grad:.2e} of its largest entry "
                           f"({M_CG_GRAD_TOL:.0e}), losses worst rel "
-                          f"{worst:.2e} ({L_STEPS_RTOL:.0e})")
+                          f"{worst:.2e} ({steps_tol:.0e})")
                     if not (rel <= L_LOSS_RTOL and grad <= M_CG_GRAD_TOL
-                            and worst <= L_STEPS_RTOL):
+                            and worst <= steps_tol):
                         raise SystemExit(f"chip_smoke: {label} rank {r} "
                                          f"disagrees with the plain "
                                          f"unsharded run")
@@ -5496,10 +5874,11 @@ def path_m_check(torch, out, refs, cases, totals, note):
                   f"timed: " + " / ".join(
                       f"{g['sum_ms']:.1f} of {g['sum_step_ms']:.1f} ms in "
                       f"{g['sums']} sums" for g in runs))
+    m12_check(out, refs["M12"], totals)
     want = refs["M3"]
     for r, o in enumerate(out):
         got = o["M"]["M3"]
-        for name in ("lmc_iter", "icm_iter", "icm"):
+        for name, _, _ in M_SERVED:
             g, w = got[name], want[name]
             mtol = 1e-3 if name.endswith("_iter") else 1e-4
             errs = [float(np.abs(g["mean"] - w["mean"]).max()
@@ -5508,7 +5887,7 @@ def path_m_check(torch, out, refs, cases, totals, note):
             if "compute_var" in w:
                 errs.append(float(np.abs(g["compute_var"] - w["compute_var"])
                                   .max() / w["prior_var"]))
-            bad = (g["kind"] != name or errs[0] > mtol
+            bad = (g["kind"] != name.split()[0] or errs[0] > mtol
                    or max(errs[1:]) > 1e-3
                    or any(v for k, v in g["counts"].items() if k != "K3")
                    or g["counts"]["K3"] < 1)
@@ -5537,7 +5916,52 @@ def path_m_check(torch, out, refs, cases, totals, note):
         totals["K3"] += 1
 
 
+M12_COUNTS = expect(K6=M12_STEPS, K7=M12_STEPS, K3=2)
+
+
+def m12_check(out, one_rank, totals):
+    """M12 on every rank: ``fit`` on the sharded model bitwise
+    ``sharded_fit_step`` (every loss and every leaf), every rank's leaves
+    bitwise rank 0's, the launch counts of each run; beside the one-rank
+    mesh's ``fit`` in this process (a reading)."""
+    lead = out[0]["M"]["M12"]["fit"]["leaves"]
+    for r, o in enumerate(out):
+        fit, step = o["M"]["M12"]["fit"], o["M"]["M12"]["step"]
+        same = fit["losses"] == step["losses"] and all(
+            np.array_equal(v, step["leaves"][k])
+            for k, v in fit["leaves"].items())
+        ranks = all(np.array_equal(v, lead[k])
+                    for k, v in fit["leaves"].items())
+        gap = max(float(np.abs(v - one_rank["fit"]["leaves"][k]).max()
+                        / max(np.abs(one_rank["fit"]["leaves"][k]).max(),
+                              1e-30))
+                  for k, v in fit["leaves"].items() if v.size)
+        print(f"  M12 rank {r}: fit ({M12_STEPS} steps, one chunk, "
+              f"{fit['seconds']:.1f} s) bitwise sharded_fit_step "
+              f"({step['seconds']:.1f} s) in every loss and leaf: {same}; "
+              f"its leaves bitwise rank 0's: {ranks}; losses "
+              f"{np.round(fit['losses'], 6).tolist()}; against the one-rank "
+              f"mesh's fit (a reading) worst leaf {gap:.2e} of its largest "
+              f"entry")
+        for run in (fit, step):
+            if run["counts"] != M12_COUNTS:
+                raise SystemExit(f"chip_smoke: M12 rank {r} launched "
+                                 f"{run['counts']}, not {M12_COUNTS}")
+            for k, v in run["counts"].items():
+                totals[k] += v
+        if not (same and ranks):
+            raise SystemExit("chip_smoke: fit on a sharded model is not "
+                             "sharded_fit_step's run on every rank")
+
+
 def main() -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--only", choices=("M",),
+        help="build the kernels and run path M alone (its kernel checks, "
+             "references and spawn); prints no kernels line or result line")
+    only = parser.parse_args().only
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5576,6 +6000,12 @@ def main() -> int:
     print(f"  bf16 stack product with fp32 result via "
           f"{'torch.bmm(out_dtype=float32)' if it._BMM_OUT_DTYPE else 'per-latent fp32 up-cast'}")
 
+    if only == "M":
+        print("path M alone: the LMC and ICM families under the mesh")
+        path_m_phase(torch, pl, ck, dev, {k: 0 for k in wrappers(ck)})
+        print(f"chip_smoke: path M passed in "
+              f"{time.perf_counter() - start:.1f} s")
+        return 0
     print("phase 2: kernels against their plain versions")
     rows = kernel_phase(torch, ck, dev)
     print("phase 3: fused MLL, card with kernels vs CPU with plain versions, "
@@ -5644,7 +6074,8 @@ def main() -> int:
           f"({L_STEPS} sharded steps each against unsharded ones), L4 "
           f"dryrun_multichip, a one-rank NCCL group and the DCP checkpoint; "
           f"path M (the LMC and ICM families) in the same spawn")
-    k7_rows = path_l_phase(torch, pl, ck, dev, totals)
+    m_rows = path_l_phase(torch, pl, ck, dev, totals)
+    k7_rows = m_rows.pop("K7r")
 
     meta = [("K1", "scaled_kernel_stack_sym",
              "projected_lmc_tpu/ops/pallas_kernels.py:278"),
@@ -5661,7 +6092,12 @@ def main() -> int:
             ("K7", "lowrank_stationary_reduce",
              "projected_lmc_tpu/ops/pallas_kernels.py:364"),
             ("K8", "quantized_kernel_stack",
-             "projected_lmc_tpu/ops/pallas_kernels.py:190")]
+             "projected_lmc_tpu/ops/pallas_kernels.py:190"),
+            ("K4r", "lowrank_stationary_reduce_rows_kr",
+             "projected_lmc_tpu/ops/pallas_kernels.py:630"),
+            ("K5r", "lowrank_stationary_reduce_rows_krs",
+             "projected_lmc_tpu/ops/pallas_kernels.py:798")]
+    rows.update(m_rows)
     kernels = []
     for key, name, replaces in meta:
         row = rows[key]

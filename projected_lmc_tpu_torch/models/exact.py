@@ -27,7 +27,10 @@ the data group before the m×m Cholesky. The iterative route is the fused
 op with H = I, the T functions its latents: the rank builds its functions'
 rows over the data axis (K6) and runs the row-sharded PCG
 (``ops/fused_mll``); its composed route (a kernel the fused op does not
-take) is ROADMAP A 15 under a mesh and raises. ``log_marginal``, ``mll``
+take) takes the rank's block of the covariance module's stack (K3
+``rows=``, its functions restricted by ``module.latent_slice``) into the
+row-sharded PCG of ``iterative.lmc_pcg_log_prob``, as
+``MultitaskGPModel``'s composed route does. ``log_marginal``, ``mll``
 and ``compute_loo`` return the whole batch on every rank; the cache of
 ``precompute_posterior`` and ``posterior`` hold the rank's latents.
 """
@@ -105,12 +108,14 @@ def inducing_factor(covar_module, z, agree=None):
         Kzz.shape[-1], dtype=Kzz.dtype, device=Kzz.device), agree=agree)
 
 
-def nystrom_roots(covar_module, z, x, agree=None):
+def nystrom_roots(covar_module, z, x, agree=None, rows=None):
     """R = K_xz L_zz⁻ᵀ, (k, n, m): the Nyström factors of gpytorch's
     InducingPointKernel at inducing points z, one set per kernel of the
-    batch; K(z, z) and K(x, z) are kernel K3 on the card."""
+    batch; K(z, z) and K(x, z) are kernel K3 on the card. ``rows`` =
+    (r0, r1): the roots of x's rows r0..r1 − 1 alone (K3's rows)."""
     Lzz = inducing_factor(covar_module, z, agree)
-    return solve_triangular(Lzz, covar_module(x, z).transpose(-1, -2),
+    kw = {} if rows is None else dict(rows=rows)
+    return solve_triangular(Lzz, covar_module(x, z, **kw).transpose(-1, -2),
                             lower=True).transpose(-1, -2)
 
 
@@ -350,13 +355,7 @@ class ExactGPModel(Module):
         if precond_rank <= 0:
             precond_rank = min(256, n)
         spec = _fused_stationary_spec(self.covar_module, self.dim)
-        rows = None
-        if self.mesh is not None:
-            if spec is None:
-                raise NotImplementedError(
-                    "ExactGPModel's composed iterative MLL under a mesh is "
-                    "ROADMAP A 15")
-            rows = self.mesh.row_block(n, T)
+        rows = None if self.mesh is None else self.mesh.row_block(n, T)
         with torch.no_grad():
             roots = self._precond_roots(x_, precond_rank, rows=rows)
         m_rank = int(roots.shape[-1])
@@ -368,12 +367,13 @@ class ExactGPModel(Module):
             eps = torch.randn((num_probes, n, T), **draw)
             xi = torch.randn((num_probes, T, m_rank), **draw)
         if spec is None:
-            # the composed route: the task kernels' materialized stack
-            Ks = self.covar_module(
-                x_, out_dtype=torch.bfloat16 if matvec_bf16 else None)
+            # the composed route: the task kernels' materialized stack, or
+            # under the mesh the rank's block of it (its functions' rows)
+            Ks = self._block(
+                x_, rows, out_dtype=torch.bfloat16 if matvec_bf16 else None)
             ll = it_ops.lmc_pcg_log_prob(Ks, H, St, Ydelta, eps, xi, roots,
                                          max_cg_iters, cg_tol, matvec_bf16,
-                                         m_rank)
+                                         m_rank, rows=rows)
         else:
             kind, ls, os_ = spec
             ll = fused_mll.lmc_pcg_log_prob_stationary(
@@ -536,6 +536,16 @@ class ExactGPModel(Module):
         if self.n_funcs > 1:
             return sigma2.T.detach(), yminusmu.T.detach()
         return sigma2.T, yminusmu.T
+
+    def _block(self, x, rows, **kw):
+        """The task kernels' stack K(x, x) (T, n, n), or under the mesh the
+        rank's block K(x[r0:r1], x) of its functions (K3 ``rows=``, the
+        covariance module restricted by ``module.latent_slice``), bitwise
+        those rows of the whole."""
+        if rows is None:
+            return self.covar_module(x, **kw)
+        return latent_slice(self.covar_module, rows.lo, rows.hi,
+                            self.n_funcs)(x, x, rows=(rows.r0, rows.r1), **kw)
 
     def _precond_roots(self, x, rank: int, jitter: float = 1e-4, rows=None):
         """Nyström roots of the batched task kernels at strided landmarks

@@ -32,21 +32,30 @@ chol(B), sharing one root set. Its cache ("sgpr") is the (q·m)²
 capacitance, its posterior ``woodbury.lmc_sgpr_posterior``.
 
 Under a mesh (``parallel.shard_model``) every rank holds every leaf and
-returns the whole value, by ``parallel.sharded``'s rule. The LMC's rank
-builds its block of the stack, its latents' rows over the data axis (K6 in
-the fused op, the covariance module's K3 on the composed route and in the
-"lmc_iter" cache), and runs the row-sharded PCG of ``ops/iterative``; the
-roots come from its rows of K(x, z) and one gather. The ICM's one kernel
-splits its rows over every rank on the matrix-free route and in
+returns the whole value, by ``parallel.sharded``'s rule; every route runs.
+The LMC's rank builds its block of the stack, its latents' rows over the
+data axis (K6, or K8 for an int8 stack, in the fused op; the covariance
+module's K3 on the composed and SLQ routes and in the "lmc_iter" cache),
+and runs the row-sharded solvers of ``ops/iterative``: PCG, or CG + SLQ
+with the Jacobi diagonal gathered whole and the Lanczos basis replicated;
+an int8 loop quantises its block by the world max of each latent's
+absmax. The roots come from its rows of K(x, z) and one gather. The ICM's
+one kernel splits its rows over every rank on the matrix-free route and in
 "icm_iter"; its dense MLL splits the t Cholesky blocks over the ranks and
 keeps K whole, and its "icm" cache (the n×n eigh) is computed whole on
-every rank. ``posterior`` and ``compute_var`` split the test points over
-the ranks (each rank's K3 cross-covariance rows) and gather the mean and
-variance, so that every rank returns the whole (n*, T). ``compute_loo``,
-``kernel_cond`` and the prior (``forward``) are computed whole on every
-rank. The dense Woodbury LMC (its MLL and "lmc" cache, q·n ≤
-``DENSE_QN_MAX``), the SLQ route, the int8 loop and both SGPR routes are
-ROADMAP A 15 under a mesh and raise ``NotImplementedError``.
+every rank. The dense Woodbury LMC (its MLL and "lmc" cache, q·n ≤
+``DENSE_QN_MAX``) is small by definition and computed whole on every rank.
+Both SGPR routes split the training rows over every rank (the LMC's
+capacitance couples the latents, so not over the latent axis): a rank's
+roots for every latent from its rows of K(x, z), their partial sums (the
+capacitance Gram, the roots' products with u, Σ Y·W and the Titsias
+traces) in one differentiable world sum, then the (q·m)² capacitance,
+its Cholesky and the Titsias term replicated; the "sgpr" cache gathers α
+and the roots' product with αH whole. ``posterior`` and ``compute_var``
+split the test points over the ranks (each rank's K3 cross-covariance
+rows) and gather the mean and variance, so that every rank returns the
+whole (n*, T). ``compute_loo``, ``kernel_cond`` and the prior
+(``forward``) are computed whole on every rank.
 """
 
 from __future__ import annotations
@@ -69,7 +78,8 @@ from ..ops import woodbury as wb_ops
 from ..ops.cholesky import cho_solve, safe_cholesky, solve_triangular
 from ..ops.init_ops import init_lmc_coefficients
 from ..utils.device import resolve_device
-from .exact import _as_inputs, _canon_targets, _np, _resolve, nystrom_roots
+from .exact import (_as_inputs, _canon_targets, _np, _resolve,
+                    nystrom_roots)
 
 
 def _fused_stationary_spec(cov, dim):
@@ -199,11 +209,6 @@ class MultitaskGPModel(Module):
             self.covar_module, rows.lo, rows.hi, self.n_latents)
         return cm(x, x, rows=(rows.r0, rows.r1), **kw)
 
-    def _refuse_mesh(self, route: str):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"MultitaskGPModel's {route} under a mesh is ROADMAP A 15")
-
     @property
     def icm(self) -> bool:
         return self.model_type == "ICM"
@@ -212,33 +217,66 @@ class MultitaskGPModel(Module):
     def sgpr(self) -> bool:
         return self.inducing_points is not None
 
-    def _nystrom_roots(self, x):
-        """R_b = K_xz L_zz⁻ᵀ, (n_kernels, n, m)."""
-        return nystrom_roots(self.covar_module, self.inducing_points, x)
+    def _nystrom_roots(self, x, rows=None):
+        """R_b = K_xz L_zz⁻ᵀ, (n_kernels, n, m), or x's rows r0..r1 − 1
+        alone for ``rows`` = (r0, r1)."""
+        return nystrom_roots(self.covar_module, self.inducing_points, x,
+                             rows=rows)
 
-    def _sgpr_structure(self, x):
-        """(roots, H, Σt, titsias) of the low-rank Woodbury MLL.
+    def _sgpr_mixing(self, roots):
+        """(roots, H, Σt) of the low-rank Woodbury form. ICM: Q ⊗ B = Σ_b Q ⊗
+        s_b s_bᵀ with s_b the columns of chol(B + 1e-10·I), so T
+        pseudo-latents share the one root set, broadcast to (T, n, m). LMC:
+        the latents' roots with H (T, q) and the task noise with the
+        per-latent diagonals (:meth:`_mixing`)."""
+        if not self.icm:
+            return (roots,) + self._mixing()
+        B = self.task_covar_matrix()
+        eye = torch.eye(self.n_tasks, dtype=B.dtype, device=B.device)
+        return (roots[0].expand((self.n_tasks,) + roots.shape[1:]),
+                safe_cholesky(B + 1e-10 * eye),
+                self.likelihood.task_covariance())
 
-        ICM: Q ⊗ B = Σ_b Q ⊗ s_b s_bᵀ with s_b the columns of chol(B +
-        1e-10·I), so T pseudo-latents share one root set, and the Titsias
-        term −½ Σᵢ (Kᵢᵢ − Qᵢᵢ)·tr(Σt⁻¹B). LMC: the latents' roots with
-        H (T, q), the task noise with the per-latent diagonals, and the
-        term per latent with h_bᵀ Σt⁻¹ h_b — the multitask analog of
-        gpytorch's InducingPointKernelAddedLossTerm."""
-        roots = self._nystrom_roots(x)                          # (k, n, m)
-        gap = self.covar_module(x, diag=True) - (roots * roots).sum(-1)
+    def _sgpr_structure(self, x, y):
+        """The low-rank Woodbury MLL's pieces over x's rows r0..r1 − 1:
+        every row without a mesh, the rank's rows over every rank under one
+        (``mesh.world_range``; the LMC's capacitance couples the latents, so
+        not over the latent axis).
+
+        The rows' roots R_b for every kernel (K3's rows of K(x, z), the L_zz
+        solve) give the sums over the rows — the capacitance Gram
+        (``woodbury.lmc_gram``), s = Σ_b R_bᵀ u_b and Σ Y·W
+        (``woodbury.lmc_sums``), the Titsias traces Σ clip(k_ii − q_ii, 0) —
+        packed into one differentiable world sum under the mesh. The
+        Titsias term is −½ Σᵢ (Kᵢᵢ − Qᵢᵢ)·tr(Σt⁻¹B) for the ICM, per latent
+        with h_bᵀ Σt⁻¹ h_b for the LMC — the multitask analog of gpytorch's
+        InducingPointKernelAddedLossTerm.
+
+        Returns a dict: ``fac``, the Woodbury factors of all n rows
+        (``woodbury.lmc_factors_from_roots`` on the summed Gram; its L_G the
+        rows' roots); ``sums`` (s, Σ Y·W) of all n rows; ``titsias``; Σt
+        (``St``); the rows' ``Yd`` = Y − m and ``rows`` (r0, r1)."""
+        n = x.shape[0]
+        r0, r1 = (0, n) if self.mesh is None else self.mesh.world_range(n)
+        roots = self._nystrom_roots(
+            x, None if self.mesh is None else (r0, r1))         # (k, n_l, m)
+        gap = self.covar_module(x[r0:r1], diag=True) - (roots * roots).sum(-1)
         traces = torch.clamp(gap, min=0.0).sum(-1)              # (k,)
-        St = self.likelihood.task_covariance()
-        if self.icm:
-            B = self.task_covar_matrix()
-            eye = torch.eye(self.n_tasks, dtype=B.dtype, device=B.device)
-            S_B = safe_cholesky(B + 1e-10 * eye)
-            V = solve_triangular(safe_cholesky(St), S_B, lower=True)
-            return (roots[0].expand((self.n_tasks,) + roots.shape[1:]), S_B,
-                    St, -0.5 * traces[0] * (V * V).sum())
-        H, St_eff = self._mixing()
-        V = solve_triangular(safe_cholesky(St_eff), H, lower=True)  # (T, q)
-        return roots, H, St_eff, -0.5 * (traces * (V * V).sum(0)).sum()
+        Yd = y.T[r0:r1] - self.mean_module(x[r0:r1]).T          # (n_l, T)
+        roots, H, St = self._sgpr_mixing(roots)
+        _, s, yw = wb_ops.lmc_sums(Yd, roots, H, safe_cholesky(St))
+        parts = [wb_ops.lmc_gram(roots).reshape(-1), s.reshape(-1),
+                 yw[None], traces]
+        total = torch.cat(parts)
+        if self.mesh is not None:
+            total = self.mesh.world_sum(total)
+        P, s, yw, traces = total.split([p.numel() for p in parts])
+        fac = wb_ops.lmc_factors_from_roots(roots, H, St, gram=P, n=n)
+        V = solve_triangular(fac["Rt"], H, lower=True)
+        titsias = -0.5 * (traces[0] * (V * V).sum() if self.icm
+                          else (traces * (V * V).sum(0)).sum())
+        return dict(fac=fac, sums=(s.reshape(fac["q"], fac["r"]), yw[0]),
+                    titsias=titsias, St=St, Yd=Yd, rows=(r0, r1))
 
     def task_covar_matrix(self):
         """ICM: B = F Fᵀ + diag(softplus(raw_var)), (T, T). LMC: per-latent
@@ -332,11 +370,10 @@ class MultitaskGPModel(Module):
         n = x.shape[0]
         Ydelta = y.T - self.mean_module(x).T                    # (n, T)
         if self.sgpr:
-            self._refuse_mesh("SGPR MLL")
-            roots, H, St, titsias = self._sgpr_structure(x)
-            fac = wb_ops.lmc_factors_from_roots(roots, H, St)
-            ll = wb_ops.lmc_log_prob(None, H, St, Ydelta, fac=fac) + titsias
-            return (ll + self.covar_module.prior_log_prob()) \
+            sg = self._sgpr_structure(x, y)
+            ll = wb_ops.lmc_log_prob(None, sg["fac"]["H"], sg["St"], None,
+                                     fac=sg["fac"], sums=sg["sums"])
+            return (ll + sg["titsias"] + self.covar_module.prior_log_prob()) \
                 / (n * self.n_tasks)
         if self.icm:
             ll = self._icm_log_prob(
@@ -348,23 +385,23 @@ class MultitaskGPModel(Module):
         if iterative is None:
             iterative = self.n_latents * n > self.DENSE_QN_MAX
         if not iterative:
-            self._refuse_mesh("dense Woodbury MLL (q·n ≤ DENSE_QN_MAX)")
+            # small by definition (q·n ≤ DENSE_QN_MAX): whole on every rank
             ll = wb_ops.lmc_log_prob(self.covar_module(x), H, St, Ydelta)
             return (ll + self.covar_module.prior_log_prob()) \
                 / (n * self.n_tasks)
         if precond_rank <= 0 or quad_method != "pcg":
-            self._refuse_mesh("CG + SLQ MLL (precond_rank ≤ 0 or "
-                              "quad_method='slq')")
-            # CG + SLQ on Rademacher probes over the materialized stack, the
-            # preconditioner (precond_rank > 0) from the stack's columns
+            # CG + SLQ on Rademacher probes over the materialized stack (the
+            # rank's block under the mesh), the preconditioner
+            # (precond_rank > 0) from the stack's columns
             if probes is None:
                 if generator is None:
                     generator = torch.Generator(device=x.device).manual_seed(0)
                 probes = it_ops.draw_probes(generator, n, self.n_tasks,
                                             num_probes, Ydelta.dtype)
+            rows = self._rows(n)
             ll = it_ops.lmc_iterative_log_prob(
-                self.covar_module(x), H, St, Ydelta, probes, max_cg_iters,
-                cg_tol, slq_steps, matvec_bf16, precond_rank)
+                self._block(x, rows), H, St, Ydelta, probes, max_cg_iters,
+                cg_tol, slq_steps, matvec_bf16, precond_rank, rows=rows)
             return (ll + self.covar_module.prior_log_prob()) \
                 / (n * self.n_tasks)
         eps, xi = self._draw_probes(n, Ydelta.dtype, x.device, eps, xi,
@@ -464,20 +501,16 @@ class MultitaskGPModel(Module):
         λmax(B) from power iteration started at ``v0`` (n, 1), or at a draw
         from ``generator``.
 
-        SGPR (both types): the Woodbury factors of the low-rank roots and α
-        ("sgpr").
+        SGPR (both types): the Woodbury factors of the low-rank roots
+        without the roots themselves, α and u_b = R_bᵀ(α h_b) ("sgpr").
 
         Under a mesh: "lmc_iter" and "icm_iter" on the rank's row block
         (the PCG and the power iteration row-sharded, their start vector
-        rank 0's draw), "icm" whole on every rank; the cache is whole and
-        the same on every rank."""
+        rank 0's draw), "lmc" and "icm" whole on every rank, "sgpr" on the
+        rank's rows over every rank (α and u gathered whole); the cache is
+        whole and the same on every rank."""
         if self.sgpr:
-            self._refuse_mesh("\"sgpr\" cache")
-            roots, H, St, _ = self._sgpr_structure(self.train_x)
-            fac = wb_ops.lmc_factors_from_roots(roots, H, St)
-            return dict(kind="sgpr", fac=fac,
-                        alpha=wb_ops.lmc_solve(self._train_delta(), fac),
-                        H=H, Sigma_t=St)
+            return self._sgpr_cache()
         if self.icm:
             return self._icm_posterior_cache(iterative, max_cg_iters, cg_tol,
                                              precond_rank, v0, generator)
@@ -488,8 +521,6 @@ class MultitaskGPModel(Module):
         if iterative is None:
             iterative = self.n_latents * n > self.DENSE_QN_MAX
         if not iterative:
-            self._refuse_mesh("dense Woodbury \"lmc\" cache (q·n ≤ "
-                              "DENSE_QN_MAX)")
             fac = wb_ops.lmc_factors(self.covar_module(x), H, St)
             return dict(kind="lmc", fac=fac, alpha=wb_ops.lmc_solve(Ydelta, fac),
                         H=H, Sigma_t=St)
@@ -506,6 +537,29 @@ class MultitaskGPModel(Module):
         eye = torch.eye(self.n_tasks, dtype=St.dtype, device=St.device)
         fac_up = wb_ops.lmc_factors_from_roots(roots, H, St + c * eye)
         return dict(kind="lmc_iter", alpha=alpha, H=H, Sigma_t=St, fac=fac_up)
+
+    def _sgpr_cache(self):
+        """The "sgpr" cache: the factors of :meth:`_sgpr_structure`, α =
+        Σ⁻¹ vec(Y − m) (``woodbury.lmc_solve`` on the summed s) and u_b =
+        R_bᵀ(α h_b) for its rows; under the mesh α gathered whole and u
+        summed over every rank in one call. Its fac keeps no roots (L_G),
+        whose rows would be the rank's alone: the posterior reads u."""
+        x = self.train_x
+        n, T = x.shape[0], self.n_tasks
+        sg = self._sgpr_structure(x, self.train_y)
+        fac = dict(sg["fac"])
+        roots = fac.pop("L_G")
+        alpha = wb_ops.lmc_solve(sg["Yd"], sg["fac"], s=sg["sums"][0])
+        u = torch.einsum("bnk,nb->bk", roots, alpha @ fac["H"])
+        if self.mesh is not None:
+            r0, r1 = sg["rows"]
+            buf = alpha.new_zeros(n * T + u.numel())
+            buf[r0 * T:r1 * T] = alpha.reshape(-1)
+            buf[n * T:] = u.reshape(-1)
+            buf = self.mesh.world_sum(buf)
+            alpha, u = buf[:n * T].reshape(n, T), buf[n * T:].reshape(u.shape)
+        return dict(kind="sgpr", fac=fac, alpha=alpha, u=u, H=fac["H"],
+                    Sigma_t=sg["St"])
 
     def _icm_posterior_cache(self, iterative, max_cg_iters, cg_tol,
                              precond_rank, v0, generator):
@@ -551,14 +605,13 @@ class MultitaskGPModel(Module):
         if cache is None:
             cache = self.precompute_posterior()
         x_star = _as_inputs(x_star, self.train_x)
-        if cache["kind"] == "sgpr":
-            self._refuse_mesh("SGPR posterior")
-            return self._sgpr_posterior(x_star, cache, observed)
+        parts = self._sgpr_posterior if cache["kind"] == "sgpr" \
+            else self._posterior_parts
         if self.mesh is None:
-            return _MeanVarMT(*self._posterior_parts(x_star, cache, observed))
+            return _MeanVarMT(*parts(x_star, cache, observed))
         ns, T = x_star.shape[0], self.n_tasks
         s0, s1 = self.mesh.world_range(ns)
-        both = self.mesh.gather_world(torch.cat(self._posterior_parts(
+        both = self.mesh.gather_world(torch.cat(parts(
             x_star, cache, observed, (s0, s1)), -1), s0, s1, ns)
         return _MeanVarMT(both[:, :T], both[:, T:])
 
@@ -591,18 +644,22 @@ class MultitaskGPModel(Module):
             noise=observed)
         return mean, var
 
-    def _sgpr_posterior(self, x_star, cache, observed):
-        roots = self._nystrom_roots(x_star)                     # (k, n*, m)
+    def _sgpr_posterior(self, x_star, cache, observed, rows=None):
+        """(mean, variance diagonal) of the "sgpr" cache at x_star, or at
+        its rows r0..r1 − 1 alone for ``rows`` (K3's rows of K(x*, z))."""
+        roots = self._nystrom_roots(x_star, rows)               # (k, n*, m)
+        if rows is not None:
+            x_star = x_star[rows[0]:rows[1]]
         kss = self.covar_module(x_star, diag=True) \
             if self.sgpr_titsias_var else None                  # (k, n*)
         if self.icm:
             roots = roots[0].expand((self.n_tasks,) + roots.shape[1:])
             if kss is not None:
                 kss = kss[0].expand(self.n_tasks, kss.shape[-1])
-        mean, var = wb_ops.lmc_sgpr_posterior(
+        return wb_ops.lmc_sgpr_posterior(
             roots, cache["fac"], cache["alpha"],
-            self.mean_module(x_star).T, noise=observed, kss_star=kss)
-        return _MeanVarMT(mean, var)
+            self.mean_module(x_star).T, noise=observed, kss_star=kss,
+            u=cache["u"])
 
     def compute_var(self, x_star):
         """The ICM's posterior variance with noise (projected_lmc.py:591-640,
@@ -625,7 +682,8 @@ class MultitaskGPModel(Module):
         Nyström one): (σ², y − μ), both (n, T), detached."""
         n = self.train_x.shape[0]
         if self.sgpr:
-            roots, H, St, _ = self._sgpr_structure(self.train_x)
+            roots, H, St = self._sgpr_mixing(
+                self._nystrom_roots(self.train_x))
             dense = SumKronRank1Cov(roots @ roots.transpose(-1, -2), H,
                                     St).dense()
         else:

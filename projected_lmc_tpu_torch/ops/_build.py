@@ -75,6 +75,9 @@ def library() -> ctypes.CDLL:
         "plmc_quantized_stack": [P] * 4 + [I] * 8 + [P],
         "plmc_lowrank_reduce": [P] * 8 + [I] * 5 + [P],
         "plmc_lowrank_reduce_rows": [P] * 10 + [I] * 6 + [P],
+        "plmc_lowrank_reduce_rows_kr": [P] * 12 + [I] * 6 + [P],
+        "plmc_lowrank_reduce_rows_krs": [P] * 13 + [I] * 7 + [P],
+        "plmc_kr_rows_runs": [I],
         "plmc_reduce_runs": [I],
         "plmc_max_features": [],
         "plmc_reduce_width": [I, I],

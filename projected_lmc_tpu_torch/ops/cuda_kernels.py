@@ -1,7 +1,9 @@
 """The fused MLL's hand-written CUDA kernels and their plain PyTorch versions.
 
 Port of ``projected_lmc_tpu/ops/pallas_kernels.py``: one kernel for each of
-its eight TPU kernels (K1–K8). The CUDA sources are in
+its eight TPU kernels (K1–K8), and for K4, K5 and K7 a row-block form
+that takes a rank's rows of the pair grid under a mesh (where XLA
+partitions the TPU kernel's call). The CUDA sources are in
 ``csrc/stationary.cu`` (built by ``ops/_build.py`` on first use).
 
 Each wrapper takes a ``device`` argument (default ``"cuda"``) and requires its
@@ -312,14 +314,15 @@ def lowrank_stationary_reduce_sym_kr_plain(x, lengthscale, outputscale, A, Bf,
     return W.sum(-1), torch.matmul(W, x), torch.matmul(K, A)
 
 
-def _dprofile_from_stack(kind: str, x, lengthscale, outputscale, Kf):
+def _dprofile_from_stack(kind: str, x, lengthscale, outputscale, Kf, x2=None):
     """g′(d²) recovered from the os-scaled stack values Kf = os_b·g by the
     rational identity of ``pallas_kernels._lowrank_vjp_tile_sym_krs``, no
-    exp: it carries the stack's own rounding."""
+    exp: it carries the stack's own rounding. ``x2``: the columns' points
+    of a (q, n1, n2) block (x itself when None)."""
     inv_os = (1.0 / outputscale)[:, None, None]
     if kind == "rbf":
         return -0.5 * inv_os * Kf
-    d2 = _sqdist_scaled(x, x, lengthscale)
+    d2 = _sqdist_scaled(x, x if x2 is None else x2, lengthscale)
     r = torch.sqrt(torch.clamp(d2, min=1e-30))
     if kind == "matern05":
         return torch.where(d2 <= 1e-12, torch.zeros_like(d2),
@@ -451,6 +454,150 @@ def lowrank_stationary_reduce_sym_krs(x, lengthscale, outputscale, A, Bf, Ks,
 
 
 lowrank_stationary_reduce_sym_krs.launches = 0
+
+
+# -- K4, K5: their row-block forms (a rank's rows under a mesh) ---------------
+
+def lowrank_stationary_reduce_rows_kr_plain(x1, x2, lengthscale, outputscale,
+                                            Bf, A, kind: str):
+    """(rows (q, n1), wx (q, n1, d), KA (q, n1, r)) over rows x1 with the
+    row factor Bf (q, n1, r) against columns x2 with the column factor A
+    (q, n2, r): W_b = (Bf_b A_bᵀ) ⊙ g′(d²(x1, x2)_b), its row sums and
+    W x2, and KA_b = (os_b · K_b(x1, x2)) A_b. For a symmetric A Bfᵀ (the
+    fused MLL's) and x1 = x[lo:hi], these are rows lo..hi − 1 of the square
+    plain version's (rows, wx, KA) on x with A and Bf."""
+    d2 = _sqdist_scaled(x1, x2, lengthscale)
+    W = torch.matmul(Bf, A.transpose(-1, -2)) * dprofile(kind, d2)
+    K = profile(kind, d2) * outputscale[:, None, None]
+    return W.sum(-1), torch.matmul(W, x2), torch.matmul(K, A)
+
+
+def lowrank_stationary_reduce_rows_krs_plain(x1, x2, lengthscale,
+                                             outputscale, Bf, A, Ks,
+                                             kind: str):
+    """:func:`lowrank_stationary_reduce_rows_kr_plain` from the stored
+    os-scaled block ``Ks`` (q, n1, n2): g′ by the rational identity,
+    KA = Ks·A."""
+    Kf = Ks.to(A.dtype)
+    gp = _dprofile_from_stack(kind, x1, lengthscale, outputscale, Kf, x2)
+    W = torch.matmul(Bf, A.transpose(-1, -2)) * gp
+    return W.sum(-1), torch.matmul(W, x2), torch.matmul(Kf, A)
+
+
+def kr_rows_scratch_shapes(q: int, n1: int, n2: int, d: int, r: int):
+    """Shapes of the row-block forms' three fp32 scratch buffers, as the
+    library sizes them: the packs of the row tiles and of the column tiles,
+    (q, nt1, P) and (q, nt2, P), P K4's pack of a tile, and the slots,
+    (q, nt1, runs of the nt2 column tiles, 1+d+r, tile)."""
+    lib = _build.library()
+    tile = lib.plmc_tile_size()
+    nt1, nt2 = -(-n1 // tile), -(-n2 // tile)
+    floats = lib.plmc_kr_pack_floats(r, d)
+    return ((q, nt1, floats), (q, nt2, floats),
+            (q, nt1, lib.plmc_kr_rows_runs(nt2), 1 + d + r, tile))
+
+
+def _kr_rows_launch(fn_name, x1, x2, lengthscale, outputscale, Bf, A, Ks,
+                    kind):
+    """Checks, scratch and outputs shared by K4's and K5's row-block forms
+    (``Ks`` None for K4's)."""
+    n1, n2 = x1.shape[0], x2.shape[0]
+    d = _features(x2)
+    q, _, r = A.shape
+    _require("x1", x1, (n1, d))
+    _require("x2", x2, (n2, d))
+    _require("Bf", Bf, (q, n1, r))
+    _require("A", A, (q, n2, r))
+    _require("outputscale", outputscale, (q,))
+    width = reduce_width(d, kr=True)
+    ls2 = _lengthscale_2d(lengthscale, q, d)
+    x1, ls = pad_features(x1, ls2, width)
+    x2, _ = pad_features(x2, ls2, width)
+    p1_shape, p2_shape, slots_shape = kr_rows_scratch_shapes(q, n1, n2,
+                                                             width, r)
+    pack1 = torch.empty(p1_shape, dtype=torch.float32, device=x1.device)
+    pack2 = torch.empty(p2_shape, dtype=torch.float32, device=x1.device)
+    slots = torch.empty(slots_shape, dtype=torch.float32, device=x1.device)
+    rows = torch.empty((q, n1), dtype=torch.float32, device=x1.device)
+    wx = torch.empty((q, n1, width), dtype=torch.float32, device=x1.device)
+    ka = torch.empty((q, n1, r), dtype=torch.float32, device=x1.device)
+    head = (x1.data_ptr(), x2.data_ptr(), ls.data_ptr(),
+            outputscale.data_ptr(), Bf.data_ptr(), A.data_ptr())
+    tail = (pack1.data_ptr(), pack2.data_ptr(), slots.data_ptr(),
+            rows.data_ptr(), wx.data_ptr(), ka.data_ptr(), q, n1, n2, r,
+            width, _kind_id(kind))
+    if Ks is None:
+        _launch(fn_name, *head, *tail, _stream(x1))
+    else:
+        _launch(fn_name, *head, Ks.data_ptr(), *tail,
+                int(Ks.dtype == torch.bfloat16), _stream(x1))
+    return rows, _drop_padding(wx, d), ka
+
+
+def lowrank_stationary_reduce_rows_kr(x1, x2, lengthscale, outputscale, Bf, A,
+                                      kind: str, device="cuda"):
+    """K4's row-block form, a rank's rows of the "kr" backward under a mesh:
+    (rows (q, n1), wx (q, n1, d), KA (q, n1, r)) of
+    :func:`lowrank_stationary_reduce_rows_kr_plain` in one pass, the block
+    os·K(x1, x2) recomputed, never stored.
+
+    Replaces ``lowrank_stationary_reduce_sym_kr`` (projected_lmc_tpu/ops/
+    pallas_kernels.py:630) on a rank's row block, where XLA partitions the
+    TPU kernel's call. Bound on the card: arithmetic — K4's per-pair work
+    (the rank-r product, d², one exp for g and g′, the W sums) over the
+    q·n1·n2 ordered pairs, and one KA product (2r bf16 operations, three
+    times over) a pair. Design: K4's tile loop without the mirror, as K7's
+    row-block form is K7's: the row tiles packed from (x1, Bf), the column
+    tiles from (x2, A) by K4's pack kernel; a block walks a run of 8 column
+    tiles with its rows' sums in registers and os·g of each tile in shared
+    memory as bf16 hi and lo parts, K_IJ A_J on the tensor cores (K4's
+    ``mma.sync`` split products), each run's sums into its own slot, summed
+    in run order by a last kernel: no float atomics, and a row's results do
+    not depend on the block of rows it lies in."""
+    dev = check_device(device, x1, x2, lengthscale, outputscale, Bf, A)
+    if dev.type == "cpu":
+        return lowrank_stationary_reduce_rows_kr_plain(
+            x1, x2, lengthscale, outputscale, Bf, A, kind)
+    out = _kr_rows_launch("plmc_lowrank_reduce_rows_kr", x1, x2, lengthscale,
+                          outputscale, Bf, A, None, kind)
+    lowrank_stationary_reduce_rows_kr.launches += 1
+    return out
+
+
+lowrank_stationary_reduce_rows_kr.launches = 0
+
+
+def lowrank_stationary_reduce_rows_krs(x1, x2, lengthscale, outputscale, Bf,
+                                       A, Ks, kind: str, device="cuda"):
+    """K5's row-block form, a rank's rows of the "krs" backward under a mesh:
+    :func:`lowrank_stationary_reduce_rows_kr`'s (rows, wx, KA) reading the
+    rank's stored os-scaled block ``Ks`` (q, n1, n2), fp32 or bf16 (K6's),
+    g′ by the rational identity.
+
+    Replaces ``lowrank_stationary_reduce_sym_krs`` (projected_lmc_tpu/ops/
+    pallas_kernels.py:798) on a rank's row block. Bound: the row-block
+    K4's arithmetic less the exp, plus the read of the block. Design: the
+    row-block K4's, each tile (I, J) read from the block, whose rows are
+    n2 elements apart, 16 bytes a load (``cp.async`` in bf16) where they
+    start on 16 bytes, element by element otherwise."""
+    dev = check_device(device, x1, x2, lengthscale, outputscale, Bf, A, Ks)
+    if dev.type == "cpu":
+        return lowrank_stationary_reduce_rows_krs_plain(
+            x1, x2, lengthscale, outputscale, Bf, A, Ks, kind)
+    n1, n2 = x1.shape[0], x2.shape[0]
+    if Ks.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"Ks: the CUDA kernel takes float32 or bfloat16, got "
+                        f"{Ks.dtype}")
+    if tuple(Ks.shape) != (A.shape[0], n1, n2) or not Ks.is_contiguous():
+        raise ValueError(f"Ks: expected a contiguous ({A.shape[0]}, {n1}, "
+                         f"{n2}) block, got {tuple(Ks.shape)}")
+    out = _kr_rows_launch("plmc_lowrank_reduce_rows_krs", x1, x2, lengthscale,
+                          outputscale, Bf, A, Ks, kind)
+    lowrank_stationary_reduce_rows_krs.launches += 1
+    return out
+
+
+lowrank_stationary_reduce_rows_krs.launches = 0
 
 
 # -- K3: general cross kernel matrix ------------------------------------------

@@ -33,15 +33,20 @@ route.
 Under a mesh (``rows``, a ``parallel.mesh.RowBlock``) a rank builds only
 its block of the stack, its latents' rows r0..r1 − 1 against all n points:
 K6 (``scaled_kernel_stack``) on (xc[r0:r1], xc), bitwise those rows of K1's
-stack. The CG products sum the ranks' rows over the world
-(``iterative.lmc_matvec``); the backward takes K7's row-block form
-(``lowrank_stationary_reduce(row_x=)``) for its rows' reductions and the
-block product for its rows of KR, gathers those whole in ONE world
-``all_reduce`` and runs one process's formulas on them (``_rows_products``),
-so that every rank carries the whole gradient, summed in one process's
-order, and the backward's one collective lies on the loss's chain. The
-int8 stack and the "kr"/"krs" routes are ROADMAP A 15 under a mesh, and
-raise.
+stack, or with ``matvec_int8`` K8 on the same points, padded to the int8
+product's shape (the scale os_b/127 is every rank's). The CG products sum
+the ranks' rows over the world (``iterative.lmc_matvec``,
+``lmc_matvec_int8``). The backward's routes keep their kernels in a
+row-block form: "stack" (and every int8 stack) K7's
+(``lowrank_stationary_reduce(row_x=)``) with the block product for its rows
+of KR; "kr" K4's (``lowrank_stationary_reduce_rows_kr``), which recomputes
+the block and gives its rows of KA; "krs" K5's
+(``lowrank_stationary_reduce_rows_krs``), which reads the stored block. It
+gathers the rows' products whole in ONE world ``all_reduce`` and runs one
+process's formulas on them (``_rows_products``), so that every rank
+carries the whole gradient, summed in one process's order, and the
+backward's one collective lies on the loss's chain. (The mesh always
+builds on the full grid: ``PLMC_SYM_BUILD`` does not apply.)
 
 Scope: symmetric training evaluations of a bare or Scale-wrapped stationary
 kernel (RBF / Matérn) over all input features. The input locations get no
@@ -97,12 +102,13 @@ def _use_kr_stream(Ks) -> bool:
     return os.environ.get("PLMC_KR_STREAM") == "1" and Ks.dtype != torch.int8
 
 
-def _backward_route(Ks) -> str:
-    """"krs", "kr" or "stack" for a (q, n, n) stack, as the JAX package's
-    ``_fused_bwd`` picks: an int8 stack and the full grid (PLMC_SYM_BUILD=0)
-    take the stack route, whatever PLMC_KR_*; otherwise streaming wins over
-    the n rule."""
-    if Ks.dtype == torch.int8 or not _sym_build():
+def _backward_route(Ks, rows=None) -> str:
+    """"krs", "kr" or "stack" for a (q, n, n) stack (or a rank's block with
+    ``rows``), as the JAX package's ``_fused_bwd`` picks: an int8 stack and
+    the full grid (PLMC_SYM_BUILD=0; a rank's block is always K6's or K8's,
+    so the variable does not apply to it) take the stack route, whatever
+    PLMC_KR_*; otherwise streaming wins over the n rule."""
+    if Ks.dtype == torch.int8 or (rows is None and not _sym_build()):
         return "stack"
     if _use_kr_stream(Ks):
         return "krs"
@@ -117,19 +123,6 @@ def _lowrank_reduce_kr(xc, ls, os_, A, Bf, kind, Ks=None, device="cuda"):
                                                     kind, device=device)
     return ck.lowrank_stationary_reduce_sym_kr(xc, ls, os_, A, Bf, kind,
                                                device=device)
-
-
-def _refuse_under_mesh(matvec_int8: bool, n: int):
-    """The int8 stack and the K4/K5 backward routes have no row-block form
-    yet: under a mesh they raise rather than fall back. (The mesh always
-    builds on the full grid: ``PLMC_SYM_BUILD`` does not apply.)"""
-    if matvec_int8:
-        raise NotImplementedError("the fused MLL's int8 stack under a mesh "
-                                  "is ROADMAP A 15")
-    if os.environ.get("PLMC_KR_STREAM") == "1" or _use_kr_fused(n):
-        raise NotImplementedError("the fused MLL's \"kr\" and \"krs\" "
-                                  "backward routes under a mesh are ROADMAP "
-                                  "A 15; unset PLMC_KR_FUSED/PLMC_KR_STREAM")
 
 
 class _FusedStationaryLogProb(torch.autograd.Function):
@@ -176,17 +169,29 @@ class _FusedStationaryLogProb(torch.autograd.Function):
                       max_cg_iters, cg_tol, matvec_bf16, precond_rank,
                       matvec_int8, device, rows):
         """The forward on the rank's block: K6 on (xc[r0:r1], xc) for its
-        latents, the row-sharded PCG."""
-        _refuse_under_mesh(matvec_int8, xc.shape[0])
-        lo, hi = rows.lo, rows.hi
-        Ks = ck.scaled_kernel_stack(
-            xc[rows.r0:rows.r1], xc, ls[lo:hi].contiguous(),
-            os_[lo:hi].contiguous(), kind,
-            torch.bfloat16 if matvec_bf16 else None, device=device)
+        latents (K8 for an int8 stack, padded to the int8 product's shape),
+        the row-sharded PCG."""
+        lo, hi, r0, r1 = rows.lo, rows.hi, rows.r0, rows.r1
+        n = xc.shape[0]
+        kscale = None
+        if matvec_int8:
+            Ks = ck.quantized_kernel_stack(
+                xc[r0:r1], xc, ls[lo:hi].contiguous(), kind,
+                padded_to=(it.int8_width(r1 - r0), it.int8_width(n)),
+                device=device)
+            kscale = os_[lo:hi].to(torch.float32) / 127.0
+        else:
+            Ks = ck.scaled_kernel_stack(
+                xc[r0:r1], xc, ls[lo:hi].contiguous(),
+                os_[lo:hi].contiguous(), kind,
+                torch.bfloat16 if matvec_bf16 else None, device=device)
         ll, (alpha, W, Ztilde) = it._pcg_fwd_impl(
             Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
-            matvec_bf16, precond_rank, rows=rows)
-        ctx.save_for_backward(xc, ls, os_, Ks, H, alpha, W, Ztilde)
+            matvec_bf16, precond_rank, matvec_int8, kscale, rows=rows)
+        ctx.route = _backward_route(Ks, rows)
+        # the kr backward recomputes the block, so it is not kept for it
+        ctx.save_for_backward(xc, ls, os_, None if ctx.route == "kr" else Ks,
+                              H, alpha, W, Ztilde)
         ctx.kind, ctx.device = kind, device
         return ll
 
@@ -207,8 +212,8 @@ class _FusedStationaryLogProb(torch.autograd.Function):
 
         Afac, Bfac = Afac.contiguous(), Bfac.contiguous()
         if ctx.rows is not None:
-            KR, rows, wx = _rows_products(ctx, xc, ls, Ks, Ah, WH, ZH, Afac,
-                                          Bfac, alpha)
+            KR, rows, wx = _rows_products(ctx, xc, ls, os_, Ks, Ah, WH, ZH,
+                                          Afac, Bfac, alpha)
         elif ctx.route == "stack":
             # ONE batched stack product serves dH and the outputscale gradient
             R3 = torch.cat([Ah[None], WH, ZH], 0)
@@ -255,21 +260,42 @@ class _FusedStationaryLogProb(torch.autograd.Function):
                 None, None, None, None, None, None)
 
 
-def _rows_products(ctx, xc, ls, Ks, Ah, WH, ZH, Afac, Bfac, alpha):
-    """The backward's products on the rank's block, gathered whole: K7's
-    row-block form for its rows' (rows, wx) and the block product for its
-    rows of KR, written into one zero buffer and summed over the world in
-    ONE call. The backward then runs one process's formulas on the whole
-    products, so that dls = −4(Σ rows·x² − Σ wx·x), which cancels, sums in
-    one process's order."""
+def _rows_products(ctx, xc, ls, os_, Ks, Ah, WH, ZH, Afac, Bfac, alpha):
+    """The backward's products on the rank's block, gathered whole, by the
+    route's row-block kernel: K7's for its rows' (rows, wx) with the block
+    product (int8 for an int8 block, its right-hand sides quantised over
+    the whole R3) for its rows of KR; or K4's, or K5's on the stored block,
+    for its rows of (rows, wx, KA) in one pass (A Bfᵀ is symmetric, so the
+    rows' reductions take Bf's rows against A's columns, and KA's columns
+    are A's). They are written into one zero buffer and summed over the
+    world in ONE call. The backward then runs one process's formulas on the
+    whole products, so that dls = −4(Σ rows·x² − Σ wx·x), which cancels,
+    sums in one process's order."""
     rows = ctx.rows
     lo, hi, r0, r1 = rows.lo, rows.hi, rows.r0, rows.r1
-    part_rows, part_wx = ck.lowrank_stationary_reduce(
-        xc, ls[lo:hi].contiguous(), Afac[lo:hi, r0:r1].contiguous(),
-        Bfac[lo:hi].contiguous(), ctx.kind, device=ctx.device,
-        row_x=xc[r0:r1])
+    lsl = ls[lo:hi].contiguous()
     R3 = torch.cat([Ah[None], WH, ZH], 0)
-    part_KR = it._stack_matmul(Ks, R3[..., lo:hi])         # (1+2s, n_l, q_l)
+    if ctx.route == "stack":
+        part_rows, part_wx = ck.lowrank_stationary_reduce(
+            xc, lsl, Afac[lo:hi, r0:r1].contiguous(),
+            Bfac[lo:hi].contiguous(), ctx.kind, device=ctx.device,
+            row_x=xc[r0:r1])
+        if Ks.dtype == torch.int8:
+            part_KR = it._int8_stack_product(
+                Ks, os_[lo:hi].to(torch.float32) / 127.0, R3[..., lo:hi],
+                r1 - r0)
+        else:
+            part_KR = it._stack_matmul(Ks, R3[..., lo:hi])
+    else:
+        args = (xc[r0:r1], xc, lsl, os_[lo:hi].contiguous(),
+                Bfac[lo:hi, r0:r1].contiguous(), Afac[lo:hi].contiguous())
+        if ctx.route == "krs":
+            part_rows, part_wx, part_KA = ck.lowrank_stationary_reduce_rows_krs(
+                *args, Ks, ctx.kind, device=ctx.device)
+        else:
+            part_rows, part_wx, part_KA = ck.lowrank_stationary_reduce_rows_kr(
+                *args, ctx.kind, device=ctx.device)
+        part_KR = part_KA.permute(2, 1, 0)                  # (1+2s, n_l, q_l)
     q, n, d, r = rows.q, rows.n, part_wx.shape[-1], R3.shape[0]
     buf = alpha.new_zeros(q * n * (1 + d) + r * n * q)
     full_rows = buf[:q * n].view(q, n)

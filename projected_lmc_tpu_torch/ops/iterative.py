@@ -23,7 +23,12 @@ is the rank's rows, zero-padded and summed over the world in one
 probes and the preconditioner stay whole and the same on every rank, so
 that their scalars agree bit for bit and every rank takes the same
 branches. The
-Nyström roots come from the rank's rows and one gather. A backward
+Nyström roots come from the rank's rows and one gather; the Jacobi
+diagonal of CG + SLQ is gathered whole, and its Lanczos basis stays
+replicated; an int8 loop quantises the rank's block at the world max of
+each latent's absmax (the whole stack's scale) and its right-hand sides
+over their whole columns, so that its integer products are one process's.
+A backward
 gathers its block's products whole in one packed ``all_reduce``, then
 runs one process's formulas on them, and scales the cotangent of the
 rank's block by ``rows.grad_scale`` (``parallel/sharded.py`` states the
@@ -94,10 +99,12 @@ def int8_width(n: int) -> int:
     return max(-(-n // 8) * 8, 24)
 
 
-def _int8_stack_matmul(Kq, Wq):
+def _int8_stack_matmul(Kq, Wq, n_rows=None):
     """Kq_b @ Wq_b for every latent, exact in int32: Kq (q, N, N) int8, an
     int8 stack that may carry zero padding (N ≥ n); Wq (q, n, r) with
-    integer values in [−127, 127] → (q, n, r) int32.
+    integer values in [−127, 127] → (q, n, r) int32. With ``n_rows``, Kq is
+    a rank's row block (q, M, N), its first ``n_rows`` rows real, and the
+    result is (q, n_rows, r).
 
     On the card, one ``torch._int_mm`` per latent (int8 tensor cores, int32
     accumulation), with Wq zero-padded to (N, r rounded up to 8) and laid
@@ -107,53 +114,73 @@ def _int8_stack_matmul(Kq, Wq):
     not give raises. On the CPU, an int32 product, which is exact (an fp32
     one is not, above 2²⁴)."""
     q, n, r = Wq.shape
-    N = Kq.shape[-1]
+    n_rows = n if n_rows is None else int(n_rows)
+    M, N = Kq.shape[-2:]
     if not Kq.is_cuda:
-        return torch.bmm(Kq[:, :n, :n].to(torch.int32), Wq.to(torch.int32))
-    if N != int8_width(N) or N < n:
-        raise ValueError(f"an int8 stack of width {N} does not fit the int8 "
-                         f"product for {n} points: build it at "
-                         f"int8_width(n) = {int8_width(n)}")
+        return torch.bmm(Kq[:, :n_rows, :n].to(torch.int32),
+                         Wq.to(torch.int32))
+    for width, count in ((N, n), (M, n_rows)):
+        if width != int8_width(width) or width < count:
+            raise ValueError(
+                f"an int8 stack of {width} rows or columns does not fit the "
+                f"int8 product for {count}: build it at int8_width("
+                f"{count}) = {int8_width(count)}")
     rp = -(-r // 8) * 8
     Wt = torch.zeros((q, rp, N), dtype=torch.int8, device=Wq.device)
     Wt[:, :r, :n] = Wq.transpose(1, 2)
-    out = torch.empty((q, N, rp), dtype=torch.int32, device=Wq.device)
+    out = torch.empty((q, M, rp), dtype=torch.int32, device=Wq.device)
     for b in range(q):
         torch._int_mm(Kq[b], Wt[b].t(), out=out[b])
-    return out[:, :n, :r]
+    return out[:, :n_rows, :r]
 
 
-def quantize_stack_int8(Ks):
+def quantize_stack_int8(Ks, rows=None):
     """Symmetric per-latent int8 quantisation of a kernel stack:
     K_b ≈ scale_b · Q_b with Q_b = round(K_b/scale_b) ∈ [−127, 127].
-    Returns (Q (q, n, n) int8, scale (q,) float32)."""
+    Returns (Q (q, n, n) int8, scale (q,) float32). With ``rows`` Ks is the
+    rank's row block and each latent's absmax is the world max of its
+    blocks', the whole stack's: every rank quantises as one process."""
     absmax = Ks.abs().amax(dim=(-2, -1)).to(torch.float32)
+    if rows is not None:
+        full = absmax.new_zeros(rows.q)
+        full[rows.lo:rows.hi] = absmax
+        absmax = rows.mesh.world_max_(full)[rows.lo:rows.hi]
     scale = torch.clamp(absmax, min=1e-30) / 127.0
     Q = torch.clamp(torch.round(Ks.to(torch.float32) / scale[:, None, None]),
                     -127, 127).to(torch.int8)
     return Q, scale
 
 
-def _int8_stack_product(Kq, kscale, W):
+def _int8_stack_product(Kq, kscale, W, n_rows=None):
     """:func:`_stack_matmul` for an int8 stack Kq (q, N, N), K_b ≈ kscale_b
     · Kq_b (zero padding beyond n allowed): each (right-hand side, latent)
     column of W (..., n, q) is quantised as clip(round(W/ws), ±127), ws =
     max(|W| over n, 1e-30)/127, and the int8 × int8 → int32 product is
     dequantised with kscale·ws. Serves the CG products and the fused
-    backward's, as in the JAX package."""
+    backward's, as in the JAX package. With ``n_rows`` Kq is a rank's row
+    block (:func:`_int8_stack_matmul`); W is whole, so its scales are one
+    process's."""
     ws = torch.clamp(W.abs().amax(dim=-2, keepdim=True), min=1e-30) / 127.0
     Wq = torch.clamp(torch.round(W / ws), -127, 127)
     single = Wq.dim() == 2
     Wt = Wq[None] if single else Wq                         # (r, n, q)
-    Zi = _int8_stack_matmul(Kq, Wt.permute(2, 1, 0))        # (q, n, r)
+    Zi = _int8_stack_matmul(Kq, Wt.permute(2, 1, 0), n_rows)  # (q, n, r)
     Zl = Zi.permute(2, 1, 0).to(torch.float32)              # (r, n, q)
     return (Zl[0] if single else Zl) * (kscale[None, :] * ws)
 
 
-def lmc_matvec_int8(Kq, kscale, H, St, V):
+def lmc_matvec_int8(Kq, kscale, H, St, V, rows=None):
     """:func:`lmc_matvec` with an int8 stack (:func:`_int8_stack_product`,
-    the columns of V·H re-quantised at each call). V (n, T) or (r, n, T)."""
-    Z = _int8_stack_product(Kq, kscale, V @ H)
+    the columns of V·H re-quantised at each call). V (n, T) or (r, n, T).
+    With ``rows`` Kq is the rank's int8 row block and ``kscale`` its
+    latents' scales; the rows' products are gathered as in
+    :func:`lmc_matvec`."""
+    W = V @ H
+    if rows is None:
+        Z = _int8_stack_product(Kq, kscale, W)
+    else:
+        Z = rows.gather_product(_int8_stack_product(
+            Kq, kscale, W[..., rows.lo:rows.hi], rows.r1 - rows.r0))
     return Z.to(V.dtype) @ H.T + V @ St
 
 
@@ -342,18 +369,16 @@ def _pcg_fwd_impl(Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
     :func:`lmc_matvec_int8`: on a pre-quantised int8 stack ``Ks`` (q, N, N),
     which may carry zero padding beyond n, with its scales ``kscale`` (q,),
     or on ``Ks`` quantised here by :func:`quantize_stack_int8`. With
-    ``rows`` Ks is the rank's row block and the products are summed over
-    the world (no int8 loop)."""
+    ``rows`` Ks is the rank's row block (int8 ones padded, ``kscale`` its
+    latents' scales) and the products are summed over the world."""
     n, t = Ydelta.shape
-    if rows is not None and matvec_int8:
-        raise NotImplementedError("the int8 CG loop under a mesh is ROADMAP "
-                                  "A 15")
     # an int8 stack's padding off
-    Kn = Ks if rows is not None else Ks[:, :n, :n]
+    Kn = Ks[:, :n, :n] if rows is None else Ks[:, :rows.r1 - rows.r0, :n]
     if Ks.dtype == torch.int8 and roots is None:
         # fallback only: the roots Cholesky is fp32-sensitive
         roots = nystrom_roots_from_kernels(
-            Kn.to(torch.float32) * kscale[:, None, None], min(precond_rank, n))
+            Kn.to(torch.float32) * kscale[:, None, None], min(precond_rank, n),
+            rows=rows)
     R, Lt, minv, logdet_M = _nystrom_precond_parts(
         Kn, H, St, precond_rank,
         roots=roots.detach() if roots is not None else None, rows=rows)
@@ -364,10 +389,13 @@ def _pcg_fwd_impl(Ks, H, St, Ydelta, eps, xi, roots, max_cg_iters, cg_tol,
         if Ks.dtype == torch.int8:
             Kq, ks_ = Ks, kscale
         else:
-            Kq, ks_ = quantize_stack_int8(Ks.detach())
-            N = int8_width(n)                   # the int8 product's shape
-            Kq = torch.nn.functional.pad(Kq, (0, N - n, 0, N - n))
-        matvec = lambda V: lmc_matvec_int8(Kq, ks_, H, St, V)  # noqa: E731
+            Kq, ks_ = quantize_stack_int8(Ks.detach(), rows)
+            # the int8 product's shape
+            M = int8_width(n if rows is None else rows.r1 - rows.r0)
+            N = int8_width(n)
+            Kq = torch.nn.functional.pad(Kq, (0, N - n, 0, M - Kq.shape[-2]))
+        matvec = lambda V: lmc_matvec_int8(Kq, ks_, H, St, V,  # noqa: E731
+                                           rows)
     else:
         Kmv = Ks.to(torch.bfloat16) if matvec_bf16 else Ks
         matvec = lambda V: lmc_matvec(Kmv, H, St, V, rows)  # noqa: E731
@@ -480,37 +508,44 @@ class _LmcIterativeLogProb(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, Ks, H, St, Ydelta, probes, max_cg_iters, cg_tol,
-                slq_steps, matvec_bf16, precond_rank):
+                slq_steps, matvec_bf16, precond_rank, rows):
         n, t = Ydelta.shape
         Kmv = Ks.to(torch.bfloat16) if matvec_bf16 else Ks
-        matvec = lambda V: lmc_matvec(Kmv, H, St, V)        # noqa: E731
-        Md = torch.clamp(_jacobi_diag(Ks, H, St), min=1e-10)
-        minv = nystrom_precond(Ks, H, St, precond_rank) \
+        matvec = lambda V: lmc_matvec(Kmv, H, St, V, rows)  # noqa: E731
+        Md = torch.clamp(_jacobi_diag(Ks, H, St, rows), min=1e-10)
+        minv = nystrom_precond(Ks, H, St, precond_rank, rows=rows) \
             if precond_rank > 0 else None
         X = batched_pcg(matvec, torch.cat([Ydelta[None], probes], 0), Md,
                         max_iters=max_cg_iters, tol=cg_tol, minv=minv)
         alpha, W = X[0], X[1:]
         logdet = slq_logdet(matvec, probes, num_steps=slq_steps)
         ctx.save_for_backward(Ks, H, alpha, W, probes)
+        ctx.rows = rows
         return -0.5 * ((Ydelta * alpha).sum() + logdet
                        + n * t * math.log(2 * math.pi))
 
     @staticmethod
     def backward(ctx, g):
-        return _lmc_hutchinson_bwd(*ctx.saved_tensors, g) + (None,) * 6
+        return _lmc_hutchinson_bwd(*ctx.saved_tensors, g,
+                                   rows=ctx.rows) + (None,) * 7
 
 
 def lmc_iterative_log_prob(Ks, H, St, Ydelta, probes, max_cg_iters: int = 256,
                            cg_tol: float = 1e-4, slq_steps: int = 20,
-                           matvec_bf16: bool = False, precond_rank: int = 0):
+                           matvec_bf16: bool = False, precond_rank: int = 0,
+                           rows=None):
     """log N(vec(Y); 0, Σ_b K_b ⊗ h_b h_bᵀ + I ⊗ Σt), matrix-free: Ks
     (q, n, n), H (T, q), St (T, T), Ydelta (n, T), probes (s, n, T)
     (:func:`draw_probes`). The value is CG for the quadratic form plus SLQ
     for the logdet; the gradient is Hutchinson's on the saved CG solves
-    (gpytorch's inv_quad_logdet estimator family); the probes get none."""
+    (gpytorch's inv_quad_logdet estimator family); the probes get none.
+    With ``rows`` (a ``parallel.mesh.RowBlock``) Ks is the rank's
+    (q_l, n_l, n) block: every CG and Lanczos product is gathered over the
+    world, the Jacobi diagonal and the Nyström roots are gathered whole,
+    and the Lanczos basis stays replicated."""
     return _LmcIterativeLogProb.apply(
         Ks, H, St, Ydelta, probes.detach(), int(max_cg_iters), float(cg_tol),
-        int(slq_steps), bool(matvec_bf16), int(precond_rank))
+        int(slq_steps), bool(matvec_bf16), int(precond_rank), rows)
 
 
 class _LmcPcgLogProb(torch.autograd.Function):
@@ -559,9 +594,15 @@ def lmc_pcg_log_prob(Ks, H, St, Ydelta, eps, xi, roots=None,
 
 # -- the matrix-free LMC posterior (models.multitask, "lmc_iter") -------------
 
-def _jacobi_diag(Ks, H, St):
-    """diag(Σ) as an (n, T) grid: Σ_b K_b[i,i] h_b[t]² + Σt[t,t]."""
-    kdiag = torch.diagonal(Ks, dim1=-2, dim2=-1)            # (q, n)
+def _jacobi_diag(Ks, H, St, rows=None):
+    """diag(Σ) as an (n, T) grid: Σ_b K_b[i,i] h_b[t]² + Σt[t,t]. With
+    ``rows`` Ks is the rank's row block, whose entries (i, r0 + i) are
+    gathered whole in one world sum."""
+    if rows is None:
+        kdiag = torch.diagonal(Ks, dim1=-2, dim2=-1)        # (q, n)
+    else:
+        kdiag = rows.gather(torch.diagonal(
+            Ks[..., rows.r0:rows.r1], dim1=-2, dim2=-1)[..., None])[..., 0]
     return kdiag.T @ (H * H).T + torch.diagonal(St)[None, :]
 
 

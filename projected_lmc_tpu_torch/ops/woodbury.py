@@ -31,54 +31,73 @@ def lmc_factors(Ks, H, Sigma_t, jitter: float = 1e-6):
                                   Sigma_t)
 
 
-def lmc_factors_from_roots(roots, H, Sigma_t):
+def lmc_gram(roots):
+    """The capacitance Gram Ltallᵀ Ltall, (q·r, q·r), of roots R (q, n, r),
+    Ltall[m, (c,l)] = R[c,m,l]: one (q·r, n)·(n, q·r) product. Over a
+    rank's rows under a mesh it is a partial sum."""
+    q, n, r = roots.shape
+    Ltall = roots.permute(1, 0, 2).reshape(n, q * r)
+    return Ltall.T @ Ltall
+
+
+def lmc_factors_from_roots(roots, H, Sigma_t, gram=None, n: int = None):
     """Woodbury factors for Σ = Σ_b (R_b R_bᵀ) ⊗ h_b h_bᵀ + I ⊗ Σt, roots
     R (q, n, r): dict with L_G = R, Rt = chol(Σt), C, SinvH, L_cap, H and
-    the sizes q, n, r. The capacitance's blocks C[b,c]·L_bᵀL_c come from one
-    (q·r, n)·(n, q·r) product of Ltall[m, (c,l)] = L_G[c,m,l]."""
-    q, n, r = roots.shape
+    the sizes q, n, r. The capacitance's blocks C[b,c]·L_bᵀL_c come from
+    ``lmc_gram`` of the roots, or from the given ``gram`` of all n rows
+    when ``roots`` holds some of them (a rank's rows under a mesh, whose
+    partial Grams are summed)."""
+    q, rows, r = roots.shape
+    n = rows if n is None else n
     Rt = safe_cholesky(Sigma_t)
     SinvH = cho_solve(Rt, H)                        # Σt⁻¹ H  (t, q)
     C = H.T @ SinvH                                 # (q, q)
-    Ltall = roots.permute(1, 0, 2).reshape(n, q * r)
-    P = (Ltall.T @ Ltall).reshape(q, r, q, r)
+    P = (lmc_gram(roots) if gram is None else gram).reshape(q, r, q, r)
     cap = (C[:, None, :, None] * P).reshape(q * r, q * r) \
         + torch.eye(q * r, dtype=roots.dtype, device=roots.device)
     return dict(L_G=roots, Rt=Rt, C=C, SinvH=SinvH, L_cap=safe_cholesky(cap),
                 H=H, q=q, n=n, r=r)
 
 
-def _u_from_y(Ydelta, fac):
-    """W = Y Σt⁻¹ (n, t) and u = Aᵀ D⁻¹ vec(Y) as (q, n)."""
-    W = cho_solve(fac["Rt"], Ydelta.T).T
-    return W, (W @ fac["H"]).T
+def lmc_sums(Ydelta, roots, H, Rt):
+    """W = Y Σt⁻¹ (n, t), s = L_Gᵀ u (q, r) with u = Aᵀ D⁻¹ vec(Y) as
+    (q, n), and Σ Y·W, over the rows of Ydelta (n, t) and of the roots
+    L_G (q, n, r); Rt = chol(Σt). Over a rank's rows under a mesh, s and
+    Σ Y·W are partial sums."""
+    W = cho_solve(Rt, Ydelta.T).T
+    s = torch.einsum("bnk,bn->bk", roots, (W @ H).T)
+    return W, s, (Ydelta * W).sum()
 
 
-def lmc_log_prob(Ks, H, Sigma_t, Ydelta, jitter: float = 1e-6, fac=None):
+def lmc_log_prob(Ks, H, Sigma_t, Ydelta, jitter: float = 1e-6, fac=None,
+                 sums=None):
     """log N(vec(Y); 0, Σ_b K_b ⊗ h_b h_bᵀ + I ⊗ Σt), exact and dense;
-    Ydelta (n, t)."""
-    n, t = Ydelta.shape
+    Ydelta (n, t). ``sums``: (s, Σ Y·W) of ``lmc_sums`` summed over all n
+    rows when the caller has them (a mesh's ranks), Ydelta then unread."""
     if fac is None:
         fac = lmc_factors(Ks, H, Sigma_t, jitter)
-    W, u = _u_from_y(Ydelta, fac)
-    s = torch.einsum("bnk,bn->bk", fac["L_G"], u)              # L_Gᵀ u
+    n, t = fac["n"], H.shape[0]
+    s, yw = lmc_sums(Ydelta, fac["L_G"], H, fac["Rt"])[1:] \
+        if sums is None else sums
     v = solve_triangular(fac["L_cap"], s.reshape(-1, 1), lower=True)
-    quad = (Ydelta * W).sum() - (v * v).sum()
+    quad = yw - (v * v).sum()
     logdet = n * logdet_from_chol(fac["Rt"]) + logdet_from_chol(fac["L_cap"])
     return -0.5 * (quad + logdet + n * t * math.log(2 * math.pi))
 
 
-def lmc_solve(Ydelta, fac):
-    """α (n, t) with vec(α) = Cov⁻¹ vec(Y)."""
-    W, u = _u_from_y(Ydelta, fac)
-    s = torch.einsum("bnk,bn->bk", fac["L_G"], u)              # L_Gᵀ u
+def lmc_solve(Ydelta, fac, s=None):
+    """α (n, t) with vec(α) = Cov⁻¹ vec(Y). With ``s`` = L_Gᵀ u summed over
+    all n rows (``lmc_sums`` over a mesh's ranks), α for the rows of
+    Ydelta and of fac's L_G."""
+    W, s_rows, _ = lmc_sums(Ydelta, fac["L_G"], fac["H"], fac["Rt"])
+    s = s_rows if s is None else s
     z = cho_solve(fac["L_cap"], s.reshape(-1, 1)).reshape(fac["q"], fac["r"])
     t2 = torch.einsum("bnk,bk->bn", fac["L_G"], z)             # L_G z (q, n)
     return W - t2.T @ fac["SinvH"].T
 
 
 def lmc_sgpr_posterior(roots_star, fac, alpha, mean_star, noise: bool = True,
-                       chunk: int = 512, kss_star=None):
+                       chunk: int = 512, kss_star=None, u=None):
     """Posterior (mean, variance diagonal), both (n*, t), of the low-rank
     (Nyström) LMC/ICM model from its Woodbury factors ``fac`` (roots
     (q, n, m)) and α (n, t) = Σ⁻¹ vec(Y).
@@ -91,11 +110,13 @@ def lmc_sgpr_posterior(roots_star, fac, alpha, mean_star, noise: bool = True,
     ``kss_star`` (q, n*) adds the low-rank gap Σ_b clip(kss_b −
     diag(R*_b R*_bᵀ), 0)·H[t,b]², so that the variance reverts to the prior
     away from the inducing points; ``noise`` adds diag(Σt). Clipped at
-    1e-12."""
-    H, L_G, L_cap = fac["H"], fac["L_G"], fac["L_cap"]
+    1e-12. ``u`` (q, m): R_bᵀ(α h_b) when the caller has it (the models'
+    "sgpr" caches, whose fac holds no roots), else computed from fac's."""
+    H, L_cap = fac["H"], fac["L_cap"]
     q, n_star, r = roots_star.shape
     t = H.shape[0]
-    u = torch.einsum("bnk,nb->bk", L_G, alpha @ H)              # R_bᵀ(αh_b)
+    if u is None:
+        u = torch.einsum("bnk,nb->bk", fac["L_G"], alpha @ H)   # R_bᵀ(αh_b)
     mean = torch.einsum("bik,bk->ib", roots_star, u) @ H.T + mean_star
 
     def chunk_var(Rc):                                          # (q, c, m)

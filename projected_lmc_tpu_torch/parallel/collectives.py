@@ -1,7 +1,8 @@
 """The collectives of the port's mesh, on ``torch.distributed``.
 
-The port issues three collectives only: ``all_reduce`` (sum), ``broadcast``
-and ``barrier``. They are what gloo takes on CUDA tensors (it has no
+The port issues three collectives only: ``all_reduce`` (a sum, or a max
+for the int8 scales of a row-sharded stack), ``broadcast`` and
+``barrier``. They are what gloo takes on CUDA tensors (it has no
 ``all_gather`` or ``reduce_scatter`` there), so the same code runs over
 gloo with ranks sharing one card, over NCCL with a card a rank, and over
 gloo on the CPU. A gather is a sum of zero-filled buffers into which each
@@ -86,6 +87,14 @@ def sum_(x, group):
     the products of a row-sharded solver, whose adjoint its op writes
     itself. Returns ``x``."""
     dist.all_reduce(x, group=group)
+    return x
+
+
+def max_(x, group):
+    """``x`` replaced in place by its elementwise max over ``group``,
+    outside autograd (the absmax of a stack whose blocks the ranks hold).
+    Returns ``x``."""
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
     return x
 
 

@@ -106,6 +106,19 @@ class Mesh:
         g = self.group("world")
         return x if g is None else col.sum_(x, g)
 
+    def world_max_(self, x):
+        """``x`` replaced in place by its elementwise max over every rank,
+        outside autograd. Returns ``x``."""
+        g = self.group("world")
+        return x if g is None else col.max_(x, g)
+
+    def world_sum(self, x):
+        """Σ over every rank, differentiable (its backward sums the
+        gradient over every rank): the partial sums of a model whose rows
+        split over the whole world."""
+        g = self.group("world")
+        return x if g is None else col.group_sum(x, g)
+
     def world_any(self, flag) -> bool:
         """True if ``flag`` holds on any rank of the mesh."""
         g = self.group("world")
@@ -344,13 +357,28 @@ def shard_model(model, mesh: Mesh, n_latents: int = None):
     (``projected_lmc_mll(model)`` is then the full MLL on every rank).
     Returns ``model``.
 
-    Takes ``ExactGPModel`` (``ProjectedGPModel`` with it) on its dense,
-    SGPR and fused iterative routes, ``VariationalMultitaskGPModel``, and
-    ``MultitaskGPModel``: the LMC's fused and composed PCG MLLs and its
-    "lmc_iter" cache, the ICM's dense and matrix-free MLLs and its "icm"
-    and "icm_iter" caches, and their posteriors. The routes left to
-    ROADMAP A 15 raise ``NotImplementedError`` naming it (the models'
-    docstrings list them)."""
+    Takes ``ExactGPModel`` (``ProjectedGPModel`` with it),
+    ``VariationalMultitaskGPModel`` and ``MultitaskGPModel``, and every
+    route of each runs under the mesh (the models' docstrings say how each
+    is split):
+
+      * latents over the latent axis: the dense batched Cholesky and the
+        projected model, each rank factorizing its latents;
+      * rows over the data axis: ``ExactGPModel``'s SGPR and the ELBO, the
+        Gram and row sums summed over the data group;
+      * a row block of the stack (its latents' rows over the data axis;
+        the ICM's one kernel over every rank), every product one world sum
+        of zero-padded rows, the solver's state replicated: the LMC's fused
+        PCG (bf16, fp32 or int8 stack; each backward route's kernel in its
+        row-block form), its composed PCG and CG + SLQ, the ICM's
+        matrix-free PCG, ``ExactGPModel``'s fused and composed iterative
+        MLLs, and the "lmc_iter" and "icm_iter" caches;
+      * rows over every rank: the LMC's and ICM's SGPR MLL and "sgpr"
+        cache (the capacitance couples the latents);
+      * whole on every rank: the dense Woodbury LMC (q·n ≤
+        ``DENSE_QN_MAX``) and its "lmc" cache, the "icm" cache's n×n eigh
+        (the dense ICM MLL splits its t Cholesky blocks over the ranks);
+      * test points over every rank: every posterior."""
     from ..models.exact import ExactGPModel
     from ..models.multitask import MultitaskGPModel
     from ..models.variational import VariationalMultitaskGPModel

@@ -89,12 +89,29 @@ def sharded_fit_step(model, mesh, loss_fn=None, lr: float = 1e-2,
         opt.zero_grad(set_to_none=False)
         loss = -loss_fn(model)
         loss.backward()
-        mesh.average_([p.grad if p.grad is not None
-                       else torch.zeros_like(p) for p in params])
+        average_gradients(mesh, params)
         opt.step()
         return loss.detach()
 
     return step, model, opt
+
+
+def average_gradients(mesh, params):
+    """Each parameter's gradient replaced by its mean over the ranks of
+    ``mesh``, in one ``all_reduce`` (a dtype). A gradient that is None on a
+    rank counts as zeros, and the mean is written to ``p.grad``; a
+    parameter that no rank gave a gradient keeps None, so that the
+    optimizer skips it as it would in one process."""
+    if mesh.group("world") is None or not params:
+        return
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    had = torch.tensor([float(p.grad is not None) for p in params],
+                       dtype=params[0].dtype, device=params[0].device)
+    mesh.average_(grads + [had])
+    for p, g, h in zip(params, grads, had.tolist()):
+        if p.grad is None and h > 0:
+            p.grad = g
 
 
 def dryrun_step(model, mesh, loss_fn=None) -> float:

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .module import keyed_state, trainable_parameters
+from .parallel.sharded import average_gradients
 from .utils.device import check_device
 
 
@@ -96,6 +97,11 @@ def fit(model, loss_fn: Callable = None, n_iter: int = 10000, lr: float = 1e-2,
     rounds up to a multiple of it. With ``scan_steps=1``, ``block_every``:
     the loss is read (a sync) every that many steps.
 
+    A model sharded over a mesh (``parallel.shard_model``) has its
+    gradients averaged over the ranks after each backward, as
+    ``parallel.sharded_fit_step`` does, so that every rank takes the same
+    step and reads the same losses.
+
     ``checkpoint_every`` > 0 with a ``checkpoint_path`` saves the model
     (``utils.checkpoint.save_model``, the JAX package's key-path-keyed
     .npz) every that many steps, and once at the end. ``eval_every`` > 0
@@ -167,10 +173,17 @@ def fit(model, loss_fn: Callable = None, n_iter: int = 10000, lr: float = 1e-2,
         last_loss = new_loss
         return False
 
+    mesh = getattr(model, "mesh", None)
+    plist = [p for _, p in params]
+
     def step():
         opt.zero_grad(set_to_none=True)
         loss = -(loss_fn(model, generator) if takes_gen else loss_fn(model))
         loss.backward()
+        if mesh is not None:
+            # a rank's gradient holds its shard's terms until averaged
+            # (parallel.sharded)
+            average_gradients(mesh, plist)
         opt.step()
         sched.step()
         return loss.detach()
@@ -286,7 +299,7 @@ def fit_ensemble(models, loss_fn: Callable = None, n_iter: int = 10000,
     keeps launching its kernels (K3) on the card.
 
     Raises ``ValueError`` naming the architecture when the models differ in
-    class, configuration or leaves. Returns ``(models, info)``: the
+    class, configuration or leaves, and for a model sharded over a mesh. Returns ``(models, info)``: the
     length-B list, and info with ``losses`` (iters, B), per-seed ``n_iter``,
     the shared ``train_time`` and per-seed final ``loss``.
     """
@@ -294,6 +307,10 @@ def fit_ensemble(models, loss_fn: Callable = None, n_iter: int = 10000,
     B = len(models)
     if B == 0:
         raise ValueError("fit_ensemble needs at least one model")
+    if any(getattr(m, "mesh", None) is not None for m in models):
+        raise ValueError("fit_ensemble steps unsharded models in lockstep; "
+                         "a model sharded over a mesh (parallel.shard_model) "
+                         "trains with fit or sharded_fit_step")
     ref = _architecture(models[0])
     for i, m in enumerate(models[1:], 1):
         if _architecture(m) != ref:

@@ -2,11 +2,15 @@
 2 × latent 2 laid over two 'hosts' of two ranks, and one of data 4 ×
 latent 1) against the JAX package's unsharded and sharded results, and
 against the unsharded port: the projected, SGPR and variational models,
-and the LMC and ICM families' row-sharded PCG (the fused and composed LMC
-MLLs, the ICM's matrix-free and dense MLLs, ``ExactGPModel``'s iterative
-MLL, the "lmc_iter", "icm" and "icm_iter" caches, ``compute_var``, one
-AdamW step). JAX's probes are fed to the port, and the ICM's JAX's
-eigenbasis of the whitened task covariance (``tests/test_torch_icm.py``).
+and every route of the LMC and ICM families (the fused LMC on its bf16,
+int8, "kr" and "krs" routes, the composed LMC with its fp32 and int8
+loops, CG + SLQ, the dense Woodbury LMC, the ICM's matrix-free and dense
+MLLs, the LMC's and ICM's SGPR MLLs, ``ExactGPModel``'s fused and composed
+iterative MLLs, the "lmc", "lmc_iter", "icm", "icm_iter" and "sgpr" caches,
+``compute_var``, one AdamW step), and ``training.fit`` and
+``fit_two_phase`` on a sharded model. JAX's probes are fed to the port,
+and the ICM's JAX's eigenbasis of the whitened task covariance
+(``tests/test_torch_icm.py``).
 
 One module-scoped fixture spawns the ranks once (``parallel.launch``,
 ``spawn``, a ``file://`` rendezvous in a fresh directory, one torch thread
@@ -33,6 +37,7 @@ from projected_lmc_tpu.models.projected import ProjectedGPModel as JaxProj
 from projected_lmc_tpu.models.variational import \
     VariationalMultitaskGPModel as JaxVar
 from projected_lmc_tpu.module import combine, partition, trainable_mask
+from projected_lmc_tpu.ops import iterative as jit_ops
 from projected_lmc_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from projected_lmc_tpu.parallel.sharded import \
     sharded_fit_step as jax_sharded_fit_step
@@ -109,6 +114,10 @@ MT_N, MT_T, MT_Q, MT_S, MT_RANK = 48, 4, 2, 4, 16
 MT_MLL = dict(iterative=True, max_cg_iters=200, cg_tol=1e-12,
               precond_rank=MT_RANK, num_probes=MT_S)
 MT_CACHE = dict(iterative=True, precond_rank=8)
+# CG + SLQ (no Nyström rank: Jacobi CG), and the SGPR's inducing points
+MT_SLQ = dict(iterative=True, max_cg_iters=200, cg_tol=1e-12,
+              num_probes=MT_S)
+MT_M = 8
 # the mixing factors from the seeded normal draw, not the SVD init (every
 # leaf is moved and carried over anyway)
 MT_MODELS = {
@@ -123,6 +132,14 @@ MT_MODELS = {
                 init_lmc_coeffs=False),
     "exact_iter": dict(kernel_type="matern", outputscales=True,
                        mean_type="constant"),
+    "sgpr_lmc": dict(n_tasks=MT_T, n_latents=MT_Q, model_type="LMC",
+                     kernel_type="matern", mean_type="constant",
+                     init_lmc_coeffs=False, n_inducing_points=MT_M),
+    "sgpr_icm": dict(n_tasks=MT_T, n_latents=MT_Q, model_type="ICM",
+                     kernel_type="matern", mean_type="constant",
+                     init_lmc_coeffs=False, n_inducing_points=MT_M),
+    "exact_composed": dict(kernel_type="matern", outputscales=True,
+                           mean_type="constant", decomp=[[0], [1]]),
 }
 
 
@@ -148,12 +165,14 @@ def _jax_eigenbasis(jm):
 def _multitask_cases():
     """(JAX models, cases): the LMC on both mesh layouts (fused) and its
     one AdamW step, the composed LMC, the ICM's matrix-free and dense MLLs,
-    ``ExactGPModel``'s iterative MLL, the "lmc_iter", "icm_iter" and "icm"
-    caches."""
+    ``ExactGPModel``'s iterative MLLs, the "lmc_iter", "icm_iter" and "icm"
+    caches; the dense Woodbury LMC and its "lmc" cache, CG + SLQ, the int8
+    loops, the "kr" and "krs" backward routes, the SGPR MLLs and "sgpr"
+    caches; ``fit`` and ``fit_two_phase`` on the LMC."""
     X, Y, X_test = _data(MT_N, MT_T, MT_Q, 2, 5)
     jax_models, cases = {}, {}
     for name, args in MT_MODELS.items():
-        if name == "exact_iter":
+        if name.startswith("exact"):
             jm = JaxExact(X, Y, JaxLik(batch_shape=MT_T, dtype=jnp.float64),
                           n_tasks=MT_T, **args)
         else:
@@ -162,15 +181,16 @@ def _multitask_cases():
         jax_models[name] = jm
         cases[name] = dict(check="multitask", X=X, Y=Y, X_test=X_test,
                            args=args, arrays=arrays, mll=MT_MLL,
-                           family="exact" if name == "exact_iter" else "mt",
-                           layouts=[(2, 2)])
+                           family="exact" if name.startswith("exact")
+                           else "mt", layouts=[(2, 2)])
     key = jax.random.PRNGKey(0)
     cases["lmc"]["layouts"] = [(2, 2), (4, 1)]
     for name in ("lmc", "composed"):
         cases[name]["eps"], cases[name]["xi"] = _jax_probes(
             key, (MT_S, MT_Q, MT_RANK))
-    cases["exact_iter"]["eps"], cases["exact_iter"]["xi"] = _jax_probes(
-        key, (MT_S, MT_T, MT_RANK))
+    for name in ("exact_iter", "exact_composed"):
+        cases[name]["eps"], cases[name]["xi"] = _jax_probes(
+            key, (MT_S, MT_T, MT_RANK))
     cases["icm"]["eps"], cases["icm"]["xi"] = _jax_probes(
         jax.random.PRNGKey(5), (MT_S, MT_RANK, MT_T))
     cases["icm"]["eig"] = _jax_eigenbasis(jax_models["icm"])
@@ -180,10 +200,38 @@ def _multitask_cases():
     cases["icm_dense"].pop("eps"), cases["icm_dense"].pop("xi")
     v0 = lambda c: np.asarray(jax.random.normal(                # noqa: E731
         jax.random.PRNGKey(0), (MT_N, c), jnp.float64))
+    lmc = dict(cases["lmc"])
     cases["lmc"].update(cache=MT_CACHE, v0=v0(MT_T))
-    cases["icm"].update(cache=MT_CACHE, v0=v0(1))
+    cases["icm"].update(cache=MT_CACHE, v0=v0(1), compute_var=True)
+    cases["icm_dense"]["compute_var"] = True
     cases["multitask_step"] = dict(cases["lmc"], check="multitask_step")
+    cases["fit"] = dict(lmc, check="fit")
     jax_models["icm_dense"] = jax_models["icm"]
+    # the dense Woodbury LMC (q·n ≤ DENSE_QN_MAX) and its "lmc" cache; CG +
+    # SLQ on JAX's Rademacher probes, Jacobi and Nyström-preconditioned; the
+    # int8 loops; the fused op's "kr" and "krs" backward (JAX's value is
+    # its "lmc" case's: the same MLL, another order of sums); the SGPR
+    # routes with their "sgpr" caches
+    probes = np.asarray(jit_ops.draw_probes(key, MT_N, MT_T, MT_S,
+                                            jnp.float64))
+    no_probes = {k: v for k, v in lmc.items() if k not in ("eps", "xi")}
+    cases["lmc_dense"] = dict(no_probes, mll=None, cache={},
+                              layouts=[(2, 2), (4, 1)])
+    cases["slq"] = dict(no_probes, mll=MT_SLQ, probes=probes)
+    cases["slq_rank"] = dict(no_probes, probes=probes, layouts=[(4, 1)],
+                             mll=dict(MT_SLQ, precond_rank=MT_RANK,
+                                      quad_method="slq"))
+    cases["int8"] = dict(lmc, mll=dict(MT_MLL, matvec_int8=True))
+    cases["int8_composed"] = dict(cases["composed"],
+                                  mll=dict(MT_MLL, matvec_int8=True))
+    cases["kr"] = dict(lmc, env={"PLMC_KR_FUSED": "1"}, ref="lmc",
+                       layouts=[(2, 2), (4, 1)])
+    cases["krs"] = dict(lmc, env={"PLMC_KR_STREAM": "1"}, ref="lmc")
+    for name in ("sgpr_lmc", "sgpr_icm"):
+        cases[name].update(mll=None, cache={})
+    for name in ("lmc_dense", "slq", "slq_rank", "int8"):
+        jax_models[name] = jax_models["lmc"]
+    jax_models["int8_composed"] = jax_models["composed"]
     return jax_models, cases
 
 
@@ -191,34 +239,36 @@ def _jax_multitask_references(jax_models, cases):
     """JAX's loss and gradients for each multitask case, its caches'
     predictions and ``compute_var``, and one LMC step on its 8-device
     mesh."""
-    keys = {"lmc": jax.random.PRNGKey(0), "composed": jax.random.PRNGKey(0),
-            "exact_iter": jax.random.PRNGKey(0), "icm": jax.random.PRNGKey(5)}
     refs = {}
     for name, jm in jax_models.items():
         case = cases[name]
         if case["mll"] is None:
             loss = lambda m: m.mll()                        # noqa: E731
         else:
-            loss = (lambda key: lambda m: m.mll(key=key, **MT_MLL))(
-                keys[name])
+            key = jax.random.PRNGKey(5 if name == "icm" else 0)
+            loss = (lambda key, kw: lambda m: m.mll(key=key, **kw))(
+                key, case["mll"])
         value, grads = _jax_loss_and_grads(jm, loss)
         refs[name] = dict(loss=value, grads=grads)
         if "cache" in case:
             kw = case["cache"]
 
-            def side(m, x, kw=kw):
+            def side(m, x, kw=kw, case=case):
                 c = m.precompute_posterior(**kw)
                 p = m.posterior(x, cache=c, observed=True)
                 out = [p.mean, p.variance]
-                if m.model_type == "ICM":
+                if case.get("compute_var"):
                     out.append(m.compute_var(x))
                 return out
             got = jax.jit(side)(jm, jnp.asarray(case["X_test"]))
             refs[name].update(zip(("mean", "var", "compute_var"),
                                   (np.asarray(a) for a in got)))
+    for name, case in cases.items():
+        if "ref" in case:
+            refs[name] = refs[case["ref"]]
     step, params, opt, static = jax_sharded_fit_step(
         jax_models["lmc"], jax_make_mesh(8),
-        lambda m: m.mll(key=keys["lmc"], **MT_MLL), lr=1e-2)
+        lambda m: m.mll(key=jax.random.PRNGKey(0), **MT_MLL), lr=1e-2)
     params, _, loss = step(params, opt, static)
     refs["multitask_step"] = dict(loss=float(loss), params={
         k: np.asarray(v) for k, v in _keyed_leaves(params) if np.size(v)})
@@ -382,7 +432,18 @@ def test_checkpoint_round_trip_under_the_group(world):
 
 MT_LOSS_CASES = [("lmc", (2, 2)), ("lmc", (4, 1)), ("composed", (2, 2)),
                  ("icm", (2, 2)), ("icm_dense", (2, 2)),
-                 ("exact_iter", (2, 2))]
+                 ("exact_iter", (2, 2)), ("lmc_dense", (2, 2)),
+                 ("lmc_dense", (4, 1)), ("slq", (2, 2)), ("slq_rank", (4, 1)),
+                 ("int8", (2, 2)), ("int8_composed", (2, 2)), ("kr", (2, 2)),
+                 ("kr", (4, 1)), ("krs", (2, 2)), ("sgpr_lmc", (2, 2)),
+                 ("sgpr_icm", (2, 2)), ("exact_composed", (2, 2))]
+# against JAX: the unsharded parity tests' tolerances (loss rtol, gradient
+# rtol, gradient atol) where they differ from the PCG routes' (1e-10, 1e-7,
+# 1e-10): CG + SLQ (tests/test_torch_slq.py) and the int8 loops
+# (tests/test_torch_int8.py, and the composed route's int8 gradients)
+MT_JAX_TOL = {"slq": (1e-9, 1e-7, 1e-9), "slq_rank": (1e-9, 1e-7, 1e-9),
+              "int8": (1e-9, 1e-7, 1e-10),
+              "int8_composed": (1e-9, 1e-5, 1e-9)}
 
 
 def _close_to(got, want, rtol, atol_frac=0.0, what=""):
@@ -394,17 +455,23 @@ def _close_to(got, want, rtol, atol_frac=0.0, what=""):
 
 @pytest.mark.parametrize("case, layout", MT_LOSS_CASES)
 def test_sharded_multitask_mll_and_gradients_match_jax(world, case, layout):
-    """The row-sharded MLL (the fused LMC on data 2 × latent 2 and data 4 ×
-    latent 1, the composed LMC, the ICM's matrix-free and dense MLLs,
-    ``ExactGPModel``'s iterative MLL) and its gradients, averaged over the
+    """Every route's sharded MLL (the fused LMC on data 2 × latent 2 and data
+    4 × latent 1 and its int8, "kr" and "krs" routes, the composed LMC and
+    its int8 loop, CG + SLQ, the dense Woodbury LMC, the ICM's matrix-free
+    and dense MLLs, the LMC's and ICM's SGPR MLLs, ``ExactGPModel``'s fused
+    and composed iterative MLLs) and its gradients, averaged over the
     ranks, against JAX's and the unsharded port's: loss rtol 1e-10,
-    gradients rtol 1e-7 and atol 1e-10 (the unsharded parity tests')."""
+    gradients rtol 1e-7 and atol 1e-10 (the unsharded parity tests'; for
+    CG + SLQ and the int8 loops against JAX, theirs, ``MT_JAX_TOL``)."""
     _, results, refs = world
     want = refs[case]
+    lrtol, grtol, gatol = MT_JAX_TOL.get(case, (1e-10, 1e-7, 1e-10))
     for r in results:
         got = r[case][layout]
         for loss in (got["loss_sharded"], got["loss_unsharded"]):
-            np.testing.assert_allclose(loss, want["loss"], rtol=1e-10)
+            np.testing.assert_allclose(loss, want["loss"], rtol=lrtol)
+        np.testing.assert_allclose(got["loss_sharded"], got["loss_unsharded"],
+                                   rtol=1e-10)
         # the port's names as JAX's key paths (kernels.0 → kernels[0])
         sharded, unsharded = ({jax_key(k)[1:]: g for k, g in
                                got[f"grads_{side}"].items()}
@@ -413,23 +480,28 @@ def test_sharded_multitask_mll_and_gradients_match_jax(world, case, layout):
         assert len(want["grads"]) >= 4
         for k, g in want["grads"].items():
             for other in (sharded, unsharded):
-                np.testing.assert_allclose(other[k], g, rtol=1e-7,
-                                           atol=1e-10, err_msg=k)
+                np.testing.assert_allclose(other[k], g, rtol=grtol,
+                                           atol=gatol, err_msg=k)
             np.testing.assert_allclose(sharded[k], unsharded[k], rtol=1e-7,
                                        atol=1e-10, err_msg=k)
 
 
 @pytest.mark.parametrize("case, kind", [("lmc", "lmc_iter"),
                                         ("icm", "icm_iter"),
-                                        ("icm_dense", "icm")])
+                                        ("icm_dense", "icm"),
+                                        ("lmc_dense", "lmc"),
+                                        ("sgpr_lmc", "sgpr"),
+                                        ("sgpr_icm", "sgpr")])
 def test_sharded_multitask_cache_and_posterior_match_jax(world, case, kind):
-    """The sharded "lmc_iter", "icm_iter" and "icm" caches, ``posterior``
-    on the test points split over the ranks and gathered, and the ICM's
-    ``compute_var``, against JAX's and the unsharded port's (1e-8 of the
-    largest entry, as the unsharded matrix-free posterior tests)."""
+    """The sharded "lmc_iter", "icm_iter", "icm", "lmc" and "sgpr" caches,
+    ``posterior`` on the test points split over the ranks and gathered,
+    and the ICM's ``compute_var``, against JAX's and the unsharded port's
+    (1e-8 of the largest entry, as the unsharded matrix-free posterior
+    tests)."""
     _, results, refs = world
     want = refs[case]
-    names = ("mean", "var") + (("compute_var",) if "icm" in kind else ())
+    names = ("mean", "var") + (("compute_var",) if "compute_var" in want
+                               else ())
     for r in results:
         got = r[case]
         assert got["sharded"]["kind"] == got["unsharded"]["kind"] == kind
@@ -457,6 +529,33 @@ def test_sharded_multitask_step_matches_unsharded_and_jax(world):
             np.testing.assert_allclose(got["params_sharded"][k],
                                        got["params_unsharded"][k],
                                        rtol=1e-4, atol=1e-8, err_msg=k)
+
+
+@pytest.mark.parametrize("run", ["fit", "two_phase"])
+def test_sharded_fit_matches_unsharded_and_the_sharded_step(world, run):
+    """``training.fit`` (2 steps) and ``fit_two_phase`` (3 int8 steps, then
+    1 fp32 step) on the sharded LMC, each rank averaging its gradients
+    after each backward, against the same unsharded run and, for ``fit``,
+    against 2 steps of ``sharded_fit_step`` at the same constant learning
+    rate: every loss to 1e-10, the leaves at the step test's limits (rtol
+    1e-4, atol 1e-8); every rank the same leaves."""
+    results = world[1]
+    for r in results:
+        got = r["fit"]
+        pairs = [(got[f"{run}_sharded"], got[f"{run}_unsharded"])]
+        if run == "fit":
+            pairs.append((got["fit_sharded"], got["step"]))
+        for a, b in pairs:
+            assert len(a["losses"]) == len(b["losses"]) == (
+                2 if run == "fit" else 4)
+            np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-10)
+            assert sorted(a["params"]) == sorted(b["params"])
+            for k, v in b["params"].items():
+                np.testing.assert_allclose(a["params"][k], v, rtol=1e-4,
+                                           atol=1e-8, err_msg=k)
+        for k, v in got[f"{run}_sharded"]["params"].items():
+            np.testing.assert_array_equal(
+                v, results[0]["fit"][f"{run}_sharded"]["params"][k])
 
 
 def test_dryrun_multichip_on_four_cpu_ranks(capsys):

@@ -152,6 +152,83 @@ class TestPlainVersionsAgainstPallas:
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-5, atol=1e-6)
 
+    @pytest.mark.parametrize("kind", ["matern25", "rbf", "matern15",
+                                      "matern05"])
+    @pytest.mark.parametrize("stack", [None, "fp32"])
+    def test_kr_row_block_against_pallas(self, kind, stack):
+        """K4's and K5's row-block forms (a rank's rows under a mesh) on a
+        square input, every row a block row: their plain versions (rows x
+        with Bf against columns x with A) beside JAX's
+        ``lowrank_stationary_reduce_sym_kr`` / ``_krs`` in interpret mode
+        on the same symmetric factors and os-scaled stack, at the square
+        plain versions' tolerances against Pallas
+        (``tests/test_torch_kr.py``: K2's for rows and wx, the JAX tests'
+        for KA)."""
+        x, ls, os_, A, Bf = _kr_factors(130, 31, d=3)
+        args = [jnp.asarray(a) for a in (x, ls, os_, A, Bf)]
+        if stack is None:
+            want = pk.lowrank_stationary_reduce_sym_kr(*args, kind,
+                                                       interpret=True)
+            got = ck.lowrank_stationary_reduce_rows_kr(
+                t32(x), t32(x), t32(ls), t32(os_), t32(Bf), t32(A), kind,
+                device=CPU)
+        else:
+            Ks = ck.scaled_kernel_stack_sym_plain(t32(x), t32(ls), t32(os_),
+                                                  kind)
+            want = pk.lowrank_stationary_reduce_sym_krs(
+                *args, jnp.asarray(Ks.numpy()), kind, interpret=True)
+            got = ck.lowrank_stationary_reduce_rows_krs(
+                t32(x), t32(x), t32(ls), t32(os_), t32(Bf), t32(A), Ks, kind,
+                device=CPU)
+        assert [tuple(a.shape) for a in got] == [(2, 130), (2, 130, 3),
+                                                 (2, 130, 8)]
+        rtol = 5e-3 if kind == "matern05" else 1e-3
+        for g, w, name in zip(got[:2], want[:2], ("rows", "wx")):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=rtol,
+                                       atol=5e-3, err_msg=name)
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
+                                   rtol=2e-3, atol=2e-2, err_msg="KA")
+
+    @pytest.mark.parametrize("d", [1, 4, 21])
+    def test_kr_row_blocks_are_the_square_rows(self, d):
+        """float64: on rows lo..hi − 1 the row-block plain versions equal
+        those rows of the square plain versions (K4's, and K5's on the
+        stack's rows), for each profile, to rounding (A Bfᵀ is symmetric
+        only up to the order of its sums)."""
+        x, ls, os_, A, Bf = (t64(a) for a in _kr_factors(90, 32, d=d))
+        for kind in ("matern25", "rbf", "matern15", "matern05"):
+            square = ck.lowrank_stationary_reduce_sym_kr(x, ls, os_, A, Bf,
+                                                         kind, device=CPU)
+            Ks = ck.scaled_kernel_stack_sym_plain(x, ls, os_, kind)
+            for lo, hi in ((0, 40), (37, 90)):
+                blocks = (
+                    ck.lowrank_stationary_reduce_rows_kr(
+                        x[lo:hi], x, ls, os_, Bf[:, lo:hi], A, kind,
+                        device=CPU),
+                    ck.lowrank_stationary_reduce_rows_krs(
+                        x[lo:hi], x, ls, os_, Bf[:, lo:hi], A, Ks[:, lo:hi],
+                        kind, device=CPU))
+                for got in blocks:
+                    for g, w in zip(got, square):
+                        w = w[:, lo:hi]
+                        assert g.shape == w.shape
+                        np.testing.assert_allclose(
+                            g.numpy(), w.numpy(), rtol=1e-11,
+                            atol=1e-12 * float(w.abs().max()),
+                            err_msg=f"{kind} d={d} rows {lo}:{hi}")
+
+
+def _kr_factors(n, seed, d=3, B=2, r2=4):
+    """x, lengthscales, outputscales in [0.5, 2], and factors A, Bf with
+    A Bfᵀ symmetric, as the fused backward builds them (float32)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (n, d)).astype(np.float32)
+    ls = rng.uniform(0.5, 1.5, (B, 1, d)).astype(np.float32)
+    os_ = rng.uniform(0.5, 2.0, (B,)).astype(np.float32)
+    U = rng.standard_normal((B, n, r2)).astype(np.float32)
+    V = rng.standard_normal((B, n, r2)).astype(np.float32)
+    return x, ls, os_, np.concatenate([U, V], -1), np.concatenate([V, U], -1)
+
 
 class TestWrapperRouting:
     def test_cpu_tensors_take_plain_version_without_a_launch(self):

@@ -1,8 +1,9 @@
 """The port's mesh layer in one process (no spawn): the sharding report
 leaf for leaf against the JAX package's on its 8-device mesh, the mesh's
-axis rule and ranges, a layout's collectives, the errors of the routes
-whose sharded compute waits for ROADMAP A 15 and of a missing card,
-``latent_slice``, the DCP checkpoints and ``entry``."""
+axis rule and ranges, a layout's collectives, every route that once raised
+under a mesh on a one-rank mesh against the unsharded model, the errors of
+``fit_ensemble`` on a sharded model and of a missing card, ``latent_slice``,
+the DCP checkpoints and ``entry``."""
 
 import importlib.util
 from pathlib import Path
@@ -142,48 +143,100 @@ def test_layout_collectives_raise_and_trivial_axes_pass():
 
 
 ITER = dict(iterative=True, precond_rank=8, num_probes=2, max_cg_iters=8)
+
+
+def _mean_var(m):
+    """The posterior's mean and variance at 5 training inputs, summed with
+    weights so that each counts (a scalar to differentiate)."""
+    pred = m.posterior(m.train_x[:5], m.precompute_posterior())
+    return pred.mean.sum() + 3.0 * pred.variance.sum()
+
+
+# every route that once raised under a mesh (their former ROADMAP item),
+# and the SGPR cache, the SGPR posterior, the ICM's SGPR MLL, the composed
+# int8 loop and the "krs" backward beside them
 A15_ROUTES = {
     "LMC dense Woodbury MLL": ("LMC", {}, lambda m: m.mll()),
-    "LMC \"lmc\" cache": ("LMC", {}, lambda m: m.precompute_posterior()),
+    "LMC \"lmc\" cache": ("LMC", {}, _mean_var),
     "LMC CG + SLQ MLL": ("LMC", {}, lambda m: m.mll(iterative=True)),
     "LMC int8 loop": ("LMC", {},
                       lambda m: m.mll(matvec_int8=True, **ITER)),
     "LMC SGPR MLL": ("LMC", dict(n_inducing_points=6), lambda m: m.mll()),
-    "ICM SGPR cache": ("ICM", dict(n_inducing_points=6),
-                       lambda m: m.precompute_posterior()),
+    "ICM SGPR cache": ("ICM", dict(n_inducing_points=6), _mean_var),
     "ExactGPModel composed iterative MLL": (
         "exact", dict(decomp=[[0], [1]]), lambda m: m.mll(**ITER)),
     "fused \"kr\" backward": ("LMC", {}, lambda m: m.mll(**ITER)),
+    "LMC \"sgpr\" cache": ("LMC", dict(n_inducing_points=6), _mean_var),
+    "LMC SGPR posterior": (
+        "LMC", dict(n_inducing_points=6),
+        lambda m: m.posterior(m.train_x[3:9], m.precompute_posterior(),
+                              observed=False).variance.sum()),
+    "ICM SGPR MLL": ("ICM", dict(n_inducing_points=6), lambda m: m.mll()),
+    "LMC composed int8 loop": ("LMC", dict(decomp=[[0], [1]]),
+                               lambda m: m.mll(matvec_int8=True, **ITER)),
+    "fused \"krs\" backward": ("LMC", {}, lambda m: m.mll(**ITER)),
 }
+ROUTE_ENV = {"fused \"kr\" backward": "PLMC_KR_FUSED",
+             "fused \"krs\" backward": "PLMC_KR_STREAM"}
+
+
+def _a15_model(family, kw):
+    if family == "exact":
+        X, Y = make_data(n=24, p=2)
+        X = np.concatenate([X, X[::-1]], 1)
+        return pl.ExactGPModel(X, Y, pl.GaussianLikelihood(
+            batch_shape=2, dtype=torch.float64, device="cpu"), n_tasks=2,
+            device="cpu", **kw)
+    X, Y = make_data(n=24)
+    if "decomp" in kw:
+        X = np.concatenate([X, X[::-1]], 1)
+    return pl.MultitaskGPModel(X, Y[:, :4], n_tasks=4, n_latents=2,
+                               model_type=family, kernel_type="matern",
+                               device="cpu", **kw)
 
 
 @pytest.mark.parametrize("route", sorted(A15_ROUTES))
 def test_shard_model_takes_the_lmc_and_icm_and_routes_left_raise(
         monkeypatch, route):
     """``shard_model`` takes the LMC and the ICM (``MultitaskGPModel``) and
-    ``ExactGPModel``; each route that ROADMAP A 15 leaves unsharded raises
-    ``NotImplementedError`` naming it under a mesh, never computing
-    without its shard."""
+    ``ExactGPModel``, and no route is left raising under a mesh: each
+    route that once did, on a one-rank mesh (its row-block, world-sum and
+    world-max code paths, with the kernels' plain versions), gives the
+    unsharded model's value (rtol 1e-12) and gradients (1e-10 of each
+    leaf's largest entry)."""
     family, kw, call = A15_ROUTES[route]
-    if family == "exact":
-        X, Y = make_data(n=24, p=2)
-        X = np.concatenate([X, X[::-1]], 1)
-        model = pl.ExactGPModel(X, Y, pl.GaussianLikelihood(
-            batch_shape=2, dtype=torch.float64, device="cpu"), n_tasks=2,
-            device="cpu", **kw)
-    else:
-        X, Y = make_data(n=24)
-        model = pl.MultitaskGPModel(X, Y[:, :4], n_tasks=4, n_latents=2,
-                                    model_type=family, kernel_type="matern",
-                                    device="cpu", **kw)
-    if route.startswith("fused"):
-        monkeypatch.setenv("PLMC_KR_FUSED", "1")
+    if route in ROUTE_ENV:
+        monkeypatch.setenv(ROUTE_ENV[route], "1")
+    plain, model = _a15_model(family, kw), _a15_model(family, kw)
     assert parallel.shard_model(model, make_mesh(1)) is model
     assert model.mesh is not None
-    with pytest.raises(NotImplementedError, match="A 15"):
-        call(model)
+    values = []
+    for m in (plain, model):
+        value = call(m)
+        value.backward()
+        values.append(float(value.detach()))
+    np.testing.assert_allclose(values[1], values[0], rtol=1e-12)
+    grads = [{k: p.grad for k, p in m.named_parameters()
+              if p.grad is not None} for m in (plain, model)]
+    assert len(grads[0]) >= 3
+    for k, g in grads[0].items():
+        assert torch.allclose(grads[1][k], g, rtol=0,
+                              atol=1e-10 * float(g.abs().max())), k
+    # a leaf the plain route leaves without a gradient gets zeros at most
+    for k in set(grads[1]) - set(grads[0]):
+        assert not bool(grads[1][k].any()), k
     with pytest.raises(TypeError):
         parallel.shard_model(torch.nn.Linear(2, 2), make_mesh(1))
+
+
+def test_fit_ensemble_refuses_a_sharded_model():
+    """``fit_ensemble`` steps unsharded models in lockstep: a model on a
+    mesh is refused, with a message naming the alternatives."""
+    model = parallel.shard_model(_multitask(pl, "LMC", device="cpu"),
+                                 make_mesh(1))
+    with pytest.raises(ValueError, match="sharded over a mesh"):
+        pl.fit_ensemble([model, _multitask(pl, "LMC", device="cpu")],
+                        n_iter=1, device="cpu")
 
 
 def test_initialize_without_a_card_raises():

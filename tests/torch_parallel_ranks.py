@@ -6,6 +6,7 @@ JAX package (the test process holds those and compares); the ranks return
 numpy arrays."""
 
 import contextlib
+import os
 
 import torch
 
@@ -187,21 +188,42 @@ def _eigenbasis(case):
         it._eigh_fixed_signs = own
 
 
-def _multitask(case, mesh, meshes):
-    """The LMC/ICM (or ``ExactGPModel``'s iterative) MLL with its
-    gradients, sharded on each of the case's mesh layouts, beside the
-    unsharded port; then, with a "cache" entry, the sharded cache and
-    ``posterior`` (and the ICM's ``compute_var``)."""
-    eps, xi = (None if case.get(k) is None else torch.tensor(case[k])
-               for k in ("eps", "xi"))
+@contextlib.contextmanager
+def _env(case):
+    """The case's environment (a backward route's switch) while it runs."""
+    old = {k: os.environ.get(k) for k in case.get("env", {})}
+    os.environ.update(case.get("env", {}))
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _loss_fn(case):
+    """The case's MLL, with JAX's probes: eps and xi for a PCG route, the
+    Rademacher ``probes`` for CG + SLQ."""
+    draws = {k: torch.tensor(case[k]) for k in ("eps", "xi", "probes")
+             if case.get(k) is not None}
 
     def loss_fn(m):
         if case["mll"] is None:
             return m.mll()
-        return m.mll(eps=eps, xi=xi, **case["mll"])
+        return m.mll(**draws, **case["mll"])
+    return loss_fn
 
+
+def _multitask(case, mesh, meshes):
+    """The LMC/ICM (or ``ExactGPModel``'s iterative) MLL with its
+    gradients, sharded on each of the case's mesh layouts, beside the
+    unsharded port; then, with a "cache" entry, the sharded cache and
+    ``posterior`` (and, with "compute_var", the ICM's ``compute_var``)."""
+    loss_fn = _loss_fn(case)
     out = {}
-    with _eigenbasis(case):
+    with _eigenbasis(case), _env(case):
         for layout in case["layouts"]:
             _, out[layout] = _loss_and_grads(
                 lambda: _multitask_model(case), loss_fn, meshes[layout])
@@ -220,7 +242,7 @@ def _multitask(case, mesh, meshes):
                 pred = model.posterior(x, cache=cache, observed=True)
                 out[label] = dict(kind=cache["kind"], mean=_np(pred.mean),
                                   var=_np(pred.variance))
-                if model.icm:
+                if case.get("compute_var"):
                     out[label]["compute_var"] = _np(model.compute_var(x))
     return out
 
@@ -230,10 +252,7 @@ def _multitask_step(case, mesh):
     from projected_lmc_tpu_torch.module import keyed_state, \
         trainable_parameters
     from projected_lmc_tpu_torch.parallel import sharded_fit_step
-    eps, xi = torch.tensor(case["eps"]), torch.tensor(case["xi"])
-
-    def loss_fn(m):
-        return m.mll(eps=eps, xi=xi, **case["mll"])
+    loss_fn = _loss_fn(case)
 
     ref = _multitask_model(case)
     opt = torch.optim.AdamW([p for _, p in trainable_parameters(ref)],
@@ -253,9 +272,49 @@ def _multitask_step(case, mesh):
                         if k[1:] in trained})
 
 
+def _fit(case, mesh):
+    """``training.fit`` on the LMC, unsharded and sharded (its gradients
+    averaged over the ranks after each backward), beside 2 steps of
+    ``sharded_fit_step`` at the same constant learning rate; then
+    ``fit_two_phase`` (an int8 phase, then an fp32 one), unsharded and
+    sharded. Each run's losses and its trained leaves."""
+    from projected_lmc_tpu_torch.module import keyed_state, \
+        trainable_parameters
+    from projected_lmc_tpu_torch.parallel import shard_model, \
+        sharded_fit_step
+    from projected_lmc_tpu_torch.training import fit, fit_two_phase
+    loss_fn = _loss_fn(case)
+    coarse = _loss_fn(dict(case, mll=dict(case["mll"], matvec_int8=True)))
+    kw = dict(schedule=lambda i: 1e-2, scan_steps=1, patience=100,
+              device="cpu")
+
+    def leaves(m):
+        trained = {n for n, _ in trainable_parameters(m)}
+        return {k: _np(v) for k, v in keyed_state(m).items()
+                if k[1:] in trained}
+
+    out = {}
+    for label in ("unsharded", "sharded"):
+        for name, train in (
+                ("fit", lambda m: fit(m, loss_fn, n_iter=2, **kw)),
+                ("two_phase", lambda m: fit_two_phase(
+                    m, coarse, loss_fn, n_iter=4, fine_frac=0.25, **kw))):
+            m = _multitask_model(case)
+            if label == "sharded":
+                m = shard_model(m, mesh)
+            m, info = train(m)
+            out[f"{name}_{label}"] = dict(losses=list(info["losses"]),
+                                          params=leaves(m))
+    step, m, _ = sharded_fit_step(_multitask_model(case), mesh, loss_fn,
+                                  lr=1e-2)
+    out["step"] = dict(losses=[float(step()) for _ in range(2)],
+                       params=leaves(m))
+    return out
+
+
 CHECKS = {"projected": _projected, "variational": _variational,
           "step": _step, "checkpoint": _checkpoint,
-          "multitask_step": _multitask_step}
+          "multitask_step": _multitask_step, "fit": _fit}
 
 
 def run(rank, cases):
