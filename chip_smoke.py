@@ -5,8 +5,10 @@ Run from the repository root on a machine with one NVIDIA card (H100):
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --only M`` builds the kernels and runs path M
-alone, without the kernels line and the result line.) Phases, each printing its own line(s); any failure raises and exits non-zero:
+(``python3 chip_smoke.py --only M`` or ``--only N`` builds the kernels and
+runs path M or path N alone, without the kernels line and the result
+line.) Phases, each printing its own line(s); any failure raises and
+exits non-zero:
 
   1. the card's name and power limit (nvidia-smi) and the kernel build time
      (nvcc of ``projected_lmc_tpu_torch/csrc/stationary.cu``);
@@ -77,14 +79,15 @@ alone, without the kernels line and the result line.) Phases, each printing its 
      steps: ``prediction_cache`` once, 8 ``predict`` calls on 2,500 held-out
      points (first and median), one cold ``predict``, one ``compute_loo``,
      peak memory and the 15 metrics of ``compute_metrics``. G2: the paper's
-     synthetic default in F1's four configurations, ``fit`` to the plateau
-     (at most 2,000 steps), ``predict(observed=True)`` on its 2,500 test
-     points and R², RMSE, PVA and α_CI beside the README's JAX figures. G3:
-     phase 4's model trained as phase 4, its "lmc_iter" cache (the dense K3
-     stack, Nyström roots, PCG to 1e-5, the residual's spectral bound, the
-     inflated factors) timed by part with the PCG's iterations, its host
-     time an iteration and peak memory, ``posterior`` on 2,500 points, and
-     ``fit`` with the default (dense Woodbury) loss at q·n = 4,096. K3 at
+     synthetic default in F1's four configurations, ``fit`` for at most 2,000
+     steps (to the plateau or the cap; the line says which),
+     ``predict(observed=True)`` on its 2,500 test points and R², RMSE, PVA and
+     α_CI beside the README's JAX figures. G3: phase 4's model trained as phase
+     4, its "lmc_iter" cache (the dense K3 stack, Nyström roots, PCG to 1e-5,
+     the residual's spectral bound, the inflated factors) timed by part with
+     the PCG's iterations, its host time an iteration and peak memory,
+     ``posterior`` on 2,500 points, and ``fit`` with the default (dense
+     Woodbury) loss at q·n = 4,096. K3 at
      the path's cross-covariance shapes against its plain version and
      bitwise against K6; the card against the CPU (same leaves, moved off the
      init) at n = 2048 for G1 and G3 (both routes; the LOO at n = 512) and
@@ -93,12 +96,12 @@ alone, without the kernels line and the result line.) Phases, each printing its 
      LOO σ² and residuals within 1e-3, each metric within 1e-3.
   H. path H: the exact ICM (``MultitaskGPModel(model_type="ICM")``, K3
      only). H1: the experiment driver's ICM (likelihood rank 25,
-     n_latents 25) on the paper's synthetic default, ``fit`` to the plateau
-     (at most 2,000 steps) on the dense route with its eigh's share, then
-     the "icm" cache, ``posterior`` and ``compute_var`` on the 2,500 test
-     points and the metrics, held against the CPU's fp64 metrics on the same
-     leaves (no farther than the CPU's fp32 ones, within 1e-3 where those
-     are). H2: the matrix-free route at n = 16,384, T = 7, q = 4, d = 4,
+     n_latents 25) on the paper's synthetic default, ``fit`` for at most 2,000
+     steps (to the plateau or the cap) on the dense route with its eigh's
+     share, then the "icm" cache, ``posterior`` and ``compute_var`` on the
+     2,500 test points and the metrics, held against the CPU's fp64 metrics on
+     the same leaves (no farther than the CPU's fp32 ones, within 1e-3 where
+     those are). H2: the matrix-free route at n = 16,384, T = 7, q = 4, d = 4,
      trained as phase 4 (2 chunks of 16 bf16 steps), the device split by
      labelled ranges, then the "icm_iter" cache timed by part, ``posterior``
      and ``compute_var`` on 2,500 points; K3 at its (1, n, n) fp32 and bf16
@@ -111,7 +114,8 @@ alone, without the kernels line and the result line.) Phases, each printing its 
      the LOO at n = 512), with path G's limits.
   I. path I: variational LMC and SGPR (K3 only). I1: the driver's var
      model (likelihood rank 25, q = 25, m = 333) on the paper's synthetic
-     default, ``fit`` on the ELBO to the plateau (at most 2,000 steps),
+     default, ``fit`` on the ELBO for at most 1,000 steps (a cap it
+     reaches short of the plateau; the line says where it stopped),
      ``model(x, observed=True)`` on the 2,500 test points and the metrics,
      then ``sgpr_em()`` from the same init and its metrics. I2: the ELBO at
      ``bench_var_elbo``'s shapes (n = 4,449, d = 21, T = q = 7, m = 500),
@@ -137,8 +141,9 @@ alone, without the kernels line and the result line.) Phases, each printing its 
      ``mll()``'s defaults and 8 with ``quad_method="slq"``, rank 256, bf16:
      CG iterations, the tridiagonal eigh's share, peak memory. J3: the
      tidal configuration on a seeded tidal-shaped series (the spectral
-     mixture with its periodogram init), the ICM and PLMC ``fit`` to the
-     plateau (≤ 1,000 steps, 16-step chunks) with R², RMSE, PVA and α_CI
+     mixture with its periodogram init), the ICM and PLMC ``fit`` for at
+     most 500 steps (16-step chunks; a cap they reach short of the plateau,
+     the line says where each stopped) with R², RMSE, PVA and α_CI
      on the held-out day. J4: ``ExactGPModel`` at n = 2,500 with a linear
      and a polynomial mean and a spline kernel, 16 ``fit`` steps with
      ``exponential_schedule``, one 16-step chunk, checkpoints and evals,
@@ -232,9 +237,25 @@ alone, without the kernels line and the result line.) Phases, each printing its 
      bitwise repeats at M1's (2, 5,000, 10⁴) block, where they are timed
      with their bounds, and at ``M_KR_BRANCHES`` (d = 21 padded to 32, n1
      below a tile, rows not on 16 bytes), K5 on bf16 and fp32 blocks.
+  N. path N: K3 against its plain version and bitwise K6 at the shapes the
+     examples give it (each example's seeded data and its model as built:
+     01's (300, 300) and (400, 300) at d = 1, 02's SGPR blocks against
+     m = 128 at d = 4, 03's rank row block (128, 512) and (512, 512) at
+     d = 3, 04's (200, 200) at d = 2); then the four examples of
+     ``examples_torch/`` (the JAX package's
+     ``examples/``, ported), each run on the card as a subprocess
+     (``python3 examples_torch/0k_….py``, no ``--cpu``) that loads the
+     library this process built (the build directory is unchanged after
+     them): each one's exit code and the markers the JAX examples' tests
+     assert, every printed loss finite; each one's wall time and library
+     load time, 02's serving batches' times, 01's R², RMSE and α_CI; the
+     launches of each example's processes, read from
+     ``PLMC_LAUNCH_COUNTS``: K3 at least once in each process that runs a
+     model (01's, 02's and 04's script, each of 03's 8 ranks).
 
 Every training run sets the launch counts to 0 just before it and reads
-them just after. The last lines are one JSON object with every kernel's
+them just after (path N's subprocesses start at 0 and report theirs at
+exit). The last lines are one JSON object with every kernel's
 numbers (launches summed over those runs), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Needs no network and imports nothing of
 JAX.
@@ -249,6 +270,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -1077,16 +1099,11 @@ def routed(route):
 
 
 def wrappers(ck):
-    return {"K1": ck.scaled_kernel_stack_sym,
-            "K2": ck.lowrank_stationary_reduce_sym,
-            "K3": ck.kernel_matrix,
-            "K4": ck.lowrank_stationary_reduce_sym_kr,
-            "K5": ck.lowrank_stationary_reduce_sym_krs,
-            "K6": ck.scaled_kernel_stack,
-            "K7": ck.lowrank_stationary_reduce,
-            "K8": ck.quantized_kernel_stack,
-            "K4r": ck.lowrank_stationary_reduce_rows_kr,
-            "K5r": ck.lowrank_stationary_reduce_rows_krs}
+    """{label: wrapper} of every counted kernel, the library's own list."""
+    if tuple(ck.COUNTED) != KERNELS:
+        raise SystemExit(f"chip_smoke: the library counts {tuple(ck.COUNTED)}"
+                         f", this script knows {KERNELS}")
+    return ck.COUNTED
 
 
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K4r", "K5r")
@@ -1868,10 +1885,25 @@ def path_f_phase(torch, pl, ck, dev, totals):
 
 # path G: prediction served from a cache built once. G1: projected LMC at F2's
 # widths; G2: the paper's synthetic default in the experiments' four model
-# configurations, trained to the plateau; G3: the exact-LMC model of phase 4.
+# configurations, trained to the plateau or the cap; G3: the exact-LMC model
+# of phase 4.
 # Card against CPU at F_CHECK_N (the multitask LOO, which factorizes the
 # dense (n·T)² system, at G_LOO_N).
+# G2's and H1's plateau cap. At 1,000 steps G2's PLMC_fast mean parts from
+# the CPU's by 1.08e-4 (limit 1e-4; 9.29e-5 at 2,000) and H1's metrics from
+# the fp64 ones by more than the CPU's fp32 metrics do, so both keep 2,000.
 N_TEST, G_STEPS, G_PREDICTS, G2_MAX_ITER = 2500, 16, 8, 2000
+I1_MAX_ITER = 1000          # I1's cap, short of its plateau: finite metrics
+
+
+def stop_note(steps, cap):
+    """Where a fit capped at ``cap`` steps stopped: at the cap (its metrics
+    are those of a fit cut short of the plateau) or at the plateau."""
+    return (f"stopped at its cap of {cap} steps, short of the plateau"
+            if steps >= cap else f"stopped at the plateau, below its cap "
+            f"of {cap} steps")
+
+
 G_DENSE_N = 1024            # q·n = 4096, the dense Woodbury MLL's largest
 G_CHECK_TEST, G_LOO_N = 500, 512
 # README.md's JAX figures for the synthetic default under the fully
@@ -2056,10 +2088,10 @@ def path_g1(torch, pl, ck, fm, dev, totals):
 
 def path_g2(torch, pl, ck, fm, dev, totals):
     """G2: the paper's synthetic default in the experiments' four model
-    configurations, ``fit`` to the plateau (at most 2,000 steps),
-    ``predict(observed=True)`` on the 2,500 test points and the metrics,
-    beside the README's fully converged JAX figures; the card against the
-    CPU on each trained model."""
+    configurations, ``fit`` for at most ``G2_MAX_ITER`` steps (to the plateau
+    or the cap, which the line says), ``predict(observed=True)`` on the 2,500
+    test points and the metrics, beside the README's fully converged JAX
+    figures; the card against the CPU on each trained model."""
     from projected_lmc_tpu_torch.experiments import generate_synthetic
     data = generate_synthetic()
     X, Y, Xt, Yt = data["X"], data["Y"], data["X_test"], data["Y_test"]
@@ -2088,9 +2120,10 @@ def path_g2(torch, pl, ck, fm, dev, totals):
                 pred_ms / 1e3)
         got = pl.compute_metrics(Yt, mean, torch.sqrt(var), *args,
                                  print_metrics=False)
-        print(f"  {label}: {steps} steps in {info['train_time']:.1f} s, loss "
-              f"{info['loss']:.6f}; R2 {got['R2']:.4f} (README, JAX, fully "
-              f"converged: {README_R2[name]}), RMSE {got['RMSE']:.4f}, PVA "
+        print(f"  {label}: {steps} steps ({stop_note(steps, G2_MAX_ITER)}) "
+              f"in {info['train_time']:.1f} s, loss {info['loss']:.6f}; R2 "
+              f"{got['R2']:.4f} (README, JAX, fully converged: "
+              f"{README_R2[name]}), RMSE {got['RMSE']:.4f}, PVA "
               f"{got['PVA']:.4f}, alpha_CI {got['alpha_CI']:.4f}; predict "
               f"{pred_ms:.3f} ms")
         if not all(math.isfinite(v) for v in got.values()):
@@ -2453,10 +2486,11 @@ def icm_metrics(pl, torch, model, x_test, Yt, info, pred_s):
 
 
 def path_h1(torch, pl, ck, dev, totals):
-    """H1: the driver's ICM on the paper's synthetic default, ``fit`` to the
-    plateau (at most 2,000 steps) on the dense route; the "icm" cache,
-    ``posterior`` and ``compute_var`` on the 2,500 test points and the
-    metrics; the card against the CPU on the trained model."""
+    """H1: the driver's ICM on the paper's synthetic default, ``fit`` for at
+    most ``G2_MAX_ITER`` steps (to the plateau or the cap, which the line says)
+    on the dense route; the "icm" cache, ``posterior`` and ``compute_var`` on
+    the 2,500 test points and the metrics; the card against the CPU on the
+    trained model."""
     from projected_lmc_tpu_torch.experiments import generate_synthetic
     data = generate_synthetic()
     X, Y, Xt, Yt = data["X"], data["Y"], data["X_test"], data["Y_test"]
@@ -2480,7 +2514,8 @@ def path_h1(torch, pl, ck, dev, totals):
                                               names=H_RANGES)
     _, eigh_host, eigh_dev = ranges["H eigh"]
     print(f"  H1 driver ICM (n={X.shape[0]}, p={Y.shape[1]}, q={F1_Q}, "
-          f"likelihood rank {F1_Q}): {steps} steps in "
+          f"likelihood rank {F1_Q}): {steps} steps "
+          f"({stop_note(steps, G2_MAX_ITER)}) in "
           f"{info['train_time']:.1f} s, loss first {info['losses'][0]:.6f} "
           f"last {info['loss']:.6f}; median step {median:.3f} ms; K3 once "
           f"and {factorizations:g} factorizations a step; profiled MLL "
@@ -2934,12 +2969,14 @@ def k3_shapes(torch, ck, dev, pairs, ls):
 
 
 def path_i1(torch, pl, ck, dev, totals):
-    """I1: the driver's "var" model on the paper's synthetic default
-    (n = 500, p = 100, q = 25, d = 1, m = 333), ``fit`` on the ELBO to the
-    plateau (at most 2,000 steps); ``model(x_test, observed=True)`` on the
-    2,500 test points and the metrics; then ``sgpr_em()`` from the same
-    initial model (the driver's ``var_fit="em"``) and its metrics. K3 at
-    the path's shapes against its plain version."""
+    """I1: the driver's "var" model on the paper's synthetic default (n = 500,
+    p = 100, q = 25, d = 1, m = 333), ``fit`` on the ELBO for at most
+    ``I1_MAX_ITER`` steps (a cap it reaches short of the plateau, so the
+    metrics are those of the capped fit; the line says where it stopped);
+    ``model(x_test, observed=True)`` on the 2,500 test points and the metrics;
+    then ``sgpr_em()`` from the same initial model (the driver's
+    ``var_fit="em"``) and its metrics. K3 at the path's shapes against its
+    plain version."""
     from projected_lmc_tpu_torch.experiments import generate_synthetic
     data = generate_synthetic()
     X, Y, Xt, Yt = data["X"], data["Y"], data["X_test"], data["Y_test"]
@@ -2950,7 +2987,7 @@ def path_i1(torch, pl, ck, dev, totals):
           f"m={z.shape[0]}, likelihood rank {F1_Q}")
     k3_shapes(torch, ck, dev, ((model.train_x, z), (z, z), (x_test, z)),
               model.covar_module.lengthscale.detach())
-    info, _ = sgpr_fit(torch, pl, ck, model, G2_MAX_ITER, "I1 fit (ELBO)",
+    info, _ = sgpr_fit(torch, pl, ck, model, I1_MAX_ITER, "I1 fit (ELBO)",
                        totals, loss=lambda m: m.elbo(),
                        schedule=pl.lambda_lr_schedule(1e-2, 1e-3))
     with torch.no_grad():
@@ -2959,7 +2996,8 @@ def path_i1(torch, pl, ck, dev, totals):
         _, pred_ms = served(torch, ck, "I1 forward", 2,
                             lambda: model(x_test, observed=True), totals)
     got = var_metrics(pl, torch, model, x_test, Yt, info, pred_ms / 1e3)
-    print(f"  I1 served: forward ({len(Xt)} points, observed) {pred_ms:.3f} "
+    print(f"  I1 served (the fit {stop_note(len(info['losses']), I1_MAX_ITER)}"
+          f"): forward ({len(Xt)} points, observed) {pred_ms:.3f} "
           f"ms (the first {first_ms:.3f}); R2 {got['R2']:.4f} (README, JAX "
           f"var fully converged: {README_VAR_R2}), RMSE {got['RMSE']:.4f}, "
           f"PVA {got['PVA']:.4f}, alpha_CI {got['alpha_CI']:.4f}")
@@ -3363,7 +3401,8 @@ J_DECOMP = [[0, 1], [2, 3]]
 J_STEPS = 8                              # J2's steps per setting
 J_SLQ_KW = dict(quad_method="slq", precond_rank=256, matvec_bf16=True,
                 max_cg_iters=16, cg_tol=2e-2, num_probes=8)
-J3_DAYS, J3_SAMPLE_S, J3_EVERY, J3_MAX_ITER = 14, 300, 4, 1000
+# J3's cap, short of its plateau: its checks are finite metrics
+J3_DAYS, J3_SAMPLE_S, J3_EVERY, J3_MAX_ITER = 14, 300, 4, 500
 J4_N, J5_N = 2500, 8192
 README_TIDAL_R2 = (0.920, 0.923)        # README.md: real bramblemet (context)
 
@@ -3615,9 +3654,11 @@ def tidal_predict(torch, name, model, x):
 
 def path_j3(torch, pl, ck, dev, totals):
     """J3: the tidal configuration (spectral mixture, no K3): the ICM and
-    PLMC, each ``fit`` to the plateau (at most 1,000 steps, the loader's
-    loss_thresh 1e-7), median step, and R², RMSE, PVA and α_CI on the
-    held-out day."""
+    PLMC, each ``fit`` for at most ``J3_MAX_ITER`` steps at the loader's
+    loss_thresh 1e-7 (a cap they reach short of the plateau, so the metrics
+    are those of the capped fits; the line says where each stopped), median
+    step, and R², RMSE, PVA and α_CI on
+    the held-out day."""
     X, Y, Xt, Yt = tidal_series()
     x_test = torch.as_tensor(Xt, device=dev)
     models = tidal_models(pl, X, Y, dev)
@@ -3642,9 +3683,10 @@ def path_j3(torch, pl, ck, dev, totals):
                                  noise, info["n_iter"], info["train_time"],
                                  pred_ms / 1e3, print_metrics=False)
         print(f"  J3 {name}: {len(info['losses'])} steps (n_iter "
-              f"{info['n_iter']}) in {info['train_time']:.2f} s, step "
-              f"{ms_range(step_ms)}; R2 {got['R2']:.4f} (README, real "
-              f"bramblemet data, JAX: {README_TIDAL_R2}, context only), RMSE "
+              f"{info['n_iter']}, {stop_note(info['n_iter'], J3_MAX_ITER)}) "
+              f"in {info['train_time']:.2f} s, step {ms_range(step_ms)}; R2 "
+              f"{got['R2']:.4f} (README, real bramblemet data, JAX: "
+              f"{README_TIDAL_R2}, context only), RMSE "
               f"{got['RMSE']:.4f}, PVA {got['PVA']:.4f}, alpha_CI "
               f"{got['alpha_CI']:.4f}")
         if not all(math.isfinite(v) for v in got.values()):
@@ -5954,13 +5996,203 @@ def m12_check(out, one_rank, totals):
                              "sharded_fit_step's run on every rank")
 
 
+# Path N: the examples, each as a subprocess on the card
+N_EXAMPLES = (
+    ("01_quickstart_projected.py", ("R2=", "alpha_CI=")),
+    ("02_sgpr_serving.py", ("cache == self-contained: True",)),
+    ("03_multichip_sharding.py", ("match: True", "'data': 4", "'latent': 2")),
+    ("04_checkpoint_resume.py", ("matches phase-1 final: True",
+                                 "improved: True")),
+)
+N_RANKS = {"03_multichip_sharding.py": 8}   # spawned ranks (else none)
+N_KERNELS = ("K3",)              # launched in every process that runs a model
+N_ARGS = ()                              # an example's arguments (no --cpu)
+N_TIMEOUT = 420                          # seconds for one example
+N_START = ("import torch, projected_lmc_tpu_torch; "
+           "torch.ones(1, device='cuda').sum().item()")
+N_LOSS = re.compile(r"\bloss (\S+?)[,\s]")
+
+
+def _build_listing(build_dir) -> dict:
+    return {p.name: p.stat().st_mtime_ns for p in build_dir.iterdir()}
+
+
+def run_example(args, env, timeout):
+    """(returncode, stdout, stderr, seconds, pid) of ``python3 *args`` in its
+    own process group, the whole group killed at ``timeout`` (03's ranks
+    with it)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise SystemExit(f"chip_smoke: {args[0]} passed its {timeout} s"
+                         f"\n{out}\n{err}")
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)   # no process outlives it
+    return proc.returncode, out, err, time.perf_counter() - t0, proc.pid
+
+
+def example_counts(path) -> list:
+    """[(pid, {label: launches})], one for each process that wrote a line to
+    the ``PLMC_LAUNCH_COUNTS`` file of one example."""
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [(r["pid"], r["launches"]) for r in map(json.loads, f)]
+
+
+def n_sines(rng, n, d, p, q):
+    """02's and 04's data: q sines of random projections of x mixed to p
+    tasks, with noise 0.05, drawn from ``rng`` in the examples' order."""
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    F = np.stack([np.sin(X @ w) for w in rng.standard_normal((q, d))], axis=1)
+    H = rng.standard_normal((q, p)).astype(np.float32)
+    return X, (F @ H + 0.05 * rng.standard_normal((n, p))).astype(np.float32)
+
+
+def n_k3_checks(torch, pl, dev, ck):
+    """K3 against its plain version and bitwise K6 at the (x1, x2) shapes
+    the examples give it, on each example's own seeded data and its model as
+    built (its lengthscales and inducing points before the fit)."""
+    from projected_lmc_tpu_torch.experiments.synthetic import (
+        generate_synthetic)
+
+    def model(X, Y, p, q, **kw):
+        m = pl.ProjectedGPModel(X, Y, p, q, init_lmc_coeffs=True,
+                                kernel_type="matern", device=dev, **kw)
+        return m, m.train_x, m.covar_module.lengthscale.detach()
+
+    # 01: K(x, x) in the fit, K(x_test, x) in predict
+    data = generate_synthetic(n=300, p=12, q=3, q_noise=3, mu_noise=0.1,
+                              mu_str=0.9, max_scale=0.5, n_test=400, seed=0)
+    _, x, ls = model(data["X"], data["Y"], 12, 3, BDN=False,
+                     diagonal_B=False, scalar_B=False)
+    x_test = torch.as_tensor(data["X_test"], device=dev)
+    k3_shapes(torch, ck, dev, ((x, x), (x_test, x)), ls)
+    # 02: SGPR, m = 128 at d = 4: the fit's K(x, z) and K(z, z), a serving
+    # batch of 256 and the 64 points of the cache check against z
+    rng = np.random.default_rng(0)
+    X, Y = n_sines(rng, 4000, 4, 6, 3)
+    xb = torch.as_tensor(rng.standard_normal((256, 4)).astype(np.float32),
+                         device=dev)
+    m, x, ls = model(X, Y, 6, 3, BDN=True, scalar_B=True, diagonal_B=True,
+                     n_inducing_points=128)
+    z = m.inducing_points.detach()
+    k3_shapes(torch, ck, dev, ((x, z), (z, z), (xb, z), (x[:64], z)), ls)
+    # 03: n = 512 at d = 3 on data 4 x latent 2: a rank's row block and all
+    # rows at its one latent, and the unsharded model's (2, n, n)
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((512, 3)).astype(np.float32)
+    Y = rng.standard_normal((512, 8)).astype(np.float32)
+    _, x, ls = model(X, Y, 8, 2, BDN=True, scalar_B=True, diagonal_B=True)
+    k3_shapes(torch, ck, dev, ((x[:512 // 4], x), (x, x)), ls[:1])
+    k3_shapes(torch, ck, dev, ((x, x),), ls)
+    # 04: n = 200 at d = 2, K(x, x) in both fits and in predict
+    X, Y = n_sines(np.random.default_rng(0), 200, 2, 5, 2)
+    _, x, ls = model(X, Y, 5, 2, BDN=True, scalar_B=True)
+    k3_shapes(torch, ck, dev, ((x, x),), ls)
+
+
+def path_n_phase(torch, pl, ck, dev, build_dir, card, totals):
+    """Path N: K3 at the examples' shapes against its plain version, then
+    each example of ``examples_torch/`` on the card as a subprocess, with
+    the launches of each of its processes (K3 in every process that runs a
+    model: the script, or each of 03's ranks), its markers, its finite
+    losses, its wall and library load times; the build directory unchanged
+    by them (they load the library this process built)."""
+    import tempfile
+    t0 = time.perf_counter()
+    n_k3_checks(torch, pl, dev, ck)
+    torch.cuda.empty_cache()
+    print(f"  N: K3 at the examples' shapes checked in "
+          f"{time.perf_counter() - t0:.1f} s")
+    here = os.path.dirname(os.path.abspath(__file__))
+    before = _build_listing(build_dir)
+    rc, _, err, start, _ = run_example(["-c", N_START], dict(os.environ), 120)
+    if rc != 0:
+        raise SystemExit(f"chip_smoke: a bare process failed to start\n{err}")
+    print(f"  N: a bare process (import the port, one op on the card) "
+          f"{start:.1f} s, the floor of each example's wall")
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="plmc_path_n_") as tmp:
+        for script, markers in N_EXAMPLES:
+            counts_file = os.path.join(tmp, script + ".jsonl")
+            env = dict(os.environ, PLMC_LAUNCH_COUNTS=counts_file)
+            rc, out, err, wall, pid = run_example(
+                [os.path.join(here, "examples_torch", script), *N_ARGS], env,
+                N_TIMEOUT)
+            walls[script] = wall
+            for line in out.splitlines():
+                print(f"    | {line}")
+            if rc != 0:
+                print(err, file=sys.stderr)
+                raise SystemExit(f"chip_smoke: {script} exited with {rc}")
+            missing = [m for m in markers if m not in out]
+            losses = [float(v) for v in N_LOSS.findall(out + "\n")]
+            if missing or not losses or not all(map(math.isfinite, losses)):
+                print(err, file=sys.stderr)
+                raise SystemExit(f"chip_smoke: {script} lacks {missing} or "
+                                 f"printed a loss that is not finite "
+                                 f"({losses})")
+            lines = example_counts(counts_file)
+            own = [c for p, c in lines if p == pid]
+            ranks = [c for p, c in lines if p != pid]
+            want = N_RANKS.get(script, 0)
+            # the processes that run a model: each rank, or the script
+            runners = ranks if want else own
+            idle = [i for i, c in enumerate(runners)
+                    if any(c[k] < 1 for k in N_KERNELS)]
+            if len(own) != 1 or len(ranks) != want or idle:
+                raise SystemExit(
+                    f"chip_smoke: {script}: {len(own)} script and "
+                    f"{len(ranks)} rank line(s) of launches (want 1 and "
+                    f"{want}); {N_KERNELS} not launched in process(es) "
+                    f"{idle} of {len(runners)}")
+            counts = {k: sum(c[k] for _, c in lines) for k in KERNELS}
+            for k, c in counts.items():
+                totals[k] += c
+            load = re.search(r"kernel library loaded in (\S+) s", out)
+            extra = ""
+            if script.startswith("01"):
+                m = {k: re.search(rf"{k}=(\S+)", out).group(1)
+                     for k in ("R2", "RMSE", "alpha_CI")}
+                extra = (f"; R2 {m['R2']}, RMSE {m['RMSE']}, alpha_CI "
+                         f"{m['alpha_CI']}")
+            elif script.startswith("02"):
+                batches = re.findall(r"batch \d: .*?, (\S+) ms", out)
+                extra = f"; serving batches {' / '.join(batches)} ms"
+            elif want:
+                extra = ("; K3 by rank " + " / ".join(
+                    str(c["K3"]) for c in ranks) + f", the script "
+                    f"{own[0]['K3']}")
+            print(f"  N {script}: wall {wall:.1f} s, kernel library loaded "
+                  f"in {load.group(1) if load else '?'} s, "
+                  f"{len(losses)} losses finite, launches "
+                  + ", ".join(f"{k} {c}" for k, c in counts.items() if c)
+                  + f" in {len(lines)} process(es){extra}; {card}")
+    if _build_listing(build_dir) != before:
+        raise SystemExit("chip_smoke: an example built the kernel library "
+                         "again")
+    print(f"  N: the {len(walls)} examples in {sum(walls.values()):.1f} s, "
+          f"the library this process built loaded by each; {card}")
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--only", choices=("M",),
-        help="build the kernels and run path M alone (its kernel checks, "
-             "references and spawn); prints no kernels line or result line")
+        "--only", choices=("M", "N"),
+        help="build the kernels and run path M (its kernel checks, "
+             "references and spawn) or path N (the examples) alone; prints "
+             "no kernels line or result line")
     only = parser.parse_args().only
     import torch
     if not torch.cuda.is_available():
@@ -6006,6 +6238,13 @@ def main() -> int:
         print(f"chip_smoke: path M passed in "
               f"{time.perf_counter() - start:.1f} s")
         return 0
+    if only == "N":
+        print("path N alone: the four examples on the card")
+        path_n_phase(torch, pl, ck, dev, _build.BUILD_DIR, card,
+                     {k: 0 for k in wrappers(ck)})
+        print(f"chip_smoke: path N passed in "
+              f"{time.perf_counter() - start:.1f} s")
+        return 0
     print("phase 2: kernels against their plain versions")
     rows = kernel_phase(torch, ck, dev)
     print("phase 3: fused MLL, card with kernels vs CPU with plain versions, "
@@ -6038,20 +6277,20 @@ def main() -> int:
           f"F2 n={N} p={T} q={Q} ({F2_STEPS} fit steps)")
     path_f_phase(torch, pl, ck, dev, totals)
     print(f"path G: prediction served from a cache, G1 projected LMC n={N} "
-          f"p={T} q={Q}, G2 the paper's synthetic default (fit to the plateau, "
-          f"at most {G2_MAX_ITER} steps), G3 the exact-LMC model n={N}; "
+          f"p={T} q={Q}, G2 the paper's synthetic default (fit for at "
+          f"most {G2_MAX_ITER} steps), G3 the exact-LMC model n={N}; "
           f"{N_TEST} test points")
     path_g_phase(torch, pl, ck, fm, dev, totals)
     print(f"path H: the exact ICM, H1 the driver's ICM on the paper's "
-          f"synthetic default (fit to the plateau, at most {G2_MAX_ITER} "
-          f"steps), H2 the matrix-free route n={N_H2} T={T} q={Q}, H3 the "
+          f"synthetic default (fit for at most {G2_MAX_ITER} steps), "
+          f"H2 the matrix-free route n={N_H2} T={T} q={Q}, H3 the "
           f"dense route n={N_H3}; {N_TEST} test points")
     path_h_phase(torch, pl, ck, dev, totals)
     print(f"path I: variational LMC and SGPR, I1 the driver's var model on "
-          f"the paper's synthetic default (fit to the plateau, at most "
-          f"{G2_MAX_ITER} steps, and sgpr_em), I2 the SVGP ELBO n={I2_N} "
-          f"d={I_D} m={I_M} ({I_STEPS} steps) and {I2_MB_STEPS} minibatch "
-          f"steps at n={I2_FULL_N}, I3 projected SGPR n={I3_N} "
+          f"the paper's synthetic default (fit for at most {I1_MAX_ITER} "
+          f"steps, short of the plateau, and sgpr_em), I2 the SVGP ELBO "
+          f"n={I2_N} d={I_D} m={I_M} ({I_STEPS} steps) and {I2_MB_STEPS} "
+          f"minibatch steps at n={I2_FULL_N}, I3 projected SGPR n={I3_N} "
           f"({I_STEPS} steps, {I3_TEST} test points), I4 LMC, ICM and exact "
           f"SGPR n={N} ({I_STEPS} steps each)")
     path_i_phase(torch, pl, ck, dev, totals)
@@ -6076,6 +6315,9 @@ def main() -> int:
           f"path M (the LMC and ICM families) in the same spawn")
     m_rows = path_l_phase(torch, pl, ck, dev, totals)
     k7_rows = m_rows.pop("K7r")
+    print(f"path N: the four examples of examples_torch/ on the card, each "
+          f"a subprocess ({', '.join(s for s, _ in N_EXAMPLES)})")
+    path_n_phase(torch, pl, ck, dev, _build.BUILD_DIR, card, totals)
 
     meta = [("K1", "scaled_kernel_stack_sym",
              "projected_lmc_tpu/ops/pallas_kernels.py:278"),

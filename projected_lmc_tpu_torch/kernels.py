@@ -519,6 +519,13 @@ class ScaleKernel(Kernel):
     def lengthscale(self):
         return self.base_kernel.lengthscale
 
+    def set_lengthscale(self, value):
+        """The base kernel's ``set_lengthscale`` (in place); returns the
+        Scale kernel. Raises AttributeError when the base kernel has no
+        lengthscale (it has no ``set_lengthscale``), as the JAX one does."""
+        self.base_kernel.set_lengthscale(value)
+        return self
+
     def forward(self, x1, x2=None, diag: bool = False, out_dtype=None,
                 rows=None):
         K = self.base_kernel(x1, x2, diag=diag,

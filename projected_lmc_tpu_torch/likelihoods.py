@@ -119,6 +119,19 @@ class MultitaskGaussianLikelihood(Module):
                                                       device=ref.device)
         return sigma
 
+    def with_task_covar_factor(self, L):
+        """Set the task-noise factor F to ``L`` (num_tasks, rank) in place;
+        returns the likelihood. Raises AttributeError on a rank-0 or
+        task-noise-free likelihood, which has no F, as the JAX one does."""
+        F = self.task_noise_covar_factor
+        L = torch.as_tensor(L, dtype=F.dtype, device=F.device)
+        if L.shape != F.shape:
+            raise ValueError(f"task_noise_covar_factor is {tuple(F.shape)}, "
+                             f"not {tuple(L.shape)}")
+        with torch.no_grad():
+            F.copy_(L)
+        return self
+
 
 class FixedTaskNoise(Module):
     """A fully specified p×p task noise covariance with no free parameters,

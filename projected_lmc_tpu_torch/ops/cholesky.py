@@ -132,3 +132,8 @@ def chol_inverse_diag(L):
 
 def add_jitter(A, jitter):
     return A + jitter * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+
+
+def symmetrize(A):
+    """½ (A + Aᵀ) over the last two axes; batched."""
+    return 0.5 * (A + A.transpose(-1, -2))

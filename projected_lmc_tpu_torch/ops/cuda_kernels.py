@@ -13,12 +13,18 @@ tensors to lie there. A CUDA tensor goes to the kernel, or the wrapper raises
 formula, with d² summed from direct differences as in the kernels; the CPU
 tests hold it against JAX. Each wrapper
 counts its launches in ``<wrapper>.launches``, incremented only where the
-kernel is launched.
+kernel is launched; ``COUNTED`` names them all. With ``PLMC_LAUNCH_COUNTS``
+naming a file, every process that imports this module appends its counts to
+it at exit, one JSON line (``{"pid": …, "launches": {"K1": count, …}}``): the
+launches of a script and of the ranks it spawns, read from outside.
 """
 
 from __future__ import annotations
 
+import atexit
+import json
 import math
+import os
 
 import torch
 
@@ -887,3 +893,24 @@ def symmetric_call(x1, x2, rows, cols) -> bool:
     return (rows == cols and x1.shape == x2.shape
             and x1.data_ptr() == x2.data_ptr()
             and x1.stride() == x2.stride())
+
+
+# every counted wrapper, by the kernel's name in PERF.md and chip_smoke.py
+COUNTED = {"K1": scaled_kernel_stack_sym, "K2": lowrank_stationary_reduce_sym,
+           "K3": kernel_matrix, "K4": lowrank_stationary_reduce_sym_kr,
+           "K5": lowrank_stationary_reduce_sym_krs, "K6": scaled_kernel_stack,
+           "K7": lowrank_stationary_reduce, "K8": quantized_kernel_stack,
+           "K4r": lowrank_stationary_reduce_rows_kr,
+           "K5r": lowrank_stationary_reduce_rows_krs}
+
+
+def _append_launch_counts(path: str):
+    """Append this process's launch counts to ``path`` as one JSON line."""
+    line = json.dumps({"pid": os.getpid(), "launches": {
+        k: w.launches for k, w in COUNTED.items()}})
+    with open(path, "a") as f:
+        f.write(line + "\n")
+
+
+if os.environ.get("PLMC_LAUNCH_COUNTS"):
+    atexit.register(_append_launch_counts, os.environ["PLMC_LAUNCH_COUNTS"])
