@@ -1,0 +1,17 @@
+"""Device time a training step spends in ``fit``'s backward outside its
+child spans (the Cholesky pullback): the device stretches of the
+program's ``fit.backward`` spans less those of their direct children, over
+the profiled steps (none off a card, or where the program records no such
+span)."""
+
+
+def read(ctx):
+    if ctx.get("loop") != "train" or not ctx.get("profiled_steps"):
+        return None
+    from projected_lmc_tpu_torch.utils import profiling
+    summary = getattr(profiling, "summary", None)
+    s = summary("fit.backward") if summary is not None else None
+    if not s or not s["spans"] or s["device_ms"] is None:
+        return None
+    children = sum(s["children_device_ms"].values())
+    return (s["device_ms"] - children) / ctx["profiled_steps"]

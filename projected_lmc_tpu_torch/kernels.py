@@ -23,6 +23,7 @@ from . import constraints
 from .module import Module
 from .ops import cuda_kernels as ck
 from .utils.device import resolve_device
+from .utils.profiling import count
 
 # dg/d(d²), shared with the CUDA kernels' plain versions (the profile g itself
 # is ops.cuda_kernels.profile)
@@ -214,6 +215,8 @@ class Kernel(Module):
         x1, x2 = (x[:, None] if x.dim() == 1 else x for x in (x1, x2))
         if self.active_dims is not None:
             idx = list(self.active_dims)
+            if x1.is_cuda:      # each list index is copied to the card from
+                count("host_read", 2)   # pageable memory: a stream sync
             x1, x2 = x1[..., idx], x2[..., idx]
         if x1.dim() == 3 or x2.dim() == 3:
             x1, x2 = (x.expand(self.batch, *x.shape) if x.dim() == 2 else x

@@ -54,6 +54,7 @@ from ..ops import iterative as it_ops
 from ..ops.cholesky import (cho_solve, chol_inverse_diag, logdet_from_chol,
                             safe_cholesky, solve_triangular)
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 
 def _canon_targets(y, n_tasks, orientation: str = "auto"):
@@ -461,7 +462,8 @@ class ExactGPModel(Module):
         Ks = self.covar_module(self.train_x, x_star)            # (T, n, n*)
         mean = self.mean_module(x_star) + torch.einsum(
             "tns,tn->ts", Ks, cache["alpha"])
-        Vs = solve_triangular(cache["L"], Ks, lower=True)
+        with span("predict.solve"):
+            Vs = solve_triangular(cache["L"], Ks, lower=True)
         if full_cov:
             covar = self.covar_module(x_star) - Vs.transpose(-1, -2) @ Vs
             return MultivariateNormal(mean, covar)

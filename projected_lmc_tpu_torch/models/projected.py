@@ -57,6 +57,7 @@ from ..module import Module
 from ..ops.cholesky import safe_cholesky, solve_triangular
 from ..ops.init_ops import init_lmc_coefficients
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 from .exact import ExactGPModel
 
 
@@ -88,6 +89,7 @@ def _expm(A):
     jax.scipy.linalg.expm; the 1-norm that picks the degree is read on the
     host."""
     degrees, bounds, maxnorm = _EXPM_DEGREES[A.dtype]
+    count("host_read")
     norm = float(torch.linalg.matrix_norm(A.detach(), 1))
     squarings = max(0, math.floor(math.log2(norm / maxnorm))) if norm > 0 \
         else 0
@@ -463,17 +465,20 @@ class ProjectedGPModel(ExactGPModel):
         """(mean, variance), both (n*, p), at x, with the observation noise
         when ``observed``. Pass ``cache=model.prediction_cache()`` to reuse
         the training system's factorization across calls."""
-        latent = self.compute_latent_distrib(x, full_cov=False, cache=cache)
-        mean, var = latent.mean, latent.variance
-        if self.mesh is not None:
-            lo, hi = self.mesh.latent_range(self.n_latents)
-            mean, var = self.mesh.gather_latents(
-                torch.cat([mean, var], 1), lo, hi, self.n_latents).split(
-                mean.shape[1], 1)
-        H = self.lmc_coefficients()
-        mean = mean.T @ H
-        var = var.T @ (H * H)
-        if observed:
-            Sigma = self.full_likelihood().task_covariance()
-            var = var + torch.diagonal(Sigma)[None, :]
-        return mean, var
+        with span("predict"):
+            latent = self.compute_latent_distrib(x, full_cov=False,
+                                                 cache=cache)
+            mean, var = latent.mean, latent.variance
+            if self.mesh is not None:
+                lo, hi = self.mesh.latent_range(self.n_latents)
+                mean, var = self.mesh.gather_latents(
+                    torch.cat([mean, var], 1), lo, hi, self.n_latents).split(
+                    mean.shape[1], 1)
+            H = self.lmc_coefficients()
+            mean = mean.T @ H
+            var = var.T @ (H * H)
+            if observed:
+                with span("predict.noise"):
+                    Sigma = self.full_likelihood().task_covariance()
+                var = var + torch.diagonal(Sigma)[None, :]
+            return mean, var

@@ -40,6 +40,7 @@ from ..ops.cholesky import (cho_solve, logdet_from_chol, safe_cholesky,
                             solve_triangular)
 from ..ops.init_ops import init_lmc_coefficients, latin_hypercube, sobol
 from ..utils.device import resolve_device
+from ..utils.profiling import count
 from .exact import _as_inputs, _resolve, inducing_factor
 from .multitask import _MeanVarMT
 
@@ -55,9 +56,11 @@ def _chol_ladder(A, jitter):
     while True:
         L, info = torch.linalg.cholesky_ex(A + j[..., None, None] * eye)
         bad = info != 0
+        count("host_read")
         if not bool(bad.any()):
             return L, j
         j = torch.where(bad, j * 10, j)
+        count("host_read")
         if bool((bad & (j > limit)).any()):
             raise torch.linalg.LinAlgError(
                 "Cholesky failed up to a jitter of 1e2·max|A|")
@@ -106,6 +109,7 @@ def ppca_task_noise(S, rank: int, floor: float):
     lam = torch.clamp(lam.flip(0), min=0.0)
     V = V.flip(1)
     r = min(rank, p - 1) if p > 1 else rank
+    count("host_read")
     sigma2 = max(float(lam[r:].mean()) if r < p else floor, floor)
     return V[:, :rank] * torch.sqrt(torch.clamp(lam[:rank] - sigma2,
                                                 min=0.0))[None, :], sigma2
@@ -234,6 +238,7 @@ class VariationalMultitaskGPModel(Module):
                     jitter = 1e-6
                     while True:
                         L, info = torch.linalg.cholesky_ex(Kzz + jitter * eye)
+                        count("host_read")
                         if not bool((info != 0).any()):
                             break
                         jitter *= 10
@@ -279,6 +284,7 @@ class VariationalMultitaskGPModel(Module):
             H = self.lmc_coeffs.to(f64)                         # (q, T)
             L_t = torch.linalg.pinv(H.T) @ self.train_y.to(f64).T  # (q, n)
             if noise is None:
+                count("host_read")
                 noise = float(torch.diagonal(
                     self.likelihood.task_covariance().to(f64)).mean())
             z = self.inducing_points
@@ -324,8 +330,11 @@ class VariationalMultitaskGPModel(Module):
                     lik.set_noise(sigma2)
             else:
                 diag = torch.clamp(torch.diagonal(S), min=floor)
-                sigma2 = floor if lik.has_task_noise \
-                    else max(float(diag.mean()), floor)
+                if lik.has_task_noise:
+                    sigma2 = floor
+                else:
+                    count("host_read")
+                    sigma2 = max(float(diag.mean()), floor)
                 if lik.has_global_noise:
                     lik.set_noise(sigma2)
                 if lik.has_task_noise:

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count, span
+
 # gpytorch.settings.cholesky_jitter defaults: 1e-6 (float32) / 1e-8 (float64)
 _BASE_JITTER = {torch.float32: 1e-6, torch.float64: 1e-8, torch.bfloat16: 1e-3}
 MAX_TRIES = 8
@@ -30,6 +32,7 @@ def _factor(A):
     """(L, bad): the lower factor and, per batch element, whether it failed
     (``info`` ≠ 0 or a non-finite diagonal, which a NaN anywhere in a row
     reaches)."""
+    count("cholesky.try")
     L, info = torch.linalg.cholesky_ex(A)
     diag_ok = torch.isfinite(torch.diagonal(L, dim1=-2, dim2=-1)).all(-1)
     return L, (info != 0) | ~diag_ok
@@ -41,22 +44,29 @@ def _jittered_cholesky(A, max_tries: int, agree=None):
     ``agree`` (a mesh's ``latent_any``) turns this rank's "some element
     failed" into the latent group's, so that the ranks holding one batch
     between them climb the ladder together, as one batch would."""
-    L, bad = _factor(A)
-    jitter = _BASE_JITTER.get(A.dtype, 1e-6)
-    used = 0.0
-    for _ in range(max_tries):
-        failed = bad.any() if agree is None else agree(bad.any())
-        if not bool(failed):
-            return L, used
-        Aj = A.clone()
-        Aj.diagonal(dim1=-2, dim2=-1).add_(jitter)
-        L, bad = _factor(Aj)
-        used = jitter
-        jitter *= 10.0
-    if bool(bad.any()):     # every rung failed: NaN where it did, as in JAX
-        L = torch.where(bad[..., None, None], torch.full_like(L, float("nan")),
-                        L)
-    return L, used
+    with span("cholesky.factor"):
+        count("cholesky.factor")
+        L, bad = _factor(A)
+        jitter = _BASE_JITTER.get(A.dtype, 1e-6)
+        used = 0.0
+        for _ in range(max_tries):
+            if agree is None:
+                count("host_read")
+                failed = bool(bad.any())
+            else:
+                failed = agree(bad.any())
+            if not failed:
+                return L, used
+            Aj = A.clone()
+            Aj.diagonal(dim1=-2, dim2=-1).add_(jitter)
+            L, bad = _factor(Aj)
+            used = jitter
+            jitter *= 10.0
+        count("host_read")
+        if bool(bad.any()):     # every rung failed: NaN where it did (JAX)
+            L = torch.where(bad[..., None, None],
+                            torch.full_like(L, float("nan")), L)
+        return L, used
 
 
 def _phi(X):
@@ -77,12 +87,13 @@ class _SafeCholesky(torch.autograd.Function):
         (L,) = ctx.saved_tensors
         # A_bar = L^{-T} Φ(Lᵀ L̄) L^{-1}, symmetrized (callers build A
         # symmetrically)
-        Lt = L.transpose(-1, -2)
-        P = _phi(Lt @ L_bar)
-        X = torch.linalg.solve_triangular(Lt, P, upper=True)
-        A_bar = torch.linalg.solve_triangular(
-            Lt, X.transpose(-1, -2), upper=True).transpose(-1, -2)
-        return 0.5 * (A_bar + A_bar.transpose(-1, -2)), None, None
+        with span("cholesky.pullback"):
+            Lt = L.transpose(-1, -2)
+            P = _phi(Lt @ L_bar)
+            X = torch.linalg.solve_triangular(Lt, P, upper=True)
+            A_bar = torch.linalg.solve_triangular(
+                Lt, X.transpose(-1, -2), upper=True).transpose(-1, -2)
+            return 0.5 * (A_bar + A_bar.transpose(-1, -2)), None, None
 
 
 def safe_cholesky(A, max_tries: int = MAX_TRIES, agree=None):

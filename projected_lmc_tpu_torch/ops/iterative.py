@@ -42,6 +42,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import count
 from .cholesky import cholesky_nan, safe_cholesky
 
 # aten::bmm.dtype: a bf16 x bf16 batched product with an fp32 result (CUDA)
@@ -639,6 +640,7 @@ def batched_pcg(matvec, B, Md, max_iters: int = 256, tol: float = 1e-4,
     rz = dot(R, Z)
     for _ in range(max_iters):
         rel = torch.sqrt(torch.clamp(dot(R, R), min=0.0)) / bnorm
+        count("host_read")
         if not bool(rel.max() > tol):
             break
         Ap = matvec(P)

@@ -26,6 +26,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import count
+
 
 class _GroupSum(torch.autograd.Function):
     @staticmethod
@@ -102,6 +104,7 @@ def any_of(flag, group) -> bool:
     """True if ``flag`` (a bool tensor) is true on any rank of ``group``."""
     t = flag.to(torch.int32).reshape(1)
     dist.all_reduce(t, group=group)
+    count("host_read")
     return bool(t.item() > 0)
 
 

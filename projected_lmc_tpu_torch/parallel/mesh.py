@@ -34,6 +34,7 @@ import re
 import torch
 
 from ..module import keyed_state
+from ..utils.profiling import count
 from . import collectives as col
 
 _LATENT_SCOPES = ("covar_module", "likelihood", "train_y", "var_mean",
@@ -122,7 +123,10 @@ class Mesh:
     def world_any(self, flag) -> bool:
         """True if ``flag`` holds on any rank of the mesh."""
         g = self.group("world")
-        return bool(flag) if g is None else col.any_of(flag, g)
+        if g is not None:
+            return col.any_of(flag, g)
+        count("host_read")
+        return bool(flag)
 
     def gather_world(self, x, lo: int, hi: int, total: int, dim: int = 0):
         """The whole of a tensor whose rows lo..hi − 1 along ``dim`` this
@@ -157,7 +161,10 @@ class Mesh:
     def latent_any(self, flag) -> bool:
         """True if ``flag`` holds on any rank of the latent group."""
         g = self.group("latent")
-        return bool(flag) if g is None else col.any_of(flag, g)
+        if g is not None:
+            return col.any_of(flag, g)
+        count("host_read")
+        return bool(flag)
 
     def broadcast_(self, tensors):
         """Rank 0's values into every rank's ``tensors``, in place."""

@@ -65,6 +65,7 @@ from __future__ import annotations
 import torch
 
 from ..module import trainable_parameters
+from ..utils.profiling import count
 from .mesh import shard_model
 
 
@@ -109,6 +110,7 @@ def average_gradients(mesh, params):
     had = torch.tensor([float(p.grad is not None) for p in params],
                        dtype=params[0].dtype, device=params[0].device)
     mesh.average_(grads + [had])
+    count("host_read")
     for p, g, h in zip(params, grads, had.tolist()):
         if p.grad is None and h > 0:
             p.grad = g

@@ -22,6 +22,7 @@ import torch
 from .module import keyed_state, trainable_parameters
 from .parallel.sharded import average_gradients
 from .utils.device import check_device
+from .utils.profiling import count, span
 
 
 def _loss_fn_takes_generator(loss_fn) -> bool:
@@ -176,25 +177,32 @@ def fit(model, loss_fn: Callable = None, n_iter: int = 10000, lr: float = 1e-2,
     mesh = getattr(model, "mesh", None)
     plist = [p for _, p in params]
 
-    def step():
-        opt.zero_grad(set_to_none=True)
-        loss = -(loss_fn(model, generator) if takes_gen else loss_fn(model))
-        loss.backward()
-        if mesh is not None:
-            # a rank's gradient holds its shard's terms until averaged
-            # (parallel.sharded)
-            average_gradients(mesh, plist)
-        opt.step()
-        sched.step()
-        return loss.detach()
+    def step(i):
+        with span("fit.step", trace_id=i):
+            opt.zero_grad(set_to_none=True)
+            with span("fit.forward"):
+                loss = -(loss_fn(model, generator) if takes_gen
+                         else loss_fn(model))
+            with span("fit.backward"):
+                loss.backward()
+            if mesh is not None:
+                # a rank's gradient holds its shard's terms until averaged
+                # (parallel.sharded)
+                average_gradients(mesh, plist)
+            opt.step()
+            sched.step()
+            return loss.detach()
 
     start = time.time()
     if scan_steps > 1:
         i = 0
         while i < n_iter:
-            chunk = torch.stack([step() for _ in range(scan_steps)])
+            chunk = torch.stack([step(i + j) for j in range(scan_steps)])
             stop = False
-            for j, lv in enumerate(chunk.tolist()):     # one host read
+            with span("fit.read"):
+                count("host_read")
+                values = chunk.tolist()                 # one host read
+            for j, lv in enumerate(values):
                 losses.append(lv)
                 if print_loss and (i + j) % freq_print == 0:
                     print(f"iter {i + j}: loss {lv:.6f}")
@@ -208,10 +216,12 @@ def fit(model, loss_fn: Callable = None, n_iter: int = 10000, lr: float = 1e-2,
                 break
     else:
         for i in range(n_iter):
-            loss = step()
+            loss = step(i)
             maybe_checkpoint(i)
             if i % block_every == 0 or i == n_iter - 1:
-                new_loss = float(loss)
+                with span("fit.read"):
+                    count("host_read")
+                    new_loss = float(loss)
                 losses.append(new_loss)
                 if print_loss and i % freq_print == 0:
                     print(f"iter {i}: loss {new_loss:.6f}")
@@ -360,6 +370,7 @@ def fit_ensemble(models, loss_fn: Callable = None, n_iter: int = 10000,
     while i < n_iter:
         chunk = torch.stack([step() for _ in range(max(scan_steps, 1))])
         stop = False
+        count("host_read")
         for j, lv in enumerate(chunk.cpu().numpy()):
             losses.append(lv)
             if print_loss and (i + j) % freq_print == 0:
