@@ -6,9 +6,9 @@ Run from the repository root on a machine with one NVIDIA card (H100):
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --only M`` or ``--only N`` builds the kernels and
-runs path M or path N alone, without the kernels line and the result
-line.) Phases, each printing its own line(s); any failure raises and
-exits non-zero:
+runs path M or path N alone, ``--only O`` runs path O alone without a
+build, each without the kernels line and the result line.) Phases, each
+printing its own line(s); any failure raises and exits non-zero:
 
   1. the card's name and power limit (nvidia-smi) and the kernel build time
      (nvcc of ``projected_lmc_tpu_torch/csrc/stationary.cu``);
@@ -252,6 +252,16 @@ exits non-zero:
      launches of each example's processes, read from
      ``PLMC_LAUNCH_COUNTS``: K3 at least once in each process that runs a
      model (01's, 02's and 04's script, each of 03's 8 ranks).
+  O. path O: the Gaussian log-density's closed-form gradient at the main
+     path's (4, 10,000, 10,000) on Matérn-2.5 matrices over SARCOS's 21
+     features (``ops.cholesky``): the blocked K⁻¹ (``cholesky_inverse``)
+     beside ``torch.cholesky_inverse`` (the library's, the yardstick only),
+     the closed-form backward beside the generic Cholesky pullback's
+     (``safe_cholesky`` + ``solve_triangular`` through autograd), each
+     time beside the bound of K⁻¹ (potri's 2n³/3 operations a latent);
+     the inverses' gap to each other, and each route's K̄ and δ̄ against
+     float64's from the library's inverse: the closed form's gap at most
+     twice the generic route's (``--only O`` runs it alone, no build).
 
 Every training run sets the launch counts to 0 just before it and reads
 them just after (path N's subprocesses start at 0 and report theirs at
@@ -1564,11 +1574,11 @@ def projected_probes(torch):
     """From outside the package: count the factorizations of the Cholesky
     ladder (its factor function ``ops.cholesky._factor``), and label for the
     profiler K3's forward and its plain backward, each factorization, the
-    Cholesky pullback, the exact MLL's triangular solve and the mixing
-    matrix's QR (or orthogonal map)."""
+    Cholesky pullback (the log-density's closed form), the log-density's
+    triangular solves and the mixing matrix's QR (or orthogonal map)."""
     from torch.profiler import record_function
     from projected_lmc_tpu_torch import kernels as kern
-    from projected_lmc_tpu_torch.models import exact, projected
+    from projected_lmc_tpu_torch.models import projected
     from projected_lmc_tpu_torch.ops import cholesky as chol
     counts = {"factorizations": 0}
 
@@ -1579,16 +1589,16 @@ def projected_probes(torch):
                 return fn(*args, **kwargs)
         return wrapped
 
-    skm, sc = kern._StationaryKernelMatrix, chol._SafeCholesky
+    skm, gl = kern._StationaryKernelMatrix, chol._GaussianLogDensity
     mix = projected.LMCMixingMatrix
     patches = ((chol, "_factor", labelled("F potrf", chol._factor, True)),
                (skm, "forward", staticmethod(labelled("F K3", skm.forward))),
                (skm, "backward", staticmethod(labelled(
                    "F K3 backward (plain)", skm.backward))),
-               (sc, "backward", staticmethod(labelled(
-                   "F Cholesky pullback", sc.backward))),
-               (exact, "solve_triangular", labelled(
-                   "F triangular solve", exact.solve_triangular)),
+               (gl, "backward", staticmethod(labelled(
+                   "F Cholesky pullback", gl.backward))),
+               (chol, "solve_triangular", labelled(
+                   "F triangular solve", chol.solve_triangular)),
                (mix, "QR", labelled("F QR or orthogonal map", mix.QR)))
     saved = [(owner, name, vars(owner)[name]) for owner, name, _ in patches]
     for owner, name, new in patches:
@@ -6101,6 +6111,108 @@ def n_k3_checks(torch, pl, dev, ck):
     k3_shapes(torch, ck, dev, ((x, x),), ls)
 
 
+def o_matrices(torch, dev, n, q, seed=0):
+    """(q, n, n) Matérn-2.5 kernel matrices on n points of N(0, I_21),
+    lengthscales 2 to 5, plus 0.09 I (SARCOS's features and noise)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, DE), generator=g, device=dev)
+    d2 = torch.cdist(x, x).square_()
+    K = torch.empty((q, n, n), device=dev)
+    for b, ls in enumerate(torch.linspace(2.0, 5.0, q).tolist()):
+        r = (d2 / ls ** 2).sqrt_().mul_(math.sqrt(5.0))
+        torch.mul(r + r * r / 3 + 1, torch.exp(-r), out=K[b])
+        K[b].diagonal().add_(0.09)
+    return K
+
+
+def o_routes(torch, chol, K, delta, cot):
+    """The closed-form route and the generic one, each its graph built
+    once: (backward, K, δ) where ``backward`` runs that route's backward
+    again and leaves K̄ and δ̄ in K.grad and δ.grad."""
+    def generic(K, d):
+        L = chol.safe_cholesky(K)
+        z = chol.solve_triangular(L, d[..., None], lower=True)[..., 0]
+        return -0.5 * ((z * z).sum(-1) + chol.logdet_from_chol(L)
+                       + K.shape[-1] * math.log(2 * math.pi))
+
+    out = []
+    for fn in (chol.gaussian_log_density, generic):
+        Kc, dc = K.clone().requires_grad_(), delta.clone().requires_grad_()
+        v = fn(Kc, dc)
+
+        def backward(v=v, Kc=Kc, dc=dc):
+            Kc.grad = dc.grad = None
+            v.backward(cot, retain_graph=True)
+        out.append((backward, Kc, dc))
+    return out
+
+
+def path_o_phase(torch, dev):
+    from projected_lmc_tpu_torch.ops import cholesky as chol
+    n, q = N, Q
+    K = o_matrices(torch, dev, n, q)
+    L = torch.linalg.cholesky(K)
+    bound, by = bound_ms(q * n * (n + 1) * 4.0, q * 2.0 * n ** 3 / 3)
+    blocked = chol.cholesky_inverse(L)
+    library = torch.cholesky_inverse(L)
+    gap = float(((blocked - library).abs().max() / library.abs().max()))
+    symmetric = torch.equal(blocked, blocked.transpose(-1, -2))
+    del blocked, library
+    blocked_ms = cuda_ms(lambda: chol.cholesky_inverse(L), reps=3, warmup=1)
+    library_ms = cuda_ms(lambda: torch.cholesky_inverse(L), reps=2, warmup=1)
+    print(f"  O K^-1 ({q},{n},{n}): blocked {blocked_ms:.3f} ms, "
+          f"torch.cholesky_inverse (library_ms) {library_ms:.3f} ms; bound "
+          f"{bound:.3f} ms by {by} (blocked at {100 * bound / blocked_ms:.1f}"
+          f"%); exactly symmetric {symmetric}")
+    check("O blocked K^-1 against torch.cholesky_inverse, over its largest "
+          "entry", gap, 2e-5)
+    if not symmetric:
+        raise SystemExit("chip_smoke: the blocked K^-1 is not symmetric")
+    g = torch.Generator(device=dev).manual_seed(1)
+    delta = torch.randn((q, n), generator=g, device=dev)
+    cot = torch.full((q,), 1.0 / n, device=dev)
+    # float64 truth: ½ g (ααᵀ − K⁻¹) from the library's inverse
+    L64 = torch.linalg.cholesky(K.double())
+    alpha = torch.linalg.solve_triangular(
+        L64.transpose(-1, -2), torch.linalg.solve_triangular(
+            L64, delta.double()[..., None], upper=False), upper=True)
+    truth = torch.cholesky_inverse(L64).mul_(-1.0).baddbmm_(
+        alpha, alpha.transpose(-1, -2)).mul_(0.5 / n)
+    d_truth = -alpha[..., 0] / n
+    del L64, alpha
+    (closed, Kc, dc), (generic, Kg, dg) = o_routes(torch, chol, K, delta,
+                                                   cot)
+    del K, L
+    torch.cuda.synchronize()
+    closed_ms = cuda_ms(closed, reps=3, warmup=1)
+    generic_ms = cuda_ms(generic, reps=2, warmup=1)
+    print(f"  O backward: closed form {closed_ms:.3f} ms, generic pullback "
+          f"{generic_ms:.3f} ms ({generic_ms / closed_ms:.2f}x); bound "
+          f"{bound:.3f} ms (closed form at {100 * bound / closed_ms:.1f}%)")
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    gaps = dict(K=rel(Kc.grad, Kg.grad), delta=rel(dc.grad, dg.grad))
+    to64 = {k: (rel(a.grad.double(), t), rel(b.grad.double(), t))
+            for k, a, b, t in (("K", Kc, Kg, truth), ("delta", dc, dg,
+                                                      d_truth))}
+    print("  O gradients, largest entrywise gap over the largest entry: "
+          + ", ".join(f"{k}bar closed vs generic {gaps[k]:.3e} (to float64: "
+                      f"closed {to64[k][0]:.3e}, generic {to64[k][1]:.3e})"
+                      for k in gaps))
+    for k, (c, gen) in to64.items():
+        if not (math.isfinite(c) and c <= 2 * gen + 1e-7):
+            raise SystemExit(f"chip_smoke: the closed form's {k}bar is "
+                             f"farther from float64's than the generic "
+                             f"route's ({c:.3e} > 2 x {gen:.3e})")
+    if not torch.equal(Kc.grad, Kc.grad.transpose(-1, -2)):
+        raise SystemExit("chip_smoke: the closed form's Kbar is not "
+                         "symmetric")
+    return dict(blocked_ms=blocked_ms, library_ms=library_ms,
+                closed_ms=closed_ms, generic_ms=generic_ms, bound_ms=bound)
+
+
 def path_n_phase(torch, pl, ck, dev, build_dir, card, totals):
     """Path N: K3 at the examples' shapes against its plain version, then
     each example of ``examples_torch/`` on the card as a subprocess, with
@@ -6189,9 +6301,10 @@ def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--only", choices=("M", "N"),
+        "--only", choices=("M", "N", "O"),
         help="build the kernels and run path M (its kernel checks, "
-             "references and spawn) or path N (the examples) alone; prints "
+             "references and spawn) or path N (the examples) alone, or "
+             "path O (the log-density's gradient; no build) alone; prints "
              "no kernels line or result line")
     only = parser.parse_args().only
     import torch
@@ -6215,6 +6328,12 @@ def main() -> int:
     card = card_line()
     print(f"phase 1: card {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
+    if only == "O":
+        print("path O alone: the Gaussian log-density's gradient")
+        path_o_phase(torch, dev)
+        print(f"chip_smoke: path O passed in "
+              f"{time.perf_counter() - start:.1f} s")
+        return 0
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
@@ -6318,6 +6437,9 @@ def main() -> int:
     print(f"path N: the four examples of examples_torch/ on the card, each "
           f"a subprocess ({', '.join(s for s, _ in N_EXAMPLES)})")
     path_n_phase(torch, pl, ck, dev, _build.BUILD_DIR, card, totals)
+    print(f"path O: the Gaussian log-density's closed-form gradient at "
+          f"({Q}, {N}, {N})")
+    path_o_phase(torch, dev)
 
     meta = [("K1", "scaled_kernel_stack_sym",
              "projected_lmc_tpu/ops/pallas_kernels.py:278"),

@@ -51,7 +51,8 @@ from ..means import MEAN_REGISTRY
 from ..module import Module, latent_slice
 from ..ops import fused_mll
 from ..ops import iterative as it_ops
-from ..ops.cholesky import (cho_solve, chol_inverse_diag, logdet_from_chol,
+from ..ops.cholesky import (cho_solve, chol_inverse_diag,
+                            gaussian_log_density, logdet_from_chol,
                             safe_cholesky, solve_triangular)
 from ..utils.device import resolve_device
 from ..utils.profiling import span
@@ -270,23 +271,21 @@ class ExactGPModel(Module):
 
     def log_marginal(self, y=None, x=None, orientation: str = "auto"):
         """Per-task log N(y_t; m_t, K_t + σ_t² I), shape (T,), by a batched
-        Cholesky; on the SGPR route the Titsias bound with its
-        −tr(K − Q)/2σ² term."""
+        Cholesky with the log-density's closed-form gradient
+        (``ops.cholesky.gaussian_log_density``); on the SGPR route the
+        Titsias bound with its −tr(K − Q)/2σ² term."""
         x = self.train_x if x is None else x
         y = self.train_y if y is None else _canon_targets(
             torch.as_tensor(y, dtype=x.dtype, device=x.device), self.n_funcs,
             orientation)
         if self.mesh is not None:
             return self._sharded_log_marginal(x, y)
-        n = x.shape[0]
         delta = y - self.mean_module(x)
         if self.sgpr:
             return self._sgpr_log_prob(x, delta)
-        L = safe_cholesky(self.likelihood.add_to_covar(self.covar_module(x)),
-                          agree=self._agree)
-        z = solve_triangular(L, delta[..., None], lower=True)[..., 0]
-        return -0.5 * ((z * z).sum(-1) + logdet_from_chol(L)
-                       + n * math.log(2 * math.pi))
+        return gaussian_log_density(
+            self.likelihood.add_to_covar(self.covar_module(x)), delta,
+            agree=self._agree)
 
     def _sharded_log_marginal(self, x, y):
         """``log_marginal`` under the mesh: this rank's latents (and, on the

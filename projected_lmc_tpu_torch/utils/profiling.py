@@ -45,14 +45,16 @@ that, a span is not stored (its counts land on its enclosing span) and
 
 The spans: ``fit.step`` (trace id the step's index), ``fit.forward``,
 ``fit.backward`` and ``fit.read`` (``training.fit``); ``cholesky.factor``
-(the jitter ladder) and ``cholesky.pullback`` (its backward,
-``ops.cholesky``); ``predict`` (``ProjectedGPModel.predict``, trace id the
+(the jitter ladder) and ``cholesky.pullback`` (the generic Cholesky
+backward, or the Gaussian log-density's closed form, ``ops.cholesky``); ``predict`` (``ProjectedGPModel.predict``, trace id the
 request's ordinal), ``predict.noise`` (its task noise) and
 ``predict.solve`` (the n*-column triangular solve of
 ``ExactGPModel.posterior``). The counters: ``host_read``, one at each
 place where the host reads a device value and so waits for the device;
 ``cholesky.try``, one a factorization the ladder attempts, and
-``cholesky.factor``, one a factor it returns. The benchmark's per-layer
+``cholesky.factor``, one a factor it returns; ``cholesky.pullback``, one a
+pullback of either kind, and ``cholesky.pullback.closed_form``, one a
+closed-form one. The benchmark's per-layer
 metrics (``benchmark/metrics/``) read them after a traced run.
 """
 
