@@ -5,8 +5,8 @@ Run from the repository root on a machine with one NVIDIA card (H100):
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --only M`` or ``--only N`` builds the kernels and
-runs path M or path N alone, ``--only O`` runs path O alone without a
+(``python3 chip_smoke.py --only M``, ``--only N`` or ``--only P`` builds the
+kernels and runs path M, N or P alone, ``--only O`` runs path O alone without a
 build, each without the kernels line and the result line.) Phases, each
 printing its own line(s); any failure raises and exits non-zero:
 
@@ -262,6 +262,15 @@ printing its own line(s); any failure raises and exits non-zero:
      the inverses' gap to each other, and each route's K̄ and δ̄ against
      float64's from the library's inverse: the closed form's gap at most
      twice the generic route's (``--only O`` runs it alone, no build).
+  P. path P, run alone by ``--only P`` (not by the full run): K1, K2 and
+     K3 at SARCOS's full n = 44,484 with d = 21 and q = 4, where the
+     stack's q·n² = 7.9·10⁹ entries pass 2³¹. K1's bf16 stack and K2's
+     reductions against their plain versions on the first, a middle and
+     the last 128-row block (the last holds the ragged tile) of every
+     latent, K1's rows against its columns there, K2 repeated bitwise, K3
+     at the roots' (4, n, 256) against its plain version and K6; the bf16
+     stack product against each latent's last rows in fp32; times, K2's
+     slot buffer and peak memory.
 
 Every training run sets the launch counts to 0 just before it and reads
 them just after (path N's subprocesses start at 0 and report theirs at
@@ -6213,6 +6222,119 @@ def path_o_phase(torch, dev):
                 closed_ms=closed_ms, generic_ms=generic_ms, bound_ms=bound)
 
 
+N_P = 44_484                             # path P: SARCOS's full training set
+P_BLOCK = 128                            # rows of a plain check's block
+
+
+def p_blocks(n):
+    """Row blocks of path P's plain checks: the first, one in the middle
+    and the last (which holds the ragged last 128-row tile)."""
+    mid = (n // 2) // P_BLOCK * P_BLOCK
+    return ((0, P_BLOCK), (mid, mid + P_BLOCK), (n - P_BLOCK, n))
+
+
+def path_p_phase(torch, ck, it, dev):
+    """K1, K2 and K3 at (4, 44,484) with d = 21, where the stack's q·n²
+    entries pass 2³¹: each against its plain version on row blocks, the
+    first, a middle and the last, in every latent (latents 2 and 3 start
+    past 2³¹ entries); the bf16 stack product against one latent's rows
+    in fp32; memory and times."""
+    n, q, d = N_P, Q, DE
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa
+    x = t(rng.standard_normal((n, d)))
+    x = x - x.mean(0)
+    ls = t(np.sqrt(d / 4.0) * np.exp(rng.uniform(-0.2, 0.2, (q, 1, d))))
+    os_ = t(rng.uniform(0.5, 2.0, (q,)))
+    print(f"  entries of the (q, n, n) stack: {q * n * n:,} (2^31 = "
+          f"{2 ** 31:,}); latent b starts at entry b·n² = "
+          f"{', '.join(f'{b * n * n:,}' for b in range(q))}")
+    torch.cuda.reset_peak_memory_stats()
+    Ks = ck.scaled_kernel_stack_sym(x, ls, os_, KIND, torch.bfloat16,
+                                    device=dev)
+    torch.cuda.synchronize()
+    print(f"  K1 bf16 stack {tuple(Ks.shape)}: "
+          f"{Ks.numel() * Ks.element_size() / 1e9:.2f} GB")
+    for i0, i1 in p_blocks(n):
+        err, top = stack_error(torch, ck, Ks[:, i0:i1], x[i0:i1], ls, os_,
+                               torch.bfloat16, block=P_BLOCK, x2=x)
+        check(f"K1 n={n} rows {i0}..{i1 - 1}, every latent", err,
+              2.0 ** -7 * top)
+        if not torch.equal(Ks[:, i0:i1], Ks[:, :, i0:i1].transpose(1, 2)):
+            raise SystemExit(f"chip_smoke: K1's rows {i0}..{i1 - 1} are not "
+                             "its columns")
+    print("  K1 rows equal to their columns in the three blocks: True")
+    ms = cuda_ms(lambda: ck.scaled_kernel_stack_sym(
+        x, ls, os_, KIND, torch.bfloat16, device=dev), reps=3, warmup=1)
+    print(f"  K1 at n={n} d={d}: {ms:.3f} ms (write bound "
+          f"{q * n * n * 2 / PEAK_BYTES_PER_S * 1e3:.3f} ms)")
+
+    # the bf16 stack product (aten::bmm with an fp32 result) against each
+    # latent's last rows in float64, over Σ_j |K_ij||W_j|: fp32 sums of
+    # n = 44,484 terms in any order stay far below 1e-4 of it, while rows
+    # read from a wrong offset (another latent's, or past the stack) are
+    # off by its whole size
+    W = t(rng.standard_normal((q, n, 17)))
+    got = it._bf16_stack_bmm(Ks, W)
+    Wb = W.to(torch.bfloat16).double()
+    worst = 0.0
+    for b in range(q):
+        Kr = Ks[b, n - P_BLOCK:].double()
+        gap = (got[b, n - P_BLOCK:].double() - Kr @ Wb[b]).abs().max()
+        worst = max(worst, float(gap / (Kr.abs() @ Wb[b].abs()).max()))
+    check("bf16 stack product, each latent's last rows, over sum |K||W|",
+          worst, 1e-4)
+    del got
+    ms = cuda_ms(lambda: it._bf16_stack_bmm(Ks, W[..., :9]), reps=5)
+    read_ms = q * n * n * 2 / PEAK_BYTES_PER_S * 1e3
+    print(f"  bf16 stack product, 9 right-hand sides: {ms:.3f} ms (read "
+          f"bound of the whole stack {read_ms:.3f} ms)")
+    print(f"  peak memory with the stack: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del Ks, W, Wb
+    torch.cuda.empty_cache()
+
+    # K2 on factors of rank 17 with A Bfᵀ symmetric
+    A, Bf = symmetric_factors(rng, t, n, 17)
+    tile = ck._build.library().plmc_tile_size()
+    slots = ck.reduce_sym_slots_shape(q, n, ck.reduce_width(d), tile)
+    print(f"  K2 slot buffer {slots}: {math.prod(slots) * 4 / 1e9:.2f} GB "
+          f"({math.prod(slots):,} floats)")
+    torch.cuda.reset_peak_memory_stats()
+    run_k2 = lambda: ck.lowrank_stationary_reduce_sym(  # noqa: E731
+        x, ls, A, Bf, KIND, device=dev)
+    rows, wx = run_k2()
+    rep = run_k2()
+    torch.cuda.synchronize()
+    print(f"  K2 peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"GB; repeat bitwise equal: "
+          f"{torch.equal(rows, rep[0]) and torch.equal(wx, rep[1])}")
+    for i0, i1 in p_blocks(n):
+        d2 = ck._sqdist_scaled(x[i0:i1], x, ls)
+        Wm = torch.matmul(A[:, i0:i1], Bf.transpose(-1, -2)) \
+            * ck.dprofile(KIND, d2)
+        want = (Wm.sum(-1), torch.matmul(Wm, x))
+        del d2, Wm
+        err = max(float((g[:, i0:i1] - w).abs().max())
+                  for g, w in zip((rows, wx), want))
+        check(f"K2 n={n} rows {i0}..{i1 - 1}, every latent", err,
+              1e-4 * max(float(w.abs().max()) for w in want))
+    ms = cuda_ms(run_k2, reps=3, warmup=1)
+    print(f"  K2 at n={n} d={d} r=17: {ms:.3f} ms")
+    del A, Bf, rows, wx, rep
+    torch.cuda.empty_cache()
+
+    # K3: the Nyström roots' K(x, z) at the full n
+    idx = torch.as_tensor(np.linspace(0, n - 1, 256).astype(np.int64),
+                          device=dev)
+    got = ck.kernel_matrix(x, x[idx], ls, KIND, device=dev)
+    err = float((got - ck.kernel_matrix_plain(x, x[idx], ls, KIND))
+                .abs().max())
+    check(f"K3 kernel_matrix ({q},{n},256)", err, 1e-4)
+    k3_is_k6(torch, ck, dev, got, x, x[idx], ls,
+             torch.ones(q, dtype=torch.float32, device=dev))
+
+
 def path_n_phase(torch, pl, ck, dev, build_dir, card, totals):
     """Path N: K3 at the examples' shapes against its plain version, then
     each example of ``examples_torch/`` on the card as a subprocess, with
@@ -6301,11 +6423,12 @@ def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--only", choices=("M", "N", "O"),
+        "--only", choices=("M", "N", "O", "P"),
         help="build the kernels and run path M (its kernel checks, "
-             "references and spawn) or path N (the examples) alone, or "
-             "path O (the log-density's gradient; no build) alone; prints "
-             "no kernels line or result line")
+             "references and spawn), path N (the examples) or path P (the "
+             "kernels at n = 44,484) alone, or path O (the log-density's "
+             "gradient; no build) alone; prints no kernels line or result "
+             "line")
     only = parser.parse_args().only
     import torch
     if not torch.cuda.is_available():
@@ -6355,6 +6478,12 @@ def main() -> int:
         print("path M alone: the LMC and ICM families under the mesh")
         path_m_phase(torch, pl, ck, dev, {k: 0 for k in wrappers(ck)})
         print(f"chip_smoke: path M passed in "
+              f"{time.perf_counter() - start:.1f} s")
+        return 0
+    if only == "P":
+        print(f"path P alone: K1, K2 and K3 at n={N_P}, d={DE}, q={Q}")
+        path_p_phase(torch, ck, it, dev)
+        print(f"chip_smoke: path P passed in "
               f"{time.perf_counter() - start:.1f} s")
         return 0
     if only == "N":

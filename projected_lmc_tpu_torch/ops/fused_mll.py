@@ -30,6 +30,10 @@ int8 × int8 → int32, and the backward takes the stack route. With
 (``lowrank_stationary_reduce``) gives the reductions, always on the stack
 route.
 
+Spans (``utils.profiling``): the CG loop is ``mll.pcg`` and each stack
+product ``mll.stack_product`` (``ops.iterative``); the stack route's
+reduction (K2, or K7 on the full grid) is ``mll.ls_reduce``.
+
 Under a mesh (``rows``, a ``parallel.mesh.RowBlock``) a rank builds only
 its block of the stack, its latents' rows r0..r1 − 1 against all n points:
 K6 (``scaled_kernel_stack``) on (xc[r0:r1], xc), bitwise those rows of K1's
@@ -60,6 +64,7 @@ import os
 import torch
 
 from ..utils.device import check_device
+from ..utils.profiling import span
 from . import cuda_kernels as ck
 from . import iterative as it
 
@@ -226,7 +231,9 @@ class _FusedStationaryLogProb(torch.autograd.Function):
                 KR = it._stack_matmul(Ks, R3)
             reduce = ck.lowrank_stationary_reduce_sym if ctx.sym \
                 else ck.lowrank_stationary_reduce
-            rows, wx = reduce(xc, ls, Afac, Bfac, ctx.kind, device=ctx.device)
+            with span("mll.ls_reduce"):
+                rows, wx = reduce(xc, ls, Afac, Bfac, ctx.kind,
+                                  device=ctx.device)
         else:
             # Afac's columns are those of [Ah, WH, ZH]: KA (q, n, r) is the
             # stack product, transposed

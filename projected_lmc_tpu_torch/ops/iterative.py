@@ -42,7 +42,7 @@ import math
 import numpy as np
 import torch
 
-from ..utils.profiling import count
+from ..utils.profiling import count, recording, span
 from .cholesky import cholesky_nan, safe_cholesky
 
 # aten::bmm.dtype: a bf16 x bf16 batched product with an fp32 result (CUDA)
@@ -66,14 +66,16 @@ def _bf16_stack_bmm(Ks, Wq):
 
 def _stack_matmul(Ks, W):
     """K_b @ W[..., b] for every latent, in the stack's native layout:
-    W (..., n, q) → (..., n, q), fp32-accumulated for a bf16 stack."""
+    W (..., n, q) → (..., n, q), fp32-accumulated for a bf16 stack. The
+    span ``mll.stack_product``."""
     single = W.dim() == 2
     Wt = W[None] if single else W                       # (r, n, q)
     Wq = Wt.permute(2, 1, 0)                            # (q, n, r)
-    if Ks.dtype == torch.bfloat16:
-        Z = _bf16_stack_bmm(Ks, Wq)
-    else:
-        Z = torch.bmm(Ks, Wq)
+    with span("mll.stack_product"):
+        if Ks.dtype == torch.bfloat16:
+            Z = _bf16_stack_bmm(Ks, Wq)
+        else:
+            Z = torch.bmm(Ks, Wq)
     out = Z.permute(2, 1, 0)                            # (r, n, q)
     return out[0] if single else out
 
@@ -281,8 +283,34 @@ def pcg_with_tridiag(matvec, B, minv, max_iters: int, tol: float):
     Here exactly ``max_iters`` masked iterations run with no host sync: a
     converged or broken-down RHS is frozen by ``skip`` and its later steps
     are recorded inactive, which ``_tridiag_logquad`` masks out, so the
-    leftover iterations leave every output as the early exit would."""
-    K = max_iters
+    leftover iterations leave every output as the early exit would.
+
+    Two guards. A RHS whose pAp ≤ 0 (low-precision operator noise)
+    restarts from steepest descent (P ← Z), as in the JAX loop. A RHS whose
+    step α = rz/pAp is not finite or is ≤ 1e-30 (a NaN or infinite pAp or
+    rz, or a curvature that swamps rz) is frozen for good at its last
+    iterate, as a converged one: the JAX loop lets such a step through, and
+    its NaN or 1/α ≈ 1e30 then reaches the tridiagonal's eigh. A run whose
+    steps are all finite and above 1e-30 freezes nothing and keeps every
+    bit of the JAX loop's result.
+
+    The loop is the span ``mll.pcg``. While a profiler records it counts,
+    on the device, ``cg.solves`` (the r right-hand sides), ``cg.iters``
+    (their active steps) and ``cg.frozen`` (those frozen by the second
+    guard), read only when the profiling store is read."""
+    with span("mll.pcg"):
+        X, alphas, betas, active, rz0, frozen = _pcg_loop(
+            matvec, B, minv, max_iters, tol)
+        if recording():
+            count("cg.solves", B.shape[0])
+            count("cg.iters", active.sum())
+            count("cg.frozen", frozen.sum())
+    return X, alphas, betas, active, rz0
+
+
+def _pcg_loop(matvec, B, minv, K, tol):
+    """:func:`pcg_with_tridiag`'s iterations; also returns the (r,) mask of
+    the right-hand sides frozen by the second guard."""
 
     def dot(a, b):
         return (a * b).sum(dim=(-2, -1))                    # (r,)
@@ -299,15 +327,21 @@ def pcg_with_tridiag(matvec, B, minv, max_iters: int, tol: float):
     betas = torch.zeros((K, r), dtype=B.dtype, device=B.device)
     active = torch.zeros((K, r), dtype=torch.bool, device=B.device)
     done = torch.zeros((r,), dtype=torch.bool, device=B.device)
+    frozen = torch.zeros((r,), dtype=torch.bool, device=B.device)
     for it in range(K):
         Ap = matvec(P)
         pAp = dot(P, Ap)
-        # breakdown guard: low-precision operator noise can push pAp ≤ 0;
-        # such RHS restart from steepest descent (P ← Z)
+        step = rz / torch.clamp(pAp, min=1e-30)
+        # restart: low-precision operator noise can push pAp ≤ 0; such RHS
+        # restart from steepest descent (P ← Z)
         brk = (pAp <= 0.0) & ~done
+        # freeze: a step that is NaN, infinite or ≤ 1e-30 (comparisons
+        # with NaN are false, so a NaN pAp lands here, not in brk)
+        frz = ~(done | brk) & ~(torch.isfinite(step) & (step > 1e-30))
+        frozen = frozen | frz
+        done = done | frz
         skip = done | brk
-        alpha = torch.where(skip, torch.ones_like(rz),
-                            rz / torch.clamp(pAp, min=1e-30))
+        alpha = torch.where(skip, torch.ones_like(rz), step)
         upd = (~skip)[:, None, None]
         X = torch.where(upd, X + alpha[:, None, None] * P, X)
         Rn = torch.where(upd, Rr - alpha[:, None, None] * Ap, Rr)
@@ -322,22 +356,29 @@ def pcg_with_tridiag(matvec, B, minv, max_iters: int, tol: float):
         active[it] = ~skip
         rel = torch.sqrt(torch.clamp(dot(Rn, Rn), min=0.0)) / bnorm
         done = done | (rel < tol)
-        # converged RHS keep their rz; restarted ones re-seed from rzn
+        # converged and frozen RHS keep their rz; restarted ones re-seed
+        # from rzn
         rz = torch.where(done, rz, rzn)
         Rr = Rn
-    return X, alphas, betas, active, rz0
+    return X, alphas, betas, active, rz0, frozen
 
 
 def _tridiag_logquad(alphas, betas, active):
     """e₁ᵀ log(T_K) e₁ per RHS from the CG coefficients, (r,). Inactive steps
-    pad T with an identity block, which adds exactly nothing."""
+    pad T with an identity block, which adds exactly nothing. An active
+    step whose α is ≤ 1e-30 or whose diagonal entry is not finite is left
+    out with every later step of its column (a breakdown that the PCG's
+    guards did not stop): no non-finite entry, and no 1/α ≈ 1e30, reaches
+    the eigh. Where every active step is sound this changes nothing."""
     K, r = alphas.shape
     one = torch.ones((1, r), dtype=alphas.dtype, device=alphas.device)
     a_prev = torch.cat([one, alphas[:-1]])
     b_prev = torch.cat([torch.zeros_like(one), betas[:-1]])
-    diag = torch.where(active, 1.0 / torch.clamp(alphas, min=1e-30)
-                       + b_prev / torch.clamp(a_prev, min=1e-30),
-                       torch.ones_like(alphas))
+    diag = 1.0 / torch.clamp(alphas, min=1e-30) \
+        + b_prev / torch.clamp(a_prev, min=1e-30)
+    bad = active & ~(torch.isfinite(diag) & (alphas > 1e-30))
+    active = active & (torch.cumsum(bad.to(torch.int32), 0) == 0)
+    diag = torch.where(active, diag, torch.ones_like(alphas))
     act_next = torch.cat([active[1:], torch.zeros_like(active[:1])])
     off = torch.where(act_next & active,
                       torch.sqrt(torch.clamp(betas, min=0.0))

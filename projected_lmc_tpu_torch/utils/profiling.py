@@ -49,12 +49,18 @@ The spans: ``fit.step`` (trace id the step's index), ``fit.forward``,
 backward, or the Gaussian log-density's closed form, ``ops.cholesky``); ``predict`` (``ProjectedGPModel.predict``, trace id the
 request's ordinal), ``predict.noise`` (its task noise) and
 ``predict.solve`` (the n*-column triangular solve of
-``ExactGPModel.posterior``). The counters: ``host_read``, one at each
+``ExactGPModel.posterior``); ``mll.pcg`` (the MLL's PCG loop with its
+M⁻¹ applies, ``ops.iterative.pcg_with_tridiag``), ``mll.stack_product``
+(each product with a materialized kernel stack, in the CG and in the
+backward) and ``mll.ls_reduce`` (the fused MLL's lengthscale reduction,
+K2 or K7, in its backward). The counters: ``host_read``, one at each
 place where the host reads a device value and so waits for the device;
 ``cholesky.try``, one a factorization the ladder attempts, and
 ``cholesky.factor``, one a factor it returns; ``cholesky.pullback``, one a
 pullback of either kind, and ``cholesky.pullback.closed_form``, one a
-closed-form one. The benchmark's per-layer
+closed-form one; ``cg.solves``, ``cg.iters`` and ``cg.frozen``, the PCG's
+right-hand sides, their active steps and those frozen by its breakdown
+guard, added up on the card. The benchmark's per-layer
 metrics (``benchmark/metrics/``) read them after a traced run.
 """
 
@@ -172,9 +178,17 @@ def span(name: str, trace_id=None):
     return _Span(name, trace_id)
 
 
-def count(name: str, k: int = 1):
+def recording() -> bool:
+    """Whether a ``torch.profiler`` records in this process: the one switch
+    of spans and counters, for a caller whose count costs work to form."""
+    return _recording()
+
+
+def count(name: str, k=1):
     """Add ``k`` to the counter ``name`` on the innermost open span while a
-    ``torch.profiler`` records; else nothing."""
+    ``torch.profiler`` records; else nothing. ``k`` may be a tensor on the
+    card: it is added up there, and read once the store is read
+    (:func:`spans`, :func:`summary`), so counting waits for nothing."""
     if not _recording():
         return
     st = _STORE
@@ -213,9 +227,16 @@ def spans() -> list:
             r["device_ms"] = ev[0].elapsed_time(ev[1])
         d = {k: v for k, v in r.items() if k != "_events"}
         d.setdefault("device_ms", None)
-        d["counts"] = Counter(d["counts"])
+        d["counts"] = _numbers(d["counts"])
         out.append(d)
     return out
+
+
+def _numbers(counts) -> Counter:
+    """A copy of ``counts`` with the counts held in tensors read to
+    numbers."""
+    return Counter({k: v.item() if isinstance(v, torch.Tensor) else v
+                    for k, v in counts.items()})
 
 
 def summary(name: str = None) -> dict:
@@ -227,7 +248,7 @@ def summary(name: str = None) -> dict:
     ``name``, ``counts`` is every count in the store, loose ones too."""
     recs = spans()
     if name is None:
-        total = Counter(_STORE.loose)
+        total = _numbers(_STORE.loose)
         for r in recs:
             total.update(r["counts"])
         return dict(spans=len(recs), counts=total)
